@@ -1,0 +1,355 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (fspt_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each announced by one line:
+
+1. card: device name, and name + power limit from nvidia-smi;
+2. build: nvcc builds the kernels from fspt_tpu_torch/csrc (seconds,
+   registers and spills of each kernel from ``-Xptxas -v``);
+3-5. each kernel against its plain PyTorch version on the card
+   (fspt_tpu_torch/ops/kernel_check.py): the intersect kernel on 1 M random
+   segments; the rays-in and camera-fused path kernels on an
+   all-nine-families scene at 256×256, 4 spp, depth 8 (the latter with
+   depth of field and a lane0 band split that must be bit-exact);
+6. main path: ``fspt_tpu_torch.cli`` renders scenes/cornell.scene at
+   1024×1024, 4 spp, depth 8, 4 frames; the camera-fused kernel's launch
+   count must rise by 4 and the image must be lit;
+7. the dispatch path (camera-dynamic steps through the intersect kernel)
+   and the rays-in path (generate_rays + the rays-in kernel), two frames
+   each at 512×512, with their kernels' launch counts checked;
+8. timings at the headline size (flagship Cornell, 1024²×4 spp, depth 8)
+   with CUDA events, beside the plain versions (each kernel is also held
+   against its plain version at these shapes) and the bound; then the CLI's
+   frame step end to end, and a profiler window for the device busy share;
+9. one JSON line of per-kernel numbers; then the card line; the last line
+   is ``{"ok": true, "device": {...}}``.
+
+Any failure raises and the script exits non-zero.  Outputs (image,
+profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "chip_smoke"
+
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def phase(msg):
+    print(f"== {msg}", flush=True)
+
+
+def cuda_time_ms(fn, iters, warmup=1):
+    """Mean milliseconds per call, from CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(ops, nbytes):
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_report(log):
+    """kernel name → 'N registers, S bytes spill stores, L bytes spill loads'."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = next((k for k in ("intersect_kernel", "camera_path_kernel",
+                                        "ray_path_kernel") if k in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(current, {})["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(current, {})["registers"] = int(m.group(1))
+    return out
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 1
+
+    from fspt_tpu_torch import cli
+    from fspt_tpu_torch.camera import generate_rays
+    from fspt_tpu_torch.config import RenderConfig
+    from fspt_tpu_torch.ops import _build, cuda_path, cuda_trace, kernel_check, rng
+    from fspt_tpu_torch.render import framebuffer as fb_mod
+    from fspt_tpu_torch.render.dispatch import make_scene_step
+    from fspt_tpu_torch.scene import samples
+    from fspt_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda")
+    counters = {"intersect": cuda_trace.INTERSECT,
+                "camera_path": cuda_path.CAMERA_PATH,
+                "ray_path": cuda_path.RAY_PATH}
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    # 1. card
+    phase("card")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    smi = smi[0] if smi else "nvidia-smi gave nothing"
+    print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    # 2. build
+    phase("build (nvcc, sm_90a)")
+    t0 = time.time()
+    _build.library()
+    build_s = time.time() - t0
+    regs = ptxas_report(_build.ptxas_log())
+    print(f"build: {build_s:.1f} s (0 if the library for these sources existed)")
+    for k, v in regs.items():
+        print(f"ptxas {k}: {v.get('registers')} registers, spill stores/loads "
+              f"{v.get('spill')} bytes")
+    for k in ("intersect_kernel", "camera_path_kernel", "ray_path_kernel"):
+        assert k in regs, f"no ptxas report for {k}"
+
+    report = {}
+
+    # 3. kernel 1 against its plain version
+    phase("kernel 1 (intersect) vs plain: 1M random segments, all-primitive scene")
+    prim = samples.build("all_primitives", device=dev).compile(device=dev)
+    start, seg = kernel_check.random_segments(1 << 20, seed=1, device=dev)
+    report["intersect"] = kernel_check.check_intersect(prim.geometry, start, seg)
+    print(json.dumps(report["intersect"]), flush=True)
+
+    # 4. kernel 3 against its plain version
+    cfg256 = RenderConfig(width=256, height=256, spp=4, max_depth=8)
+    phase("kernel 3 (ray_path) vs plain: all families, 256x256x4, depth 8")
+    fam = samples.build("all_families", device=dev)
+    report["ray_path"] = kernel_check.check_path_tracer(
+        fam.compile(device=dev), fam.cameras[0], cfg256, seed=4)
+    print(json.dumps(report["ray_path"]), flush=True)
+
+    # 5. kernel 2 against its plain version, with DoF and the band split
+    phase("kernel 2 (camera_path) vs plain: all families + DoF, 256x256x4, depth 8")
+    famd = samples.build("all_families", device=dev, aperture=1.5, focal_depth=120.0)
+    report["camera_path"] = kernel_check.check_camera_tracer(
+        famd.compile(device=dev), famd.cameras[0], cfg256, seed=5, sample0=2)
+    print(json.dumps(report["camera_path"]), flush=True)
+
+    # 6. main path: the CLI
+    phase("main path: fspt_tpu_torch.cli, scenes/cornell.scene 1024x1024, 4 spp, "
+          "depth 8, 4 frames")
+    OUT.mkdir(parents=True, exist_ok=True)
+    image = OUT / "cornell_1024.png"
+    ckpt_path = OUT / "cornell_1024.npz"
+    image.unlink(missing_ok=True)
+    ckpt_path.unlink(missing_ok=True)
+    reset_counts()
+    rc = cli.main(["--file", str(ROOT / "scenes" / "cornell.scene"),
+                   "--width", "1024", "--height", "1024", "--spp", "4",
+                   "--depth", "8", "--frames", "4", "--seed", "0",
+                   "--output", str(image), "--checkpoint", str(ckpt_path)])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"main path launches: {launches}")
+    assert rc == 0
+    assert launches["camera_path"] == 4, launches
+    assert image.exists() and image.stat().st_size > 0
+    fb, frame = checkpoint.load(str(ckpt_path), device=dev)
+    ckpt_path.unlink()  # 50 MB at this size: keep only the image
+    assert frame == 4 and torch.isfinite(fb.mean).all()
+    display_mean = fb_mod.to_display(fb.mean).float().mean().item()
+    print(f"display mean {display_mean:.2f} (below 15 means a broken render)")
+    assert display_mean > 15.0, display_mean
+    path_launches = {"camera_path": launches["camera_path"]}
+
+    # 7. dispatch path and rays-in path
+    cfg512 = RenderConfig(width=512, height=512, spp=1, max_depth=8)
+    corn = samples.build("flagship", device=dev)
+    flag_scene, flag_cam = corn.compile(device=dev), corn.cameras[0]
+    phase("dispatch path: make_scene_step, flagship 512x512x1, depth 8, 2 frames")
+    name_d, step = make_scene_step(flag_scene, cfg512)
+    reset_counts()
+    fb = fb_mod.create(512, 512, device=dev)
+    for f in range(2):
+        fb, segs = step(flag_scene, flag_cam, fb, 0, f)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"{name_d}: launches {launches}, last-frame segments {int(segs)}")
+    assert launches["intersect"] == cfg512.max_depth * 2, launches
+    assert torch.isfinite(fb.mean).all()
+    path_launches["intersect"] = launches["intersect"]
+    dispatch_mean = fb.mean.mean().item()
+
+    phase("rays-in path: generate_rays + make_path_tracer, flagship 512x512x1, "
+          "depth 8, 2 frames")
+    tracer3 = cuda_path.make_path_tracer(flag_scene, cfg512, z_far=float(flag_cam.z_far))
+    reset_counts()
+    fb = fb_mod.create(512, 512, device=dev)
+    for f in range(2):
+        r = generate_rays(flag_cam, 512, 512, 1, 0, f)
+        out = tracer3(*r, 0)
+        fb = fb_mod.accumulate(fb, out.radiance, out.aov_normal, out.aov_depth,
+                               out.aov_mat, 512, 512, 1)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"rays-in launches {launches}; mean {fb.mean.mean().item():.5f} vs "
+          f"dispatch path {dispatch_mean:.5f}")
+    assert launches["ray_path"] == 2, launches
+    # Same estimator, same streams: the two paths agree to float noise.
+    assert abs(fb.mean.mean().item() - dispatch_mean) <= 1e-2 * max(dispatch_mean, 1e-6)
+    path_launches["ray_path"] = launches["ray_path"]
+
+    # 8. timing at the headline size, each kernel also held against its
+    # plain version at these shapes
+    phase("timing: flagship Cornell 1024x1024x4, depth 8 (CUDA events)")
+    cfg = RenderConfig(width=1024, height=1024, spp=4, max_depth=8)
+    n = cfg.width * cfg.height * cfg.spp
+    hs = cuda_trace.HostScene(flag_scene.geometry)
+    mats = cuda_path.HostMaterials(flag_scene.materials)
+    seg_ops = hs.segment_ops()
+    timings = {}
+
+    tracer2 = cuda_path.make_camera_path_tracer(flag_scene, flag_cam, cfg)
+    cam = cuda_path.HostCamera(flag_cam, cfg.width, cfg.height)
+    raygen = cuda_path.build_fused_raygen(cam, cfg)
+    core = cuda_path.build_path_core(hs, mats, cfg, int(flag_scene.sky_mat), cam.z_far)
+    h0 = rng.seed_hash(0)
+    full = kernel_check.compare_paths(
+        tracer2(0, 0), cuda_path.planes_to_output(core(h0, *raygen(h0, 0, 0, n, dev))))
+    segments = full["segments"]
+    print(f"camera_path vs plain at 1024x1024x4: {json.dumps(full)}")
+    ms2 = cuda_time_ms(lambda: tracer2(0, 0), iters=10, warmup=2)
+    plain2 = cuda_time_ms(lambda: core(h0, *raygen(h0, 0, 0, n, dev)), iters=1)
+    b2, by2 = bound_ms(segments * seg_ops, n * 36)
+    timings["camera_path"] = dict(ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
+                                  max_abs_err=full["max_abs_err"])
+    print(f"camera_path: {ms2:.3f} ms/frame, {segments} segments/frame, "
+          f"{segments / (ms2 * 1e-3):.4g} segments/s; plain {plain2:.1f} ms; "
+          f"bound {b2:.4f} ms ({by2}: {seg_ops} ops/segment lower bound)", flush=True)
+
+    start, seg, pix, smp = generate_rays(flag_cam, cfg.width, cfg.height, cfg.spp, 0, 0)
+    tracer3 = cuda_path.make_path_tracer(flag_scene, cfg, z_far=float(flag_cam.z_far))
+
+    def plain3_fn():
+        return core(h0, start[:, 0], start[:, 1], start[:, 2],
+                    seg[:, 0], seg[:, 1], seg[:, 2], pix, smp)
+
+    full3 = kernel_check.compare_paths(tracer3(start, seg, pix, smp, 0),
+                                       cuda_path.planes_to_output(plain3_fn()))
+    seg3 = full3["segments"]
+    print(f"ray_path vs plain at 1024x1024x4: {json.dumps(full3)}")
+    ms3 = cuda_time_ms(lambda: tracer3(start, seg, pix, smp, 0), iters=10, warmup=2)
+    plain3 = cuda_time_ms(plain3_fn, iters=1)
+    b3, by3 = bound_ms(seg3 * seg_ops, n * (24 + 8 + 36))
+    timings["ray_path"] = dict(ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
+                               max_abs_err=full3["max_abs_err"])
+    print(f"ray_path: {ms3:.3f} ms/frame, {seg3} segments, "
+          f"{seg3 / (ms3 * 1e-3):.4g} segments/s; plain {plain3:.1f} ms; "
+          f"bound {b3:.4f} ms ({by3})", flush=True)
+
+    n1 = 1 << 22
+    s1, d1 = kernel_check.random_segments(n1, seed=2, device=dev)
+    full1 = kernel_check.check_intersect(flag_scene.geometry, s1, d1)
+    print(f"intersect vs plain at 4M segments: {json.dumps(full1)}")
+    ms1 = cuda_time_ms(lambda: cuda_trace.launch_intersect(hs, s1, d1), iters=20, warmup=2)
+    plain1 = cuda_time_ms(lambda: cuda_trace.plain_intersect(hs, s1, d1), iters=2)
+    b1, by1 = bound_ms(n1 * seg_ops, n1 * (24 + 32))
+    timings["intersect"] = dict(ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+                                max_abs_err=full1["max_abs_err"])
+    print(f"intersect: {ms1:.3f} ms for {n1} segments, {n1 / (ms1 * 1e-3):.4g} "
+          f"segments/s; plain {plain1:.1f} ms; bound {b1:.4f} ms ({by1})", flush=True)
+
+    # 8b. the CLI's frame step end to end: kernel 2 + framebuffer.accumulate
+    phase("end to end: CLI frame step (camera_path + accumulate), flagship 1024x1024x4")
+    state = {"fb": fb_mod.create(cfg.height, cfg.width, device=dev), "frame": 0}
+
+    def cli_step():
+        out = tracer2(0, state["frame"] * cfg.spp)
+        state["fb"] = fb_mod.accumulate(state["fb"], out.radiance, out.aov_normal,
+                                        out.aov_depth, out.aov_mat,
+                                        cfg.height, cfg.width, cfg.spp)
+        state["frame"] += 1
+
+    step_ms = cuda_time_ms(cli_step, iters=10, warmup=2)
+    print(f"frame step: {step_ms:.3f} ms, {segments / (step_ms * 1e-3):.4g} segments/s "
+          f"end to end", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            cli_step()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # Kernel-level events only: an aten op's device time repeats its kernels'.
+    dev_us = {e.key: e.self_device_time_total for e in events
+              if e.device_type == DeviceType.CUDA}
+    busy_us = sum(dev_us.values())
+    kernel_us = sum(v for k, v in dev_us.items() if "camera_path_kernel" in k)
+    print(f"profile of 5 frame steps: window {window_us:.0f} us, device busy "
+          f"{busy_us:.0f} us ({busy_us / window_us:.1%}), camera_path_kernel "
+          f"{kernel_us:.0f} us ({kernel_us / max(busy_us, 1e-9):.1%} of device time)")
+    (OUT / "profile_frame_step.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=15))
+    assert kernel_us > 0, "the profiler saw no camera_path_kernel time"
+
+    # 9. the kernels line, the card line, the result
+    phase("kernels")
+    sources = {"intersect": "fspt_tpu_torch/csrc/fspt_kernels.cu (intersect_kernel)",
+               "camera_path": "fspt_tpu_torch/csrc/fspt_kernels.cu (camera_path_kernel)",
+               "ray_path": "fspt_tpu_torch/csrc/fspt_kernels.cu (ray_path_kernel)"}
+    kernels = []
+    for key, c in counters.items():
+        t = timings[key]
+        reg = regs[f"{key}_kernel"]
+        kernels.append(dict(
+            name=key, route="cuda", source=sources[key],
+            replaces=c.replaces, launches=path_launches[key],
+            max_abs_err=max(report[key]["max_abs_err"], t["max_abs_err"]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None, ported=True, registers=reg.get("registers"),
+            spill_bytes=reg.get("spill")))
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

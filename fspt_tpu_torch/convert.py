@@ -1,0 +1,53 @@
+"""Carry render state from the JAX package into the port.
+
+The path tracer's counterpart of carrying weights across: a reference
+``ScenePack``, ``Camera`` or ``Framebuffer`` whose leaves are NumPy arrays
+(or anything ``numpy.asarray`` takes) becomes the port's tensors on
+``device``.  Fields are read by name, so the reference's NamedTuples pass
+as they are; nothing of the JAX package is imported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fspt_tpu_torch.camera import Camera
+from fspt_tpu_torch.config import resolve_device
+from fspt_tpu_torch.materials import MaterialTable, TexturePack
+from fspt_tpu_torch.render.framebuffer import Framebuffer
+from fspt_tpu_torch.scene.builder import ScenePack
+from fspt_tpu_torch.scene.geometry import GeometryPack
+
+
+def _tensors(cls, tree, dev):
+    return cls(**{name: torch.from_numpy(np.array(getattr(tree, name))).to(dev)
+                  for name in cls._fields})
+
+
+def scene_from_numpy(tree, device=None) -> ScenePack:
+    """A reference ScenePack (NumPy leaves) → the port's ScenePack.
+
+    Raises NotImplementedError for a BVH scene (the mesh slice's work).
+    """
+    if getattr(tree, "bvh", None) is not None:
+        raise NotImplementedError("BVH scenes come with the mesh slice of the port")
+    dev = resolve_device(device)
+    return ScenePack(
+        geometry=_tensors(GeometryPack, tree.geometry, dev),
+        materials=_tensors(MaterialTable, tree.materials, dev),
+        textures=_tensors(TexturePack, tree.textures, dev),
+        sky_mat=torch.tensor(int(np.asarray(tree.sky_mat)), dtype=torch.int32, device=dev),
+    )
+
+
+def camera_from_numpy(tree, device=None) -> Camera:
+    """A reference Camera (NumPy leaves) → the port's Camera."""
+    dev = resolve_device(device)
+    return Camera(**{name: torch.from_numpy(
+        np.array(getattr(tree, name), np.float32)).to(dev) for name in Camera._fields})
+
+
+def framebuffer_from_numpy(tree, device=None) -> Framebuffer:
+    """A reference Framebuffer (NumPy leaves) → the port's Framebuffer."""
+    return _tensors(Framebuffer, tree, resolve_device(device))

@@ -1,0 +1,196 @@
+// The port's CUDA kernels and their plain C launchers (loaded with ctypes by
+// ops/_build.py).  Each launcher enqueues on the caller's stream and returns
+// cudaGetLastError(); the Python wrapper raises on anything but 0.
+//
+//   fspt_intersect    closest hit per segment     replaces pallas_trace.py
+//                                                  make_pallas_intersector
+//   fspt_camera_path  camera-fused path tracer    replaces pallas_path.py
+//                                                  make_camera_path_tracer
+//   fspt_ray_path     path tracer, rays in memory replaces pallas_path.py
+//                                                  make_path_tracer
+//
+// One thread per lane, a masked ragged tail, blocks of 256 (intersect) and
+// 128 (path) threads.  All three are bound by arithmetic, not bytes: the
+// only device-memory traffic is each lane's ray in (or nothing, for the
+// camera-fused kernel) and its outputs, while the intersect walks every
+// primitive of the scene for every segment.  The tables are read as warp
+// broadcasts; per-lane state stays in registers.
+
+#include "fspt_kernels.cuh"
+
+namespace fspt {
+
+constexpr int kIntersectBlock = 256;
+constexpr int kPathBlock = 128;
+
+__global__ void __launch_bounds__(kIntersectBlock)
+intersect_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                 int n_prims, const float* __restrict__ start,
+                 const float* __restrict__ seg, int n, float* __restrict__ t,
+                 float* __restrict__ normal, int* __restrict__ mat,
+                 int* __restrict__ kind, float* __restrict__ uv) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Hit h = intersect_lanes<true>(
+      prims, meta, n_prims, start[3 * i], start[3 * i + 1], start[3 * i + 2],
+      seg[3 * i], seg[3 * i + 1], seg[3 * i + 2]);
+  t[i] = h.t;
+  normal[3 * i] = h.nx;
+  normal[3 * i + 1] = h.ny;
+  normal[3 * i + 2] = h.nz;
+  mat[i] = h.mat;
+  kind[i] = h.kind;
+  uv[2 * i] = h.u;
+  uv[2 * i + 1] = h.v;
+}
+
+__device__ __forceinline__ void write_path(const PathOut& o, int i,
+                                           float* __restrict__ radiance,
+                                           float* __restrict__ normal,
+                                           float* __restrict__ depth,
+                                           int* __restrict__ aov_mat,
+                                           int* __restrict__ segcnt) {
+  radiance[3 * i] = o.L[0];
+  radiance[3 * i + 1] = o.L[1];
+  radiance[3 * i + 2] = o.L[2];
+  normal[3 * i] = o.aov_n[0];
+  normal[3 * i + 1] = o.aov_n[1];
+  normal[3 * i + 2] = o.aov_n[2];
+  depth[i] = o.aov_d;
+  aov_mat[i] = o.aov_m;
+  segcnt[i] = o.segcnt;
+}
+
+// build_fused_raygen (pallas_path.py:1109): lane -> pixel/sample ids, PCG
+// jitter, pinhole ray through the far-plane image, thin-lens DoF.
+__global__ void __launch_bounds__(kPathBlock)
+camera_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                   const float* __restrict__ mats,
+                   const int* __restrict__ mat_meta, const PathParams pp,
+                   const CamParams cp, uint32_t h0, int sample0, int lane0,
+                   int n, float* __restrict__ radiance,
+                   float* __restrict__ normal, float* __restrict__ depth,
+                   int* __restrict__ aov_mat, int* __restrict__ segcnt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int flat = lane0 + i;
+  const int s = flat % cp.spp;
+  const int pxy = flat / cp.spp;
+  const int x = pxy % cp.width;
+  const int y = pxy / cp.width;
+  const int pix = y * cp.width + x;
+  const int smp = s + sample0;
+  const uint32_t hs = sample_hash(h0, (uint32_t)pix, (uint32_t)smp);
+
+  const float u0 = uniform(hs, 0u);
+  const float u1 = uniform(hs, 1u);
+  const float xf = (float)x + (u0 - 0.5f);
+  const float yf = (float)y + (u1 - 0.5f);
+  const float x_dist = cp.half_w * ((xf * cp.inv_wm1) * 2.0f - 1.0f);
+  const float y_dist = cp.half_h * ((yf * cp.inv_hm1) * 2.0f - 1.0f);
+  const float stopx = cp.proj_origin[0] + cp.right[0] * x_dist + cp.up[0] * y_dist;
+  const float stopy = cp.proj_origin[1] + cp.right[1] * x_dist + cp.up[1] * y_dist;
+  const float stopz = cp.proj_origin[2] + cp.right[2] * x_dist + cp.up[2] * y_dist;
+  float sx = cp.origin[0], sy = cp.origin[1], sz = cp.origin[2];
+  float dx = stopx - sx, dy = stopy - sy, dz = stopz - sz;
+
+  if (cp.dof) {
+    // Thin-lens DoF (engine.cpp:221-244).
+    const float u2 = uniform(hs, 2u);
+    const float u3 = uniform(hs, 3u);
+    const float* fp = cp.focal_plane;
+    float ts = fp[0] * dx + fp[1] * dy + fp[2] * dz;
+    float ns = -(fp[0] * sx + fp[1] * sy + fp[2] * sz + fp[3]);
+    bool not_par = fabsf(ts) >= kEps;
+    float tf = ns / (not_par ? ts : 1.0f);
+    bool valid = not_par && (tf >= 0.0f) && (tf <= 1.0f);
+    float fx = sx + dx * tf, fy = sy + dy * tf, fz = sz + dz * tf;
+    float angle = u2 * kTwoPi;
+    float mag = sqrtf(u3) * cp.aperture;
+    float offc = cosf(angle) * mag;
+    float offs = sinf(angle) * mag;
+    float ox = cp.right[0] * offc + cp.up[0] * offs;
+    float oy = cp.right[1] * offc + cp.up[1] * offs;
+    float oz = cp.right[2] * offc + cp.up[2] * offs;
+    float nsx = sx + ox, nsy = sy + oy, nsz = sz + oz;
+    float ndx = fx - nsx, ndy = fy - nsy, ndz = fz - nsz;
+    norm3(ndx, ndy, ndz);
+    if (valid) {
+      sx = nsx; sy = nsy; sz = nsz;
+      dx = ndx * cp.z_far; dy = ndy * cp.z_far; dz = ndz * cp.z_far;
+    }
+  }
+
+  const PathOut o = trace_path(prims, meta, mats, mat_meta, pp, hs,
+                               sx, sy, sz, dx, dy, dz);
+  write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
+}
+
+__global__ void __launch_bounds__(kPathBlock)
+ray_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                const float* __restrict__ mats, const int* __restrict__ mat_meta,
+                const PathParams pp, const float* __restrict__ start,
+                const float* __restrict__ seg, const int* __restrict__ pixel,
+                const int* __restrict__ sample, uint32_t h0, int n,
+                float* __restrict__ radiance, float* __restrict__ normal,
+                float* __restrict__ depth, int* __restrict__ aov_mat,
+                int* __restrict__ segcnt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t hs = sample_hash(h0, (uint32_t)pixel[i], (uint32_t)sample[i]);
+  const PathOut o = trace_path(prims, meta, mats, mat_meta, pp, hs,
+                               start[3 * i], start[3 * i + 1], start[3 * i + 2],
+                               seg[3 * i], seg[3 * i + 1], seg[3 * i + 2]);
+  write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
+}
+
+inline int blocks_for(int n, int block) { return (n + block - 1) / block; }
+
+}  // namespace fspt
+
+extern "C" {
+
+int fspt_intersect(const float* prims, const int* meta, int n_prims,
+                   const float* start, const float* seg, int n, float* t,
+                   float* normal, int* mat, int* kind, float* uv,
+                   void* stream) {
+  using namespace fspt;
+  if (n > 0) {
+    intersect_kernel<<<blocks_for(n, kIntersectBlock), kIntersectBlock, 0,
+                       (cudaStream_t)stream>>>(prims, meta, n_prims, start, seg,
+                                               n, t, normal, mat, kind, uv);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fspt_camera_path(const float* prims, const int* meta, const float* mats,
+                     const int* mat_meta, fspt::PathParams pp,
+                     fspt::CamParams cp, unsigned int h0, int sample0,
+                     int lane0, int n, float* radiance, float* normal,
+                     float* depth, int* aov_mat, int* segcnt, void* stream) {
+  using namespace fspt;
+  if (n > 0) {
+    camera_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, 0,
+                         (cudaStream_t)stream>>>(
+        prims, meta, mats, mat_meta, pp, cp, h0, sample0, lane0, n, radiance,
+        normal, depth, aov_mat, segcnt);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fspt_ray_path(const float* prims, const int* meta, const float* mats,
+                  const int* mat_meta, fspt::PathParams pp, const float* start,
+                  const float* seg, const int* pixel, const int* sample,
+                  unsigned int h0, int n, float* radiance, float* normal,
+                  float* depth, int* aov_mat, int* segcnt, void* stream) {
+  using namespace fspt;
+  if (n > 0) {
+    ray_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, 0,
+                      (cudaStream_t)stream>>>(
+        prims, meta, mats, mat_meta, pp, start, seg, pixel, sample, h0, n,
+        radiance, normal, depth, aov_mat, segcnt);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

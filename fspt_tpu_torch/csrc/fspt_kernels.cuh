@@ -1,0 +1,564 @@
+// Device functions of the port's path-tracing kernels (CUDA C++, sm_90a).
+//
+// One thread traces one lane.  The scene and the material table are packed
+// tables in device memory (ops/cuda_trace.py HostScene, ops/cuda_path.py
+// HostMaterials); every thread of a warp walks the same primitive row at the
+// same time, so each table load is a broadcast.  Nothing is baked per scene.
+//
+// The arithmetic follows the plain PyTorch versions (ops/cuda_trace.py
+// intersect_lanes, ops/cuda_path.py build_path_core / build_fused_raygen)
+// operation for operation and in the same order, compiled with -fmad=false
+// and without fast math, so the two agree bit for bit on almost every lane.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace fspt {
+
+// Constants as the reference rounds them: its Python float64 constants are
+// converted to float32 where they meet float32 data.
+constexpr float kPi = 3.14159262f;                      // math/base.h:80
+constexpr float kTwoPi = (float)(2.0 * 3.14159262);
+constexpr float kHalfPi = (float)(0.5 * 3.14159262);
+constexpr float kEps = 1.0e-5f;                          // math/base.h:83
+constexpr float kInvalid = 2.0f;                         // math/trace.cpp:18-21
+constexpr float kUnit24 = 1.0f / 16777216.0f;
+
+// Primitive kinds (merge order) and material families.
+enum { SPHERE = 0, PLANE = 1, DISC = 2, QUAD = 3, CUBOID = 4, TRIANGLE = 5 };
+enum { DIFFUSE = 0, LIGHT = 1, METAL = 2, MIRROR = 3, GLASS = 4, LIQUID = 5,
+       CERAMIC = 6, GLOW = 7, FOG = 8 };
+
+// Table layouts (must match ops/cuda_trace.py and ops/cuda_path.py).
+constexpr int kPrimStride = 32;   // floats per primitive row
+constexpr int kMatStride = 16;    // floats per material row
+// Material row: diffuse 0..2, emissive 3..5, glow 6..8, param 9, ior 10,
+// reflectivity 11, frost 12.  Material meta: (mtype, flags).
+constexpr int kFlagGlassStraight = 1;   // |ior - 1| < EPS
+constexpr int kFlagFrostFull = 2;       // |pi*frost - pi| < EPS
+constexpr int kFlagFrostNone = 4;       // |pi*frost| < EPS
+constexpr int kFlagMetalSmooth = 8;     // roughness <= 0.95
+
+struct PathParams {
+  float ray_offset;
+  float seg_scale;   // z_far - ray_offset
+  float z_far;
+  float light_clamp;
+  float sky_e[3];    // sky emission x3
+  int depth;
+  int bounce_slots;
+  int sky_idx;
+  int fast_render;
+  int n_prims;
+  int n_mats;
+};
+
+struct CamParams {
+  float origin[3];
+  float proj_origin[3];
+  float right[3];
+  float up[3];
+  float focal_plane[4];
+  float half_w, half_h, inv_wm1, inv_hm1;
+  float aperture;
+  float z_far;
+  int width;
+  int spp;
+  int dof;
+};
+
+// --- counter-based RNG (bit-identical to ops/rng.py) ----------------------
+
+__device__ __forceinline__ uint32_t pcg(uint32_t x) {
+  x = x * 747796405u + 2891336453u;
+  uint32_t word = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return (word >> 22u) ^ word;
+}
+
+// pcg(pcg(h0 + pixel) + sample): the prefix shared by a lane's draws.
+__device__ __forceinline__ uint32_t sample_hash(uint32_t h0, uint32_t pix,
+                                                uint32_t smp) {
+  return pcg(pcg(h0 + pix) + smp);
+}
+
+__device__ __forceinline__ float uniform(uint32_t hs, uint32_t ctr) {
+  return (float)(pcg(hs + ctr) >> 8u) * kUnit24;
+}
+
+// --- small vector helpers --------------------------------------------------
+
+__device__ __forceinline__ void norm3(float& x, float& y, float& z) {
+  float n2 = x * x + y * y + z * z;
+  float inv = n2 > 0.0f ? rsqrtf(n2) : 0.0f;
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+__device__ __forceinline__ float pow25(float x) {
+  float x2 = x * x;
+  float x4 = x2 * x2;
+  float x8 = x4 * x4;
+  float x16 = x8 * x8;
+  return x16 * x8 * x;
+}
+
+// Polynomial atan2 of the reference (pallas_trace.py:101-118), not atan2f.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  float ax = fabsf(x), ay = fabsf(y);
+  float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  float z = mn / (mx > 0.0f ? mx : 1.0f);
+  float z2 = z * z;
+  float p = z * (0.9998660f + z2 * (-0.3302995f + z2 * (0.1801410f
+                 + z2 * (-0.0851330f + z2 * 0.0208351f))));
+  float r = ay > ax ? kHalfPi - p : p;
+  r = x < 0.0f ? kPi - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+// --- closest hit over the primitive table ---------------------------------
+
+struct Hit {
+  float t, nx, ny, nz;
+  int mat, kind;
+  float u, v;
+};
+
+// Strict-< merge: the first primitive wins ties (the reference's order).
+__device__ __forceinline__ void merge(Hit& h, float t, bool valid, float nx,
+                                      float ny, float nz, int mat, int kind) {
+  if (valid && t < h.t) {
+    h.t = t; h.nx = nx; h.ny = ny; h.nz = nz; h.mat = mat; h.kind = kind;
+  }
+}
+
+// intersect_lanes (pallas_trace.py:189): closest hit of the segment
+// start + seg*t, t in [0,1], over n_prims packed rows.  kTex adds the
+// texcoords of the winner (sphere map, planar map, cuboid x0.1, triangle
+// barycentric); the path body does not need them.
+template <bool kTex>
+__device__ __forceinline__ Hit intersect_lanes(const float* __restrict__ prims,
+                               const int* __restrict__ meta, int n_prims,
+                               float sx, float sy, float sz,
+                               float dx, float dy, float dz) {
+  Hit h{kInvalid, 0.0f, 0.0f, 0.0f, -1, -1, 0.0f, 0.0f};
+  for (int p = 0; p < n_prims; ++p) {
+    const float* q = prims + p * kPrimStride;
+    const int kind = __ldg(meta + 2 * p);
+    const int mat = __ldg(meta + 2 * p + 1);
+    if (kind == SPHERE) {
+      const float c0 = __ldg(q), c1 = __ldg(q + 1), c2 = __ldg(q + 2);
+      const float r = __ldg(q + 3), inv_r = __ldg(q + 4);
+      float ox = sx - c0, oy = sy - c1, oz = sz - c2;
+      float a = dx * dx + dy * dy + dz * dz;
+      float b = 2.0f * (ox * dx + oy * dy + oz * dz);
+      float oc2 = ox * ox + oy * oy + oz * oz;
+      float rr = r * r;
+      float cc = oc2 - rr;
+      float disc = b * b - 4.0f * a * cc;
+      float sq = sqrtf(disc >= 0.0f ? disc : 1.0f);
+      bool inside = oc2 <= rr;
+      float tc = (inside ? -b + sq : -b - sq) / (2.0f * a);
+      bool valid = (disc >= 0.0f) && (tc >= 0.0f) && (tc <= 1.0f);
+      if (valid && tc < h.t) {
+        float px = sx + dx * tc, py = sy + dy * tc, pz = sz + dz * tc;
+        merge(h, tc, true, (px - c0) * inv_r, (py - c1) * inv_r,
+              (pz - c2) * inv_r, mat, SPHERE);
+      }
+    } else if (kind == TRIANGLE) {
+      const float v0x = __ldg(q), v0y = __ldg(q + 1), v0z = __ldg(q + 2);
+      const float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
+      const float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
+      const float eps_area = __ldg(q + 9);
+      float pvx = dy * e2z - dz * e2y;
+      float pvy = dz * e2x - dx * e2z;
+      float pvz = dx * e2y - dy * e2x;
+      float det = e1x * pvx + e1y * pvy + e1z * pvz;
+      bool np = fabsf(det) >= eps_area;
+      float inv = 1.0f / (np ? det : 1.0f);
+      float tx = sx - v0x, ty = sy - v0y, tz = sz - v0z;
+      float ub = (tx * pvx + ty * pvy + tz * pvz) * inv;
+      float qvx = ty * e1z - tz * e1y;
+      float qvy = tz * e1x - tx * e1z;
+      float qvz = tx * e1y - ty * e1x;
+      float vb = (dx * qvx + dy * qvy + dz * qvz) * inv;
+      float tc = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+      bool valid = np && (ub >= 0.0f) && (vb >= 0.0f) && (ub + vb <= 1.0f)
+                   && (tc >= 0.0f) && (tc <= 1.0f);
+      if (valid && tc < h.t) {
+        float inx = __ldg(q + 10) + __ldg(q + 13) * ub + __ldg(q + 16) * vb;
+        float iny = __ldg(q + 11) + __ldg(q + 14) * ub + __ldg(q + 17) * vb;
+        float inz = __ldg(q + 12) + __ldg(q + 15) * ub + __ldg(q + 18) * vb;
+        merge(h, tc, true, inx, iny, inz, mat, TRIANGLE);
+        if (kTex) {
+          h.u = __ldg(q + 19) + __ldg(q + 21) * ub + __ldg(q + 23) * vb;
+          h.v = __ldg(q + 20) + __ldg(q + 22) * ub + __ldg(q + 24) * vb;
+        }
+      }
+    } else {
+      // Plane-based kinds: plane, disc, quad, cuboid face.
+      const float p0 = __ldg(q), p1 = __ldg(q + 1), p2 = __ldg(q + 2);
+      const float pw = __ldg(q + 3);
+      float ts = p0 * dx + p1 * dy + p2 * dz;
+      float ns = -(p0 * sx + p1 * sy + p2 * sz + pw);
+      bool np = fabsf(ts) >= kEps;
+      float tc = ns / (np ? ts : 1.0f);
+      bool valid = np && (tc >= 0.0f) && (tc <= 1.0f);
+      if (kind != PLANE && valid) {
+        float px = sx + dx * tc, py = sy + dy * tc, pz = sz + dz * tc;
+        if (kind == CUBOID) {
+          // Adjacent-face half-spaces (object.cpp:140-150).
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* s = q + 4 + 4 * j;
+            float dist = __ldg(s) * px + __ldg(s + 1) * py + __ldg(s + 2) * pz
+                         + __ldg(s + 3);
+            valid = valid && (dist <= 0.0f);
+          }
+        } else {
+          float ex = px - __ldg(q + 4), ey = py - __ldg(q + 5),
+                ez = pz - __ldg(q + 6);
+          if (kind == DISC) {
+            float r = __ldg(q + 7);
+            valid = (ex * ex + ey * ey + ez * ez) <= r * r;
+          } else {  // QUAD
+            float td = __ldg(q + 7) * ex + __ldg(q + 8) * ey + __ldg(q + 9) * ez;
+            float bd = __ldg(q + 10) * ex + __ldg(q + 11) * ey + __ldg(q + 12) * ez;
+            valid = (fabsf(bd) <= __ldg(q + 13)) && (fabsf(td) <= __ldg(q + 14));
+          }
+        }
+      }
+      merge(h, tc, valid, p0, p1, p2, mat, kind);
+    }
+  }
+  if (kTex) {
+    float px = sx + dx * h.t, py = sy + dy * h.t, pz = sz + dz * h.t;
+    float su = atan2_poly(h.nx, h.nz) / kTwoPi + 0.5f;
+    float sv = 1.0f - (h.ny * 0.5f + 0.5f);
+    bool use_x = (h.nx > h.ny) && (h.nx > h.nz);
+    bool use_y = (h.ny > h.nx) && (h.ny > h.nz) && !use_x;
+    float pu = use_x ? py : px;
+    float pv = use_x ? pz : (use_y ? pz : py);
+    float scale = h.kind == CUBOID ? 0.1f : 1.0f;
+    if (h.kind == SPHERE) {
+      h.u = su;
+      h.v = sv;
+    } else if (h.kind != TRIANGLE) {
+      h.u = pu * scale;
+      h.v = pv * scale;
+    }
+  }
+  h.mat = h.mat > 0 ? h.mat : 0;
+  return h;
+}
+
+// --- path body (pallas_path.py build_path_core, non-deferred) ------------
+
+// normal_sphere::random_reflection: lerp the hemisphere sample g with the
+// mirror direction r by amount, normalize, flip into the normal's side.
+__device__ __forceinline__ void lerped(float amount, float gx, float gy, float gz,
+                                       float rx, float ry, float rz, float nx,
+                                       float ny, float nz, float& ox, float& oy,
+                                       float& oz) {
+  float inv = 1.0f - amount;
+  ox = gx * amount + rx * inv;
+  oy = gy * amount + ry * inv;
+  oz = gz * amount + rz * inv;
+  norm3(ox, oy, oz);
+  float d = ox * nx + oy * ny + oz * nz;
+  if (d < 0.0f) { ox = -ox; oy = -oy; oz = -oz; }
+}
+
+// vector3::refract (vector3.h:205-214): TIR gives the zero vector.
+__device__ __forceinline__ void refract(float vx, float vy, float vz, float nx,
+                                        float ny, float nz, float index,
+                                        float& ox, float& oy, float& oz) {
+  float ndv = -(vx * nx + vy * ny + vz * nz);
+  float sin2 = (index * index) * (1.0f - ndv * ndv);
+  float k = index * ndv - sqrtf(sin2 < 1.0f ? 1.0f - sin2 : 1.0f);
+  ox = vx * index + nx * k;
+  oy = vy * index + ny * k;
+  oz = vz * index + nz * k;
+  norm3(ox, oy, oz);
+  if (sin2 >= 1.0f) { ox = 0.0f; oy = 0.0f; oz = 0.0f; }
+}
+
+// Rodrigues rotation (vector3.h:315-333).
+__device__ __forceinline__ void rotate(float vx, float vy, float vz, float angle,
+                                       float ax, float ay, float az, float& ox,
+                                       float& oy, float& oz) {
+  float c = cosf(angle);
+  float s = sinf(angle);
+  float ic = 1.0f - c;
+  ox = (c + ic * ax * ax) * vx + (ic * ax * ay - az * s) * vy + (ic * ax * az + ay * s) * vz;
+  oy = (ic * ax * ay + az * s) * vx + (c + ic * ay * ay) * vy + (ic * ay * az - ax * s) * vz;
+  oz = (ic * ax * az - ay * s) * vx + (ic * ay * az + ax * s) * vy + (c + ic * az * az) * vz;
+}
+
+struct PathOut {
+  float L[3];
+  float aov_n[3];
+  float aov_d;
+  int aov_m;
+  int segcnt;
+};
+
+// Trace one lane's whole path from its primary segment.  The switch on the
+// hit material's family replaces the reference's masked loop over material
+// rows (the masks are disjoint); a row at or past n_mats matches no family
+// and the path dies with zero coefficients, as in the reference.
+__device__ __forceinline__ PathOut trace_path(const float* __restrict__ prims,
+                              const int* __restrict__ meta,
+                              const float* __restrict__ mats,
+                              const int* __restrict__ mat_meta,
+                              const PathParams& pp, uint32_t hs, float sx,
+                              float sy, float sz, float dx, float dy, float dz) {
+  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;
+  float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
+  bool alive = true;
+  int segcnt = 0;
+  // Depth-0 fog bookkeeping (material.cpp:319-339), resolved at depth 1.
+  bool f_active = false;
+  float f_fx = 0.0f, f_fy = 0.0f, f_fz = 0.0f;
+  float f_dx = 0.0f, f_dy = 0.0f, f_dz = 0.0f;
+  float f_dens = 0.0f, f_u = 0.0f;
+  PathOut out;
+  out.aov_n[0] = out.aov_n[1] = out.aov_n[2] = 0.0f;
+  out.aov_d = 0.0f;
+  out.aov_m = pp.sky_idx;
+  bool p_light = false;
+
+  for (int depth = 0; depth < pp.depth; ++depth) {
+    segcnt += alive ? 1 : 0;
+    if (!alive) {
+      continue;  // dead lanes only count; nothing else changes
+    }
+    Hit h = intersect_lanes<false>(prims, meta, pp.n_prims, sx, sy, sz, dx, dy, dz);
+    bool hit = h.t < kInvalid;
+    float px = sx + dx * h.t, py = sy + dy * h.t, pz = sz + dz * h.t;
+    float hnx = h.nx, hny = h.ny, hnz = h.nz;
+    // Backface flip (scene.cpp:238-247).
+    float side = hnx * (sx - px) + hny * (sy - py) + hnz * (sz - pz);
+    if (side < 0.0f) { hnx = -hnx; hny = -hny; hnz = -hnz; }
+
+    if (depth >= 1) {
+      // Depth-0 fog resolution one bounce later (material.cpp:330-337).
+      if (f_active) {
+        float lpx = hit ? px : sx + dx;
+        float lpy = hit ? py : sy + dy;
+        float lpz = hit ? pz : sz + dz;
+        float ddx = lpx - f_fx, ddy = lpy - f_fy, ddz = lpz - f_fz;
+        float dist2 = ddx * ddx + ddy * ddy + ddz * ddz;
+        float thresh = fminf(fmaxf(dist2 * f_dens * 0.00005f, 0.0f), 1.0f);
+        if (f_u < thresh) {
+          Lx = Lx + Tx * f_dx;
+          Ly = Ly + Ty * f_dy;
+          Lz = Lz + Tz * f_dz;
+          alive = false;
+        }
+      }
+      f_active = false;
+    }
+
+    if (alive && !hit) {  // miss -> sky (engine.cpp:92-101)
+      Lx = Lx + Tx * pp.sky_e[0];
+      Ly = Ly + Ty * pp.sky_e[1];
+      Lz = Lz + Tz * pp.sky_e[2];
+    }
+    const bool active = alive && hit;
+
+    float bx = 0.0f, by = 0.0f, bz = 0.0f;   // direction
+    float cx = 0.0f, cy = 0.0f, cz = 0.0f;   // coef
+    float ex = 0.0f, ey = 0.0f, ez = 0.0f;   // bias
+    bool will = false, is_light = false, is_fog = false;
+    float fog_dens = 0.0f, fog_cx = 0.0f, fog_cy = 0.0f, fog_cz = 0.0f;
+    float u3 = 0.0f;
+
+    if (active) {
+      // View vector (engine.cpp:114) and the bounce's uniforms.
+      float vx = px - sx, vy = py - sy, vz = pz - sz;
+      norm3(vx, vy, vz);
+      const uint32_t base = 16u + (uint32_t)(depth * pp.bounce_slots);
+      const float u0 = uniform(hs, base + 0u);
+      const float u1 = uniform(hs, base + 1u);
+      const float u2 = uniform(hs, base + 2u);
+      u3 = uniform(hs, base + 3u);
+
+      float ndv = hnx * vx + hny * vy + hnz * vz;
+      float rx = vx - 2.0f * ndv * hnx;
+      float ry = vy - 2.0f * ndv * hny;
+      float rz = vz - 2.0f * ndv * hnz;
+      // Hemisphere sample: uniform sphere direction flipped to the normal.
+      float gz = 1.0f - 2.0f * u1;
+      float gr = sqrtf(fmaxf(1.0f - gz * gz, 0.0f));
+      float phi = kTwoPi * u2;
+      float gx = gr * cosf(phi);
+      float gy = gr * sinf(phi);
+      float gdot = gx * hnx + gy * hny + gz * hnz;
+      if (gdot < 0.0f) { gx = -gx; gy = -gy; gz = -gz; }
+
+      const int row = h.mat;
+      if (row < pp.n_mats) {
+        const float* m = mats + row * kMatStride;
+        const int mtype = __ldg(mat_meta + 2 * row);
+        const int flags = __ldg(mat_meta + 2 * row + 1);
+        const float d0 = __ldg(m), d1 = __ldg(m + 1), d2 = __ldg(m + 2);
+        float ox, oy, oz;
+        switch (mtype) {
+          case LIGHT:
+            ex = __ldg(m + 3); ey = __ldg(m + 4); ez = __ldg(m + 5);
+            is_light = true;
+            break;
+          case DIFFUSE: {
+            float ndl = gx * hnx + gy * hny + gz * hnz;
+            will = ndl > 0.001f;
+            float nl = fmaxf(ndl, 0.0f);
+            bx = gx; by = gy; bz = gz;
+            cx = d0 * nl; cy = d1 * nl; cz = d2 * nl;
+            break;
+          }
+          case METAL: {
+            const float rough = __ldg(m + 9);
+            lerped(rough, gx, gy, gz, rx, ry, rz, hnx, hny, hnz, ox, oy, oz);
+            float ndl = ox * hnx + oy * hny + oz * hnz;
+            will = (flags & kFlagMetalSmooth) || (ndl > 0.001f);
+            float nl = fmaxf(ndl, 0.0f);
+            float f = rough * nl + (1.0f - rough);
+            bx = ox; by = oy; bz = oz;
+            cx = d0 * f; cy = d1 * f; cz = d2 * f;
+            break;
+          }
+          case MIRROR:
+            bx = rx; by = ry; bz = rz;
+            will = true;
+            cx = d0; cy = d1; cz = d2;
+            break;
+          case CERAMIC:
+          case GLOW: {
+            const float shin = __ldg(m + 9);
+            float amount = u0 < 0.1f ? 0.0f : 1.0f - shin;
+            lerped(amount, gx, gy, gz, rx, ry, rz, hnx, hny, hnz, ox, oy, oz);
+            float ndl = ox * hnx + oy * hny + oz * hnz;
+            float nl = fmaxf(ndl, 0.0f);
+            float hx = ox - vx, hy = oy - vy, hz = oz - vz;
+            norm3(hx, hy, hz);
+            float hn = hx * hnx + hy * hny + hz * hnz;
+            float spec = pow25(hn * hn);
+            cx = spec + d0 * nl * (1.0f - spec);
+            cy = spec + d1 * nl * (1.0f - spec);
+            cz = spec + d2 * nl * (1.0f - spec);
+            bx = ox; by = oy; bz = oz;
+            will = true;
+            if (mtype == GLOW) {
+              ex = __ldg(m + 6); ey = __ldg(m + 7); ez = __ldg(m + 8);
+            }
+            break;
+          }
+          case GLASS: {
+            const float index = __ldg(m + 10), refl = __ldg(m + 11);
+            const float frost = __ldg(m + 12);
+            if (u0 < refl) {
+              lerped(frost, gx, gy, gz, rx, ry, rz, hnx, hny, hnz, ox, oy, oz);
+            } else {
+              // random_refraction (normal.cpp:64-105).
+              float fx0, fy0, fz0;
+              if (flags & kFlagGlassStraight) {
+                fx0 = vx; fy0 = vy; fz0 = vz;
+                norm3(fx0, fy0, fz0);
+              } else {
+                refract(vx, vy, vz, hnx, hny, hnz, index, fx0, fy0, fz0);
+              }
+              if (flags & kFlagFrostFull) {
+                ox = gx; oy = gy; oz = gz;
+              } else if (flags & kFlagFrostNone) {
+                ox = fx0; oy = fy0; oz = fz0;
+              } else {
+                float sa = kPi * frost;
+                float delta = (u3 * 2.0f - 1.0f) * (sa * 0.5f);
+                rotate(fx0, fy0, fz0, delta, gx, gy, gz, ox, oy, oz);
+              }
+            }
+            bx = ox; by = oy; bz = oz;
+            will = true;
+            cx = d0; cy = d1; cz = d2;
+            break;
+          }
+          case LIQUID: {
+            const float index = __ldg(m + 10), refl = __ldg(m + 11);
+            if (u0 < refl) {
+              ox = rx; oy = ry; oz = rz;
+            } else {
+              refract(vx, vy, vz, hnx, hny, hnz, index, ox, oy, oz);
+            }
+            bx = ox; by = oy; bz = oz;
+            will = true;
+            cx = d0; cy = d1; cz = d2;
+            break;
+          }
+          case FOG:
+            bx = vx; by = vy; bz = vz;
+            will = true;
+            cx = 1.0f; cy = 1.0f; cz = 1.0f;
+            is_fog = true;
+            fog_dens = __ldg(m + 12);
+            fog_cx = d0; fog_cy = d1; fog_cz = d2;
+            break;
+          default:
+            break;
+        }
+      }
+    }
+
+    if (depth == 0) {
+      float anx = hit ? hnx : dx, any = hit ? hny : dy, anz = hit ? hnz : dz;
+      if (!hit) norm3(anx, any, anz);
+      out.aov_n[0] = anx; out.aov_n[1] = any; out.aov_n[2] = anz;
+      float dpx = px - sx, dpy = py - sy, dpz = pz - sz;
+      out.aov_d = hit ? sqrtf(dpx * dpx + dpy * dpy + dpz * dpz) : pp.z_far;
+      out.aov_m = hit ? h.mat : pp.sky_idx;
+      p_light = hit && is_light;
+      if (active && is_fog) {
+        f_active = true;
+        f_fx = px; f_fy = py; f_fz = pz;
+        f_dx = fog_cx; f_dy = fog_cy; f_dz = fog_cz;
+        f_dens = fog_dens;
+        f_u = u3;
+      }
+    }
+
+    if (active) {
+      Lx = Lx + Tx * ex;
+      Ly = Ly + Ty * ey;
+      Lz = Lz + Tz * ez;
+      Tx = Tx * cx;
+      Ty = Ty * cy;
+      Tz = Tz * cz;
+      sx = px + bx * pp.ray_offset;
+      sy = py + by * pp.ray_offset;
+      sz = pz + bz * pp.ray_offset;
+      dx = bx * pp.seg_scale;
+      dy = by * pp.seg_scale;
+      dz = bz * pp.seg_scale;
+    }
+    alive = active && will;
+  }
+
+  if (pp.fast_render && alive) {
+    // White terminal (engine.cpp:67-70).
+    Lx = Lx + Tx;
+    Ly = Ly + Ty;
+    Lz = Lz + Tz;
+  }
+  // Depth-0 light tone clamp (engine.cpp:148-151).
+  float n2 = Lx * Lx + Ly * Ly + Lz * Lz;
+  float norm = sqrtf(fmaxf(n2, 1e-20f));
+  float s = (p_light && norm > pp.light_clamp) ? pp.light_clamp / norm : 1.0f;
+  out.L[0] = Lx * s;
+  out.L[1] = Ly * s;
+  out.L[2] = Lz * s;
+  out.segcnt = segcnt;
+  return out;
+}
+
+}  // namespace fspt

@@ -1,0 +1,188 @@
+"""Build and bind the port's CUDA kernels (csrc/fspt_kernels.cu).
+
+``nvcc`` compiles the sources into a shared library with a plain C
+interface at first use, into ``build/fspt_tpu_torch/`` at the root of the
+checkout, under a name keyed by a hash of the sources; ``ctypes`` loads it.
+There is no fallback: a missing ``nvcc`` or a failed compile raises with the
+compiler's output.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` and no
+``--use_fast_math``.  ``-fmad=false`` keeps every multiply and add rounded
+on its own, as the plain PyTorch versions round them, so the kernels follow
+the same branch decisions (``u0 < reflectivity``, ``n·l > 0.001``, near-tie
+hits) lane for lane; it costs speed and is there for parity.
+``-Xptxas -v`` reports registers and spills, kept in ``ptxas.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCES = (PACKAGE_DIR / "csrc" / "fspt_kernels.cu",
+           PACKAGE_DIR / "csrc" / "fspt_kernels.cuh")
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+
+
+class KernelCounter:
+    """A kernel's identity and its launch count.
+
+    ``launches`` rises by one each time the wrapper launches the kernel on
+    the card, and nowhere else; the plain PyTorch path never touches it.
+    """
+
+    def __init__(self, name: str, symbol: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.replaces = replaces
+        self.launches = 0
+
+
+class PathParams(ctypes.Structure):
+    """Per-render constants of the path body (mirrors ``PathParams`` in
+    csrc/fspt_kernels.cuh, passed by value)."""
+
+    _fields_ = [
+        ("ray_offset", ctypes.c_float),
+        ("seg_scale", ctypes.c_float),  # z_far - ray_offset
+        ("z_far", ctypes.c_float),
+        ("light_clamp", ctypes.c_float),
+        ("sky_e", ctypes.c_float * 3),
+        ("depth", ctypes.c_int),
+        ("bounce_slots", ctypes.c_int),
+        ("sky_idx", ctypes.c_int),
+        ("fast_render", ctypes.c_int),
+        ("n_prims", ctypes.c_int),
+        ("n_mats", ctypes.c_int),
+    ]
+
+
+class CamParams(ctypes.Structure):
+    """Per-render camera constants of the fused raygen (mirrors
+    ``CamParams`` in csrc/fspt_kernels.cuh, passed by value)."""
+
+    _fields_ = [
+        ("origin", ctypes.c_float * 3),
+        ("proj_origin", ctypes.c_float * 3),
+        ("right", ctypes.c_float * 3),
+        ("up", ctypes.c_float * 3),
+        ("focal_plane", ctypes.c_float * 4),
+        ("half_w", ctypes.c_float),
+        ("half_h", ctypes.c_float),
+        ("inv_wm1", ctypes.c_float),
+        ("inv_hm1", ctypes.c_float),
+        ("aperture", ctypes.c_float),
+        ("z_far", ctypes.c_float),
+        ("width", ctypes.c_int),
+        ("spp", ctypes.c_int),
+        ("dof", ctypes.c_int),
+    ]
+
+
+# launcher symbol → argtypes (every pointer and the stream as c_void_p)
+_SIGNATURES = {
+    # prims, meta, n_prims, start, seg, n, t, normal, mat, kind, uv, stream
+    "fspt_intersect": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0, lane0,
+    # n, radiance, normal, depth, aov_mat, segcnt, stream
+    "fspt_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _U, _I, _I,
+                         _I, _P, _P, _P, _P, _P, _P],
+    # prims, meta, mats, mat_meta, PathParams, start, seg, pixel, sample, h0,
+    # n, radiance, normal, depth, aov_mat, segcnt, stream
+    "fspt_ray_path": [_P, _P, _P, _P, PathParams, _P, _P, _P, _P, _U, _I,
+                      _P, _P, _P, _P, _P, _P],
+}
+
+_library = None
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the fspt_tpu_torch kernels")
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists;
+    returns the library's path."""
+    key = source_hash()
+    out_dir = BUILD_DIR / key
+    lib = out_dir / "libfspt_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libfspt_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[0])]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    (out_dir / "ptxas.log").write_text(log)
+    os.replace(tmp, lib)
+    return lib
+
+
+def ptxas_log() -> str:
+    """The ``-Xptxas -v`` report of the current build ('' if not built)."""
+    path = BUILD_DIR / source_hash() / "ptxas.log"
+    return path.read_text() if path.exists() else ""
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def launch(counter: KernelCounter, *args) -> None:
+    """Call a launcher; raise on a non-zero ``cudaGetLastError``, else count
+    the launch."""
+    err = getattr(library(), counter.symbol)(*args)
+    if err != 0:
+        raise RuntimeError(f"{counter.name} kernel launch failed: CUDA error {err}")
+    counter.launches += 1
+
+
+def check_cuda_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

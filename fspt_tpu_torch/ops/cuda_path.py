@@ -1,0 +1,664 @@
+"""Path-tracing megakernels: kernels 2 (camera-fused) and 3 (rays in).
+
+Counterpart of fspt_tpu/ops/pallas_path.py (non-deferred mode).  Two CUDA
+kernels (csrc/fspt_kernels.cu) trace the whole path of a lane in one
+thread — intersect, backface flip, fog, sky, the nine material families,
+the light clamp — so per-lane state lives in registers for every bounce and
+device memory sees only the outputs (and, for kernel 3, the rays):
+
+* ``camera_path_kernel`` replaces ``pallas_path.py:make_camera_path_tracer``
+  (kernel body ``:1371``): it also makes each lane's primary ray from the
+  lane index (pixel/sample ids, PCG jitter, thin-lens DoF).
+* ``ray_path_kernel`` replaces ``pallas_path.py:make_path_tracer``
+  (``build_path_kernel`` ``:770``): the same body with rays read from memory.
+
+What bounds them on the H100: arithmetic.  A 1024²×4 spp Cornell frame
+writes 36 bytes per lane but traces ~5 segments per lane, each testing every
+primitive.  What the design does about it: the TPU version baked geometry
+and materials into the instruction stream and evaluated every material row
+under a mask; here both are tables read as warp broadcasts, and a lane
+switches on its hit material's family (the reference's masks are disjoint,
+so this is the same function), skipping dead lanes' work after they count.
+Branch regimes the reference fixed at trace time (glass ``|ior−1| < EPS``,
+frost at π or 0, metal ``roughness ≤ 0.95``) are derived per material row on
+the host in float64, exactly as the reference decides them, and passed as
+flags.
+
+:func:`build_fused_raygen` and :func:`build_path_core` are the plain
+PyTorch versions of the kernels: the tracers use them only for a scene on
+the CPU; for a scene on the card they launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from fspt_tpu_torch import materials as M
+from fspt_tpu_torch.ops import _build, rng
+from fspt_tpu_torch.ops.cuda_trace import (
+    HostScene,
+    MAX_SPECIALIZED_PRIMS,
+    _np,
+    intersect_lanes,
+)
+from fspt_tpu_torch.render.integrator import TraceOutput
+from fspt_tpu_torch.scene.geometry import INVALID_PARAM
+from fspt_tpu_torch.utils import vecmath as vm
+
+MAT_STRIDE = 16  # floats per material row (csrc kMatStride)
+FLAG_GLASS_STRAIGHT = 1
+FLAG_FROST_FULL = 2
+FLAG_FROST_NONE = 4
+FLAG_METAL_SMOOTH = 8
+
+CAMERA_PATH = _build.KernelCounter(
+    "camera_path", "fspt_camera_path",
+    "fspt_tpu/ops/pallas_path.py:1405 make_camera_path_tracer (body :1371)")
+RAY_PATH = _build.KernelCounter(
+    "ray_path", "fspt_ray_path",
+    "fspt_tpu/ops/pallas_path.py:845 make_path_tracer (build_path_kernel :770)")
+
+TEXTURED_SLICE = ("textured scenes use the texture-deferred megakernel, which "
+                  "comes with slice 2 of the port")
+
+
+def _one_minus(x) -> float:
+    """``1 - x`` rounded once to float32, as NumPy rounds ``1.0 - f32``."""
+    return float(np.float32(1.0) - np.float32(x))
+
+
+class HostMaterials:
+    """The material table on the host, plus its packed kernel form.
+
+    Kernel row (float32, 16 wide): diffuse(3), emissive(3), glow(3), param,
+    ior, reflectivity, frost.  Meta (int32): family, regime flags.
+    """
+
+    def __init__(self, table):
+        self.mtype = _np(table.mtype)
+        self.diffuse = _np(table.diffuse)
+        self.emissive = _np(table.emissive)
+        self.glow = _np(table.glow)
+        self.param = _np(table.param)
+        self.ior = _np(table.ior)
+        self.reflectivity = _np(table.reflectivity)
+        self.frost = _np(table.frost)
+        self.tex_id = _np(table.tex_id)
+        self._device_tables = {}
+
+    @property
+    def count(self):
+        return len(self.mtype)
+
+    @property
+    def any_textured(self):
+        return bool((self.tex_id >= 0).any())
+
+    def flags(self, row: int) -> int:
+        """The row's static branch regimes, decided in float64 as
+        pallas_path.py:487 and :534-546 decide them."""
+        f = 0
+        if abs(float(self.ior[row]) - 1.0) < vm.EPSILON:
+            f |= FLAG_GLASS_STRAIGHT
+        sa_s = vm.PI * float(self.frost[row])
+        if abs(sa_s - vm.PI) < vm.EPSILON:
+            f |= FLAG_FROST_FULL
+        elif abs(sa_s) < vm.EPSILON:
+            f |= FLAG_FROST_NONE
+        if float(self.param[row]) <= M.DIFFUSE_ROUGHNESS_THRESHOLD:
+            f |= FLAG_METAL_SMOOTH
+        return f
+
+    def tables(self, device):
+        """``(mats [M,16] float32, meta [M,2] int32)`` on ``device``."""
+        key = str(device)
+        if key not in self._device_tables:
+            n = self.count
+            rows = np.zeros((n, MAT_STRIDE), np.float32)
+            rows[:, 0:3] = self.diffuse
+            rows[:, 3:6] = self.emissive
+            rows[:, 6:9] = self.glow
+            rows[:, 9] = self.param
+            rows[:, 10] = self.ior
+            rows[:, 11] = self.reflectivity
+            rows[:, 12] = self.frost
+            meta = np.array([(int(self.mtype[r]), self.flags(r)) for r in range(n)],
+                            np.int32).reshape(n, 2)
+            self._device_tables[key] = (torch.from_numpy(rows).to(device),
+                                        torch.from_numpy(meta).to(device))
+        return self._device_tables[key]
+
+
+class HostCamera:
+    """Camera constants of the fused raygen, computed in NumPy exactly as
+    pallas_path.py:1076-1106 (reference engine.cpp:184-197)."""
+
+    def __init__(self, camera, width: int, height: int):
+        o = np.asarray(_np(camera.origin), np.float32)
+        tgt = np.asarray(_np(camera.target), np.float32)
+        self.origin = o
+        self.z_far = float(_np(camera.z_far))
+        self.aperture = float(_np(camera.aperture_size))
+        self.focal_depth = float(_np(camera.focal_depth))
+        fwd = tgt - o
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), fwd)
+        right = right / np.linalg.norm(right)
+        up = np.cross(fwd, right)
+        up = up / np.linalg.norm(up)
+        self.forward, self.right, self.up = fwd, right, up
+        fovy = float(_np(camera.fov_y)) * vm.PI / 180.0
+        aspect = width / height
+        fovx = 2.0 * np.arctan(np.tan(fovy * 0.5) * aspect)
+        self.half_h = float(np.tan(fovy * 0.5) * self.z_far)
+        self.half_w = float(np.tan(fovx * 0.5) * self.z_far)
+        self.proj_origin = o + fwd * self.z_far
+        # Focal plane (engine.cpp:195-197): normal -forward through
+        # origin + forward*focal_depth.
+        n = -fwd
+        p = o + fwd * self.focal_depth
+        self.focal_plane = np.concatenate([n, [-float(np.dot(n, p))]])
+
+
+# --- plain PyTorch versions of the kernels ---------------------------------
+
+
+def _norm3(x, y, z):
+    n2 = x * x + y * y + z * z
+    pos = n2 > 0.0
+    inv = torch.where(pos, torch.rsqrt(torch.where(pos, n2, 1.0)), 0.0)
+    return x * inv, y * inv, z * inv
+
+
+def _pow25(x):
+    """x**25 by repeated squaring, as the kernel computes it."""
+    x2 = x * x
+    x4 = x2 * x2
+    x8 = x4 * x4
+    x16 = x8 * x8
+    return x16 * x8 * x
+
+
+def _rotate(vx, vy, vz, angle, ax, ay, az):
+    c = torch.cos(angle)
+    s = torch.sin(angle)
+    ic = 1.0 - c
+    ox = (c + ic * ax * ax) * vx + (ic * ax * ay - az * s) * vy + (ic * ax * az + ay * s) * vz
+    oy = (ic * ax * ay + az * s) * vx + (c + ic * ay * ay) * vy + (ic * ay * az - ax * s) * vz
+    oz = (ic * ax * az - ay * s) * vx + (ic * ay * az + ax * s) * vy + (c + ic * az * az) * vz
+    return ox, oy, oz
+
+
+def _refract(vx, vy, vz, nx, ny, nz, index: float):
+    """vector3::refract (vector3.h:205-214): TIR → zero, else normalized."""
+    ndv = -(vx * nx + vy * ny + vz * nz)
+    sin2 = (index * index) * (1.0 - ndv * ndv)
+    k = index * ndv - torch.sqrt(torch.where(sin2 < 1.0, 1.0 - sin2, 1.0))
+    rx, ry, rz = _norm3(vx * index + nx * k, vy * index + ny * k, vz * index + nz * k)
+    tir = sin2 >= 1.0
+    return (torch.where(tir, 0.0, rx), torch.where(tir, 0.0, ry),
+            torch.where(tir, 0.0, rz))
+
+
+def build_fused_raygen(cam: HostCamera, cfg):
+    """Plain version of the kernel-2 raygen (pallas_path.py:1109, reference
+    engine.cpp:205-244).
+
+    Returns ``raygen(h0, sample0, lane0, n, device) → (sx, sy, sz, dx, dy,
+    dz, pix, smp)`` for lanes ``lane0 .. lane0+n-1`` of the frame, lane
+    order pixel-major then sample.
+    """
+    width, spp = cfg.width, cfg.spp
+    inv_wm1 = 1.0 / (cfg.width - 1)
+    inv_hm1 = 1.0 / (cfg.height - 1)
+    o = [float(x) for x in cam.origin]
+    po = [float(x) for x in cam.proj_origin]
+    rt = [float(x) for x in cam.right]
+    up = [float(x) for x in cam.up]
+    fp = [float(x) for x in cam.focal_plane]
+
+    def raygen(h0, sample0, lane0, n, device):
+        flat = int(lane0) + torch.arange(n, dtype=torch.int64, device=device)
+        s = torch.remainder(flat, spp)
+        pxy = torch.div(flat, spp, rounding_mode="floor")
+        x = torch.remainder(pxy, width)
+        y = torch.div(pxy, width, rounding_mode="floor")
+        pix = (y * width + x).to(torch.int32)
+        smp = (s + int(sample0)).to(torch.int32)
+        hs = rng.sample_hash(h0, pix, smp)
+        u0 = rng.counter_uniform(hs, 0)
+        u1 = rng.counter_uniform(hs, 1)
+        xf = x.to(torch.float32) + (u0 - 0.5)
+        yf = y.to(torch.float32) + (u1 - 0.5)
+        x_dist = cam.half_w * ((xf * inv_wm1) * 2.0 - 1.0)
+        y_dist = cam.half_h * ((yf * inv_hm1) * 2.0 - 1.0)
+        stop = [po[k] + rt[k] * x_dist + up[k] * y_dist for k in range(3)]
+        sx, sy, sz = (torch.full_like(x_dist, o[k]) for k in range(3))
+        dx, dy, dz = stop[0] - sx, stop[1] - sy, stop[2] - sz
+
+        if cam.aperture > 0.0:
+            # Thin-lens DoF (engine.cpp:221-244).
+            u2 = rng.counter_uniform(hs, 2)
+            u3 = rng.counter_uniform(hs, 3)
+            ts = fp[0] * dx + fp[1] * dy + fp[2] * dz
+            ns = -(fp[0] * sx + fp[1] * sy + fp[2] * sz + fp[3])
+            not_par = torch.abs(ts) >= vm.EPSILON
+            tf = ns / torch.where(not_par, ts, 1.0)
+            valid = not_par & (tf >= 0.0) & (tf <= 1.0)
+            fx, fy, fz = sx + dx * tf, sy + dy * tf, sz + dz * tf
+            angle = u2 * (2.0 * vm.PI)
+            mag = torch.sqrt(u3) * cam.aperture
+            offc = torch.cos(angle) * mag
+            offs = torch.sin(angle) * mag
+            nsx = sx + (rt[0] * offc + up[0] * offs)
+            nsy = sy + (rt[1] * offc + up[1] * offs)
+            nsz = sz + (rt[2] * offc + up[2] * offs)
+            ndx, ndy, ndz = _norm3(fx - nsx, fy - nsy, fz - nsz)
+            zf = cam.z_far
+            sx = torch.where(valid, nsx, sx)
+            sy = torch.where(valid, nsy, sy)
+            sz = torch.where(valid, nsz, sz)
+            dx = torch.where(valid, ndx * zf, dx)
+            dy = torch.where(valid, ndy * zf, dy)
+            dz = torch.where(valid, ndz * zf, dz)
+
+        return sx, sy, sz, dx, dy, dz, pix, smp
+
+    return raygen
+
+
+def build_path_core(scene: HostScene, mats: HostMaterials, cfg, sky_idx: int,
+                    z_far_default: float):
+    """Plain version of the kernel path body (pallas_path.py:190,
+    non-deferred mode).
+
+    ``core(h0, sx, sy, sz, dx, dy, dz, pix, smp) → (Lx, Ly, Lz, aov_nx,
+    aov_ny, aov_nz, aov_depth, aov_mat, segcnt)`` over lane tensors; ``h0``
+    is :func:`rng.seed_hash` of the seed.
+    """
+    depth_count = cfg.effective_depth
+    ray_offset = cfg.ray_offset
+    sky_e = [float(x) for x in mats.emissive[sky_idx] * np.float32(3.0)]
+    seg_scale = z_far_default - ray_offset
+
+    def core(h0, sx, sy, sz, dx, dy, dz, pix, smp):
+        hs = rng.sample_hash(h0, pix, smp)
+        zero = torch.zeros_like(sx)
+        false = torch.zeros(sx.shape, dtype=torch.bool, device=sx.device)
+        Lx, Ly, Lz = zero, zero, zero
+        Tx = Ty = Tz = torch.ones_like(sx)
+        alive = ~false
+        segcnt = torch.zeros(sx.shape, dtype=torch.int32, device=sx.device)
+        f_active = false
+        f_fx = f_fy = f_fz = f_dx = f_dy = f_dz = f_dens = f_u = zero
+        aov_nx = aov_ny = aov_nz = aov_d = zero
+        aov_m = torch.full(sx.shape, sky_idx, dtype=torch.int32, device=sx.device)
+        p_light = false
+
+        for depth in range(depth_count):
+            segcnt = segcnt + alive.to(torch.int32)
+            t, hnx, hny, hnz, hmat, _, _, _ = intersect_lanes(
+                scene, sx, sy, sz, dx, dy, dz, want_texcoords=False)
+            hit = t < INVALID_PARAM
+            px, py, pz = sx + dx * t, sy + dy * t, sz + dz * t
+
+            # Backface flip (scene.cpp:238-247).
+            flip = hnx * (sx - px) + hny * (sy - py) + hnz * (sz - pz) < 0.0
+            hnx = torch.where(flip, -hnx, hnx)
+            hny = torch.where(flip, -hny, hny)
+            hnz = torch.where(flip, -hnz, hnz)
+
+            if depth >= 1:
+                # Depth-0 fog resolution one bounce later (material.cpp:330-337).
+                ddx = torch.where(hit, px, sx + dx) - f_fx
+                ddy = torch.where(hit, py, sy + dy) - f_fy
+                ddz = torch.where(hit, pz, sz + dz) - f_fz
+                dist2 = ddx * ddx + ddy * ddy + ddz * ddz
+                thresh = torch.clamp(dist2 * f_dens * 0.00005, 0.0, 1.0)
+                absorbed = f_active & (f_u < thresh) & alive
+                Lx = torch.where(absorbed, Lx + Tx * f_dx, Lx)
+                Ly = torch.where(absorbed, Ly + Ty * f_dy, Ly)
+                Lz = torch.where(absorbed, Lz + Tz * f_dz, Lz)
+                alive = alive & ~absorbed
+                f_active = false
+
+            # Miss → sky (engine.cpp:92-101).
+            miss = alive & ~hit
+            Lx = torch.where(miss, Lx + Tx * sky_e[0], Lx)
+            Ly = torch.where(miss, Ly + Ty * sky_e[1], Ly)
+            Lz = torch.where(miss, Lz + Tz * sky_e[2], Lz)
+
+            active = alive & hit
+            vx, vy, vz = _norm3(px - sx, py - sy, pz - sz)
+            base = rng.CTR_BOUNCE + depth * cfg.bounce_slots
+            u0, u1, u2, u3 = (rng.counter_uniform(hs, base + k) for k in range(4))
+
+            ndv = hnx * vx + hny * vy + hnz * vz
+            rx, ry, rz = vx - 2.0 * ndv * hnx, vy - 2.0 * ndv * hny, vz - 2.0 * ndv * hnz
+            gz = 1.0 - 2.0 * u1
+            gr = torch.sqrt(torch.clamp(1.0 - gz * gz, min=0.0))
+            phi = (2.0 * vm.PI) * u2
+            gx, gy = gr * torch.cos(phi), gr * torch.sin(phi)
+            gflip = gx * hnx + gy * hny + gz * hnz < 0.0
+            gx = torch.where(gflip, -gx, gx)
+            gy = torch.where(gflip, -gy, gy)
+            gz = torch.where(gflip, -gz, gz)
+
+            def lerped(amount):
+                inv = _one_minus(amount) if isinstance(amount, float) else 1.0 - amount
+                ox, oy, oz = _norm3(gx * amount + rx * inv, gy * amount + ry * inv,
+                                    gz * amount + rz * inv)
+                neg = ox * hnx + oy * hny + oz * hnz < 0.0
+                return (torch.where(neg, -ox, ox), torch.where(neg, -oy, oy),
+                        torch.where(neg, -oz, oz))
+
+            bx = by = bz = cx = cy = cz = ex = ey = ez = zero
+            will = is_light = is_fog = false
+            fog_dens = fog_cx = fog_cy = fog_cz = zero
+
+            for row in range(mats.count):
+                msk = active & (hmat == row)
+                mtype = int(mats.mtype[row])
+                flags = mats.flags(row)
+                d0, d1, d2 = (float(v) for v in mats.diffuse[row])
+                if mtype == M.LIGHT:
+                    em = [float(v) for v in mats.emissive[row]]
+                    ex = torch.where(msk, em[0], ex)
+                    ey = torch.where(msk, em[1], ey)
+                    ez = torch.where(msk, em[2], ez)
+                    is_light = is_light | msk
+                    continue
+                w = None
+                if mtype == M.DIFFUSE:
+                    ox, oy, oz = gx, gy, gz
+                    ndl = ox * hnx + oy * hny + oz * hnz
+                    w = ndl > M.DIFFUSE_CONTRIB_THRESHOLD
+                    nl = torch.clamp(ndl, min=0.0)
+                    ccx, ccy, ccz = d0 * nl, d1 * nl, d2 * nl
+                elif mtype == M.METAL:
+                    rough = float(mats.param[row])
+                    ox, oy, oz = lerped(rough)
+                    ndl = ox * hnx + oy * hny + oz * hnz
+                    w = (ndl > M.DIFFUSE_CONTRIB_THRESHOLD) | bool(flags & FLAG_METAL_SMOOTH)
+                    f = rough * torch.clamp(ndl, min=0.0) + _one_minus(rough)
+                    ccx, ccy, ccz = d0 * f, d1 * f, d2 * f
+                elif mtype == M.MIRROR:
+                    ox, oy, oz = rx, ry, rz
+                    ccx, ccy, ccz = (torch.full_like(sx, d) for d in (d0, d1, d2))
+                elif mtype in (M.CERAMIC, M.GLOW):
+                    amount = torch.where(u0 < M.CERAMIC_SPIKE_PROB, 0.0,
+                                         _one_minus(mats.param[row]))
+                    ox, oy, oz = lerped(amount)
+                    nl = torch.clamp(ox * hnx + oy * hny + oz * hnz, min=0.0)
+                    hx, hy, hz = _norm3(ox - vx, oy - vy, oz - vz)
+                    hn = hx * hnx + hy * hny + hz * hnz
+                    spec = _pow25(hn * hn)
+                    ccx = spec + d0 * nl * (1.0 - spec)
+                    ccy = spec + d1 * nl * (1.0 - spec)
+                    ccz = spec + d2 * nl * (1.0 - spec)
+                    if mtype == M.GLOW:
+                        gl = [float(v) for v in mats.glow[row]]
+                        ex = torch.where(msk, gl[0], ex)
+                        ey = torch.where(msk, gl[1], ey)
+                        ez = torch.where(msk, gl[2], ez)
+                elif mtype == M.GLASS:
+                    refl = float(mats.reflectivity[row])
+                    frost = float(mats.frost[row])
+                    lrx, lry, lrz = lerped(frost)
+                    # random_refraction (normal.cpp:64-105).
+                    if flags & FLAG_GLASS_STRAIGHT:
+                        fx0, fy0, fz0 = _norm3(vx, vy, vz)
+                    else:
+                        fx0, fy0, fz0 = _refract(vx, vy, vz, hnx, hny, hnz,
+                                                 float(mats.ior[row]))
+                    if flags & FLAG_FROST_FULL:
+                        qx, qy, qz = gx, gy, gz
+                    elif flags & FLAG_FROST_NONE:
+                        qx, qy, qz = fx0, fy0, fz0
+                    else:
+                        sa_half = float(np.float32(np.float32(vm.PI) * np.float32(frost))
+                                        * np.float32(0.5))
+                        delta = (u3 * 2.0 - 1.0) * sa_half
+                        qx, qy, qz = _rotate(fx0, fy0, fz0, delta, gx, gy, gz)
+                    take_r = u0 < refl
+                    ox = torch.where(take_r, lrx, qx)
+                    oy = torch.where(take_r, lry, qy)
+                    oz = torch.where(take_r, lrz, qz)
+                    ccx, ccy, ccz = (torch.full_like(sx, d) for d in (d0, d1, d2))
+                elif mtype == M.LIQUID:
+                    qx, qy, qz = _refract(vx, vy, vz, hnx, hny, hnz, float(mats.ior[row]))
+                    take_r = u0 < float(mats.reflectivity[row])
+                    ox = torch.where(take_r, rx, qx)
+                    oy = torch.where(take_r, ry, qy)
+                    oz = torch.where(take_r, rz, qz)
+                    ccx, ccy, ccz = (torch.full_like(sx, d) for d in (d0, d1, d2))
+                elif mtype == M.FOG:
+                    ox, oy, oz = vx, vy, vz
+                    ccx = ccy = ccz = torch.ones_like(sx)
+                    is_fog = is_fog | msk
+                    fog_dens = torch.where(msk, float(mats.frost[row]), fog_dens)
+                    fog_cx = torch.where(msk, d0, fog_cx)
+                    fog_cy = torch.where(msk, d1, fog_cy)
+                    fog_cz = torch.where(msk, d2, fog_cz)
+                else:
+                    raise ValueError(f"unknown material type {mtype}")
+
+                bx = torch.where(msk, ox, bx)
+                by = torch.where(msk, oy, by)
+                bz = torch.where(msk, oz, bz)
+                cx = torch.where(msk, ccx, cx)
+                cy = torch.where(msk, ccy, cy)
+                cz = torch.where(msk, ccz, cz)
+                will = will | (msk if w is None else msk & w)
+
+            if depth == 0:
+                anx = torch.where(hit, hnx, dx)
+                any_ = torch.where(hit, hny, dy)
+                anz = torch.where(hit, hnz, dz)
+                nx0, ny0, nz0 = _norm3(anx, any_, anz)
+                aov_nx = torch.where(hit, anx, nx0)
+                aov_ny = torch.where(hit, any_, ny0)
+                aov_nz = torch.where(hit, anz, nz0)
+                dpx, dpy, dpz = px - sx, py - sy, pz - sz
+                aov_d = torch.where(hit, torch.sqrt(dpx * dpx + dpy * dpy + dpz * dpz),
+                                    z_far_default)
+                aov_m = torch.where(hit, hmat, sky_idx).to(torch.int32)
+                p_light = hit & is_light
+                mark = active & is_fog
+                f_active = mark
+                f_fx = torch.where(mark, px, f_fx)
+                f_fy = torch.where(mark, py, f_fy)
+                f_fz = torch.where(mark, pz, f_fz)
+                f_dx = torch.where(mark, fog_cx, f_dx)
+                f_dy = torch.where(mark, fog_cy, f_dy)
+                f_dz = torch.where(mark, fog_cz, f_dz)
+                f_dens = torch.where(mark, fog_dens, f_dens)
+                f_u = torch.where(mark, u3, f_u)
+
+            Lx = torch.where(active, Lx + Tx * ex, Lx)
+            Ly = torch.where(active, Ly + Ty * ey, Ly)
+            Lz = torch.where(active, Lz + Tz * ez, Lz)
+            Tx = torch.where(active, Tx * cx, Tx)
+            Ty = torch.where(active, Ty * cy, Ty)
+            Tz = torch.where(active, Tz * cz, Tz)
+            sx = torch.where(active, px + bx * ray_offset, sx)
+            sy = torch.where(active, py + by * ray_offset, sy)
+            sz = torch.where(active, pz + bz * ray_offset, sz)
+            dx = torch.where(active, bx * seg_scale, dx)
+            dy = torch.where(active, by * seg_scale, dy)
+            dz = torch.where(active, bz * seg_scale, dz)
+            alive = active & will
+
+        if cfg.fast_render:
+            # White terminal (engine.cpp:67-70).
+            Lx = torch.where(alive, Lx + Tx, Lx)
+            Ly = torch.where(alive, Ly + Ty, Ly)
+            Lz = torch.where(alive, Lz + Tz, Lz)
+
+        # Depth-0 light tone clamp (engine.cpp:148-151).
+        norm = torch.sqrt(torch.clamp(Lx * Lx + Ly * Ly + Lz * Lz, min=1e-20))
+        s = torch.where(p_light & (norm > cfg.light_clamp), cfg.light_clamp / norm, 1.0)
+        return (Lx * s, Ly * s, Lz * s, aov_nx, aov_ny, aov_nz, aov_d, aov_m, segcnt)
+
+    return core
+
+
+# --- kernel wrappers -------------------------------------------------------
+
+
+def _path_params(scene: HostScene, mats: HostMaterials, cfg, sky_idx: int,
+                z_far: float) -> _build.PathParams:
+    sky = mats.emissive[sky_idx] * np.float32(3.0)
+    return _build.PathParams(
+        ray_offset=cfg.ray_offset,
+        seg_scale=float(np.float32(z_far - cfg.ray_offset)),
+        z_far=z_far,
+        light_clamp=cfg.light_clamp,
+        sky_e=_floats(sky),
+        depth=cfg.effective_depth,
+        bounce_slots=cfg.bounce_slots,
+        sky_idx=sky_idx,
+        fast_render=int(cfg.fast_render),
+        n_prims=scene.prim_count,
+        n_mats=mats.count,
+    )
+
+
+def _floats(values):
+    return (ctypes.c_float * len(values))(*map(float, values))
+
+
+def _cam_params(cam: HostCamera, cfg) -> _build.CamParams:
+    return _build.CamParams(
+        origin=_floats(cam.origin), proj_origin=_floats(cam.proj_origin),
+        right=_floats(cam.right), up=_floats(cam.up),
+        focal_plane=_floats(cam.focal_plane),
+        half_w=cam.half_w, half_h=cam.half_h,
+        inv_wm1=1.0 / (cfg.width - 1), inv_hm1=1.0 / (cfg.height - 1),
+        aperture=cam.aperture, z_far=cam.z_far,
+        width=cfg.width, spp=cfg.spp, dof=int(cam.aperture > 0.0),
+    )
+
+
+def _path_outputs(n, dev):
+    return (torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))
+
+
+def _trace_output(radiance, normal, depth, mat, segcnt) -> TraceOutput:
+    return TraceOutput(radiance=radiance, aov_normal=normal, aov_depth=depth,
+                       aov_mat=mat, segments=segcnt.sum())
+
+
+def planes_to_output(outs) -> TraceOutput:
+    """The plain core's planes as a TraceOutput."""
+    lx, ly, lz, anx, any_, anz, ad, am, segc = outs
+    return _trace_output(torch.stack([lx, ly, lz], dim=-1),
+                         torch.stack([anx, any_, anz], dim=-1), ad, am, segc)
+
+
+def _specializable(scene_pack):
+    """(HostScene, HostMaterials) of a scene the tracers take, or None.
+
+    Returns None for a BVH scene or one over MAX_SPECIALIZED_PRIMS
+    primitives (the reference's general path); raises for a textured scene.
+    """
+    if scene_pack.bvh is not None:
+        return None
+    scene = HostScene(scene_pack.geometry)
+    if scene.prim_count > MAX_SPECIALIZED_PRIMS:
+        return None
+    mats = HostMaterials(scene_pack.materials)
+    if mats.any_textured:
+        raise NotImplementedError(TEXTURED_SLICE)
+    return scene, mats
+
+
+def make_camera_path_tracer(scene_pack, camera, cfg):
+    """The camera-fused path tracer (kernel 2) for a fixed camera.
+
+    Returns ``trace(seed, sample0, lane0=0, n_lanes=None) → TraceOutput``
+    over lanes ``lane0 .. lane0+n_lanes-1`` of the H×W×spp frame, or None
+    for a BVH scene or one over 512 primitives.  A scene on the CPU runs the
+    plain version; a scene on the card launches the kernel.
+    """
+    found = _specializable(scene_pack)
+    if found is None:
+        return None
+    scene, mats = found
+    sky_idx = int(scene_pack.sky_mat)
+    cam = HostCamera(camera, cfg.width, cfg.height)
+    dev = scene_pack.device
+    raygen = build_fused_raygen(cam, cfg)
+    core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far)
+
+    def trace(seed, sample0, lane0=0, n_lanes=None):
+        n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
+        h0 = rng.seed_hash(seed)
+        if dev.type == "cpu":
+            sx, sy, sz, dx, dy, dz, pix, smp = raygen(h0, sample0, lane0, n, dev)
+            return planes_to_output(core(h0, sx, sy, sz, dx, dy, dz, pix, smp))
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        prims, meta = scene.tables(dev)
+        mtab, mmeta = mats.tables(dev)
+        outs = _path_outputs(n, dev)
+        _build.launch(CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
+                      mtab.data_ptr(), mmeta.data_ptr(),
+                      _path_params(scene, mats, cfg, sky_idx, cam.z_far),
+                      _cam_params(cam, cfg), h0, int(sample0), int(lane0), n,
+                      *(o.data_ptr() for o in outs),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        return _trace_output(*outs)
+
+    return trace
+
+
+def make_path_tracer(scene_pack, cfg, z_far: float = 10000.0):
+    """The rays-in path tracer (kernel 3).
+
+    Returns ``trace(start[N,3], seg[N,3], pixel_idx[N], sample_idx[N], seed)
+    → TraceOutput``, or None for a BVH scene or one over 512 primitives.
+    CPU rays run the plain version; CUDA rays launch the kernel.
+    """
+    found = _specializable(scene_pack)
+    if found is None:
+        return None
+    scene, mats = found
+    sky_idx = int(scene_pack.sky_mat)
+    z_far = float(z_far)
+    core = build_path_core(scene, mats, cfg, sky_idx, z_far)
+
+    def trace(start, seg, pixel_idx, sample_idx, seed):
+        dev = start.device
+        h0 = rng.seed_hash(seed)
+        if dev.type == "cpu":
+            return planes_to_output(core(h0, start[:, 0], start[:, 1], start[:, 2],
+                                      seg[:, 0], seg[:, 1], seg[:, 2],
+                                      pixel_idx, sample_idx))
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        n = start.shape[0]
+        _build.check_cuda_tensor("start", start, torch.float32, (n, 3), dev)
+        _build.check_cuda_tensor("seg", seg, torch.float32, (n, 3), dev)
+        _build.check_cuda_tensor("pixel_idx", pixel_idx, torch.int32, (n,), dev)
+        _build.check_cuda_tensor("sample_idx", sample_idx, torch.int32, (n,), dev)
+        prims, meta = scene.tables(dev)
+        mtab, mmeta = mats.tables(dev)
+        outs = _path_outputs(n, dev)
+        _build.launch(RAY_PATH, prims.data_ptr(), meta.data_ptr(),
+                      mtab.data_ptr(), mmeta.data_ptr(),
+                      _path_params(scene, mats, cfg, sky_idx, z_far),
+                      start.data_ptr(), seg.data_ptr(), pixel_idx.data_ptr(),
+                      sample_idx.data_ptr(), h0, n,
+                      *(o.data_ptr() for o in outs),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        return _trace_output(*outs)
+
+    return trace

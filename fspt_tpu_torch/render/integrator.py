@@ -1,0 +1,176 @@
+"""The wavefront path integrator in plain torch.
+
+Port of fspt_tpu/render/integrator.py: the reference's recursive
+``TraceStep`` (engine.cpp:59-159) as an iterative bounce loop over a ray
+SoA — intersect → shade → spawn for the whole wavefront per bounce.  This
+is the port's general render path (any analytic scene, textured ones
+included); the CUDA megakernels in ops/cuda_path.py replace it on the
+CLI's main path.
+
+Semantics kept from the reference: depth cap → loop length; fast-render
+white above depth 1; miss → sky ×3; backface flip; ε-offset 0.03; affine
+``L += T·bias; T *= coef``; depth-0 fog resolved one bounce later; the
+depth-0 light tone clamp; AOVs captured at depth 0.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fspt_tpu_torch import materials as mat_mod
+from fspt_tpu_torch.camera import Camera, generate_rays
+from fspt_tpu_torch.config import RenderConfig
+from fspt_tpu_torch.ops import rng
+from fspt_tpu_torch.ops.intersect import Hit, intersect_scene
+from fspt_tpu_torch.render import framebuffer as fb_mod
+from fspt_tpu_torch.scene.builder import ScenePack
+from fspt_tpu_torch.utils import vecmath as vm
+
+
+def intersect_full(scene: ScenePack, start, seg) -> Hit:
+    """Closest hit against the full scene (analytic primitives; BVH scenes
+    come with the mesh slice)."""
+    if scene.bvh is not None:
+        raise NotImplementedError("BVH scenes come with the mesh slice of the port")
+    return intersect_scene(scene.geometry, start, seg)
+
+
+class TraceOutput(NamedTuple):
+    radiance: torch.Tensor  # [N,3]
+    aov_normal: torch.Tensor  # [N,3]
+    aov_depth: torch.Tensor  # [N]
+    aov_mat: torch.Tensor  # [N] int32
+    segments: torch.Tensor  # scalar: path segments traced (rays/s metric)
+
+
+def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,
+                   pixel_idx, sample_idx, seed, z_far,
+                   intersector=None) -> TraceOutput:
+    """Trace a ray wavefront to completion and return per-lane radiance.
+
+    ``intersector(start, seg) → Hit`` overrides the brute-force
+    :func:`intersect_full` (e.g. the CUDA intersector of ops/cuda_trace.py).
+    """
+    if cfg.edge_eps > 0.0:
+        raise NotImplementedError(
+            "edge reparameterization comes with the gradient slice of the port")
+    table = scene.materials
+    tex = scene.textures
+    dev = start.device
+    z_far = torch.as_tensor(z_far, dtype=torch.float32, device=dev)
+
+    n_lanes = start.shape[0]
+    f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    radiance = f32(n_lanes, 3)
+    throughput = torch.ones((n_lanes, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones((n_lanes,), dtype=torch.bool, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+
+    fog_active = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    fog_from = f32(n_lanes, 3)
+    fog_diffuse = f32(n_lanes, 3)
+    fog_density = f32(n_lanes)
+    fog_u = f32(n_lanes)
+
+    aov_normal = f32(n_lanes, 3)
+    aov_depth = f32(n_lanes)
+    aov_mat = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    primary_light_hit = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+
+    for depth in range(cfg.effective_depth):
+        segments = segments + alive.sum()
+
+        hit = (intersector(start, seg) if intersector is not None
+               else intersect_full(scene, start, seg))
+
+        # Backface flip → is_internal (scene.cpp:238-247).
+        side = vm.dot(hit.normal, start - hit.point)
+        internal = side < 0.0
+        normal = torch.where(internal[:, None], -hit.normal, hit.normal)
+
+        # Depth-0 fog resolves one bounce late: the reference's absorption
+        # term uses the next hit point or the segment end on a miss
+        # (material.cpp:330-337, engine.cpp:89-91).
+        if depth >= 1:
+            light_pos = torch.where(hit.hit[:, None], hit.point, start + seg)
+            dist = vm.length(light_pos - fog_from)
+            thresh = torch.clamp(dist * dist * fog_density * 0.00005, 0.0, 1.0)
+            absorbed = fog_active & (fog_u < thresh)
+            radiance = radiance + torch.where(
+                (absorbed & alive)[:, None], throughput * fog_diffuse, 0.0)
+            alive = alive & ~absorbed
+            fog_active = torch.zeros_like(fog_active)
+
+        # Misses sample the sky (engine.cpp:92-101).
+        miss = alive & ~hit.hit
+        view_dir = vm.normalize(seg)
+        sky_rgb = mat_mod.sample_sky(table, tex, scene.sky_mat, view_dir)
+        radiance = radiance + torch.where(miss[:, None], throughput * sky_rgb, 0.0)
+
+        active = alive & hit.hit
+        view = vm.normalize(hit.point - start)
+        uniforms = rng.bounce_uniforms(seed, pixel_idx, sample_idx, depth,
+                                       cfg.bounce_slots)
+        sh = mat_mod.shade(table, tex, hit.mat, view, normal, hit.texcoords,
+                           uniforms)
+
+        if depth == 0:
+            aov_normal = torch.where(hit.hit[:, None], normal, view_dir)
+            aov_depth = torch.where(hit.hit, vm.length(hit.point - start), z_far)
+            aov_mat = torch.where(hit.hit, hit.mat,
+                                  scene.sky_mat.to(torch.int32)).to(torch.int32)
+            primary_light_hit = hit.hit & sh.is_light
+            mark = active & sh.is_fog
+            fog_active = mark
+            fog_from = torch.where(mark[:, None], hit.point, fog_from)
+            fog_diffuse = torch.where(mark[:, None], sh.fog_diffuse, fog_diffuse)
+            fog_density = torch.where(mark, sh.fog_density, fog_density)
+            fog_u = torch.where(mark, uniforms[:, 3], fog_u)
+
+        radiance = radiance + torch.where(active[:, None], throughput * sh.bias, 0.0)
+        throughput = torch.where(active[:, None], throughput * sh.coef, throughput)
+
+        new_start = hit.point + sh.direction * cfg.ray_offset
+        new_seg = sh.direction * (z_far - cfg.ray_offset)
+        start = torch.where(active[:, None], new_start, start)
+        seg = torch.where(active[:, None], new_seg, seg)
+
+        alive = active & sh.will_indirect
+
+    if cfg.fast_render:
+        # Lanes that would recurse past depth 1 return white (engine.cpp:67-70).
+        radiance = radiance + torch.where(alive[:, None], throughput, 0.0)
+
+    # Depth-0 light tone clamp (engine.cpp:148-151).
+    norm = torch.sqrt(torch.clamp(vm.dot(radiance, radiance), min=1e-20))
+    clamp = primary_light_hit & (norm > cfg.light_clamp)
+    scale = torch.where(clamp, cfg.light_clamp / norm, 1.0)
+    radiance = radiance * scale[:, None]
+
+    return TraceOutput(radiance=radiance, aov_normal=aov_normal,
+                       aov_depth=aov_depth, aov_mat=aov_mat, segments=segments)
+
+
+def render_wavefront(scene: ScenePack, camera: Camera, cfg: RenderConfig,
+                     seed, sample0, y0=0, rows=None,
+                     intersector=None) -> TraceOutput:
+    """Generate the rows×W×spp primary wavefront and trace it."""
+    start, seg, pixel_idx, sample_idx = generate_rays(
+        camera, cfg.width, cfg.height, cfg.spp, seed, sample0, y0=y0, rows=rows)
+    return trace_radiance(scene, cfg, start, seg, pixel_idx, sample_idx,
+                          seed, camera.z_far, intersector=intersector)
+
+
+def render_step(scene: ScenePack, camera: Camera, cfg: RenderConfig,
+                fb: fb_mod.Framebuffer, seed, frame_idx, y0=0,
+                intersector=None):
+    """One progressive frame: trace spp samples/pixel and accumulate.
+    Returns the updated framebuffer and the segment count."""
+    rows = fb.mean.shape[0]
+    out = render_wavefront(scene, camera, cfg, seed, frame_idx * cfg.spp,
+                           y0=y0, rows=rows, intersector=intersector)
+    fb = fb_mod.accumulate(fb, out.radiance, out.aov_normal, out.aov_depth,
+                           out.aov_mat, rows, cfg.width, cfg.spp)
+    return fb, out.segments

@@ -1,0 +1,63 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the CUDA card unless told to use the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "fspt_tpu_torch", "fspt_tpu_torch.cli", "fspt_tpu_torch.convert",
+    "fspt_tpu_torch.camera", "fspt_tpu_torch.config", "fspt_tpu_torch.materials",
+    "fspt_tpu_torch.ops._build", "fspt_tpu_torch.ops.cuda_path",
+    "fspt_tpu_torch.ops.cuda_trace", "fspt_tpu_torch.ops.intersect",
+    "fspt_tpu_torch.ops.kernel_check", "fspt_tpu_torch.ops.rng",
+    "fspt_tpu_torch.render.dispatch", "fspt_tpu_torch.render.framebuffer",
+    "fspt_tpu_torch.render.integrator", "fspt_tpu_torch.scene.builder",
+    "fspt_tpu_torch.scene.geometry", "fspt_tpu_torch.scene.mesh",
+    "fspt_tpu_torch.scene.parser", "fspt_tpu_torch.scene.samples",
+    "fspt_tpu_torch.utils.checkpoint", "fspt_tpu_torch.utils.image",
+    "fspt_tpu_torch.utils.vecmath", "chip_smoke",
+]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'fspt_tpu' or m.startswith('fspt_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    # -I: no PYTHONPATH or site hooks that could preload jax.
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_entry_points_refuse_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from fspt_tpu_torch import Camera, SceneBuilder, cli
+    from fspt_tpu_torch.render import framebuffer
+    from fspt_tpu_torch.utils import checkpoint
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SceneBuilder().compile()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Camera.create()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        framebuffer.create(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.load("missing.npz")
+    scene = os.path.join(REPO, "scenes", "cornell.scene")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--file", scene, "--width", "8", "--height", "8", "--frames", "1"])

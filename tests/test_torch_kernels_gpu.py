@@ -1,0 +1,49 @@
+"""Each CUDA kernel against its plain PyTorch version, on the card.
+
+Marked ``gpu``: they need a CUDA card and nvcc, and skip elsewhere.  Run
+them on the card with ``python -m pytest tests/test_torch_kernels_gpu.py
+-m gpu``.  The comparisons and their bars live in
+fspt_tpu_torch/ops/kernel_check.py, shared with chip_smoke.py.
+"""
+
+import pytest
+import torch
+
+from fspt_tpu_torch.config import RenderConfig
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_intersect_kernel_matches_plain(cuda):
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    scene = samples.build("all_primitives", device=cuda).compile(device=cuda)
+    start, seg = kernel_check.random_segments(1 << 16, seed=1, device=cuda)
+    kernel_check.check_intersect(scene.geometry, start, seg)
+
+
+def test_ray_path_kernel_matches_plain(cuda):
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families", device=cuda)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    kernel_check.check_path_tracer(b.compile(device=cuda), b.cameras[0], cfg, seed=4)
+
+
+def test_camera_path_kernel_matches_plain(cuda):
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families", device=cuda, aperture=1.5, focal_depth=120.0)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    kernel_check.check_camera_tracer(b.compile(device=cuda), b.cameras[0], cfg, seed=5,
+                                     sample0=2)
