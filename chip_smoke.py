@@ -23,12 +23,31 @@ Phases, each announced by one line:
    with CUDA events, beside the plain versions (each kernel is also held
    against its plain version at these shapes) and the bound; then the CLI's
    frame step end to end, and a profiler window for the device busy share;
-9. one JSON line of per-kernel numbers; then the card line; the last line
+9. kernel 4 (texture-deferred camera-fused) against its plain version on
+   the textured all-families scene at 256×256, 4 spp, depth 8, with DoF:
+   slot planes, folded radiance, the lane0 split;
+10. kernel 7 (affine slot planes) against its plain version on the same
+   scene, fast-render off and on, then image and gradients through the
+   fold; kernel 8 (fused dual-buffer loss) against its plain version on the
+   flagship at 256×256, 4 spp, depth 8;
+11. textured main path: ``fspt_tpu_torch.cli`` renders a textured copy of
+   scenes/cornell.scene (tests/data/piz_pattern.exr on two walls,
+   piz_dome.exr on the sky) at 1024², 4 spp, depth 8, 4 frames; kernel 4's
+   launch count must rise by 4 and the image must be lit;
+12. training path at full width: ``make_fused_recovery_step`` on the
+   flagship at 1920×1080, 4 spp, depth 8 — 5 steps at pool 1 (kernel 8, one
+   launch per step) and 3 at pool 8 (kernel 7, two launches per step) —
+   then 3 steps of the texture example at 512²; every loss finite;
+13. timings of kernels 4, 7 and 8 at their main-path shapes beside their
+   plain versions and bounds, and the recovery step end to end (fwd+bwd
+   segments/s, both buffers counted);
+14. one JSON line of per-kernel numbers; then the card line; the last line
    is ``{"ok": true, "device": {...}}``.
 
-Any failure raises and the script exits non-zero.  Outputs (image,
+Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
-before printing any result.
+before printing any result.  Phases 9-14 run after phase 8; each main path
+runs with every launch count set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -75,24 +94,64 @@ def bound_ms(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# kernel → (CUDA function, source); the order of the kernels line.
+KERNELS = {
+    "intersect": ("intersect_kernel", "fspt_tpu_torch/csrc/fspt_kernels.cu"),
+    "camera_path": ("camera_path_kernel", "fspt_tpu_torch/csrc/fspt_kernels.cu"),
+    "ray_path": ("ray_path_kernel", "fspt_tpu_torch/csrc/fspt_kernels.cu"),
+    "deferred_path": ("deferred_camera_kernel", "fspt_tpu_torch/csrc/fspt_deferred.cu"),
+    "affine_planes": ("affine_planes_kernel", "fspt_tpu_torch/csrc/fspt_deferred.cu"),
+    "fused_loss": ("fused_loss_kernel", "fspt_tpu_torch/csrc/fspt_grad.cu"),
+}
+PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce"]
+
+
 def ptxas_report(log):
-    """kernel name → 'N registers, S bytes spill stores, L bytes spill loads'."""
+    """CUDA function → registers, (spill stores, spill loads) and stack
+    frame bytes, from ``-Xptxas -v``."""
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            current = next((k for k in ("intersect_kernel", "camera_path_kernel",
-                                        "ray_path_kernel") if k in m.group(1)), None)
+            current = next((k for k in PTXAS_NAMES if k in m.group(1)), None)
             continue
         if current is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            out.setdefault(current, {})["spill"] = (int(m.group(1)), int(m.group(2)))
+            out.setdefault(current, {})["stack"] = int(m.group(1))
+            out.setdefault(current, {})["spill"] = (int(m.group(2)), int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(current, {})["registers"] = int(m.group(1))
     return out
+
+
+def profile_window(fn, label, top=6):
+    """Profile ``fn()`` once on the card; print the device busy share of the
+    window and the kernels taking the most device time, and keep the table
+    in build/chip_smoke/profile_<label>.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    dev_us = sorted(((e.self_device_time_total, e.key) for e in events
+                     if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(us for us, _ in dev_us)
+    print(f"profile {label}: window {window_us:.0f} us, device busy {busy_us:.0f} us "
+          f"({busy_us / window_us:.1%}); top kernels by device time:")
+    for us, key in dev_us[:top]:
+        print(f"  {us:10.0f} us  {key[:90]}")
+    (OUT / f"profile_{label}.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=25))
 
 
 def main():
@@ -105,7 +164,10 @@ def main():
     from fspt_tpu_torch import cli
     from fspt_tpu_torch.camera import generate_rays
     from fspt_tpu_torch.config import RenderConfig
-    from fspt_tpu_torch.ops import _build, cuda_path, cuda_trace, kernel_check, rng
+    import numpy as np
+
+    from fspt_tpu_torch.ops import _build, cuda_grad, cuda_path, cuda_trace, kernel_check, rng
+    from fspt_tpu_torch.parallel import train
     from fspt_tpu_torch.render import framebuffer as fb_mod
     from fspt_tpu_torch.render.dispatch import make_scene_step
     from fspt_tpu_torch.scene import samples
@@ -114,7 +176,10 @@ def main():
     dev = torch.device("cuda")
     counters = {"intersect": cuda_trace.INTERSECT,
                 "camera_path": cuda_path.CAMERA_PATH,
-                "ray_path": cuda_path.RAY_PATH}
+                "ray_path": cuda_path.RAY_PATH,
+                "deferred_path": cuda_path.DEFERRED_PATH,
+                "affine_planes": cuda_grad.AFFINE_PLANES,
+                "fused_loss": cuda_grad.FUSED_LOSS}
 
     def reset_counts():
         for c in counters.values():
@@ -131,16 +196,18 @@ def main():
           f"CUDA {torch.version.cuda}", flush=True)
 
     # 2. build
-    phase("build (nvcc, sm_90a)")
+    phase("build (nvcc, sm_90a, one nvcc per library, all at once)")
     t0 = time.time()
-    _build.library()
+    _build.build_all()
+    for lib in _build.LIBRARIES:
+        _build.library(lib)
     build_s = time.time() - t0
     regs = ptxas_report(_build.ptxas_log())
-    print(f"build: {build_s:.1f} s (0 if the library for these sources existed)")
+    print(f"build: {build_s:.1f} s (0 if the libraries for these sources existed)")
     for k, v in regs.items():
         print(f"ptxas {k}: {v.get('registers')} registers, spill stores/loads "
-              f"{v.get('spill')} bytes")
-    for k in ("intersect_kernel", "camera_path_kernel", "ray_path_kernel"):
+              f"{v.get('spill')} bytes, stack frame {v.get('stack')} bytes")
+    for k in PTXAS_NAMES:
         assert k in regs, f"no ptxas report for {k}"
 
     report = {}
@@ -328,22 +395,211 @@ def main():
         events.table(sort_by="self_device_time_total", row_limit=15))
     assert kernel_us > 0, "the profiler saw no camera_path_kernel time"
 
-    # 9. the kernels line, the card line, the result
+    # 9. kernel 4 against its plain version
+    phase("kernel 4 (deferred_path) vs plain: textured all families + DoF, "
+          "256x256x4, depth 8")
+    famt = samples.build("all_families_textured", device=dev, aperture=1.5,
+                         focal_depth=120.0)
+    famt_scene = famt.compile(device=dev)
+    report["deferred_path"] = kernel_check.check_deferred_tracer(
+        famt_scene, famt.cameras[0], cfg256, seed=6, sample0=2)
+    print(json.dumps(report["deferred_path"]), flush=True)
+
+    # 10. kernels 7 and 8 against their plain versions
+    for fast in (False, True):
+        phase(f"kernel 7 (affine_planes) vs plain: textured all families + DoF, "
+              f"256x256x4, depth 8, fast_render={fast}")
+        cfg_f = RenderConfig(width=256, height=256, spp=4, max_depth=8, fast_render=fast)
+        rep7 = kernel_check.check_affine_planes(famt_scene, famt.cameras[0], cfg_f, seed=7)
+        print(json.dumps(rep7), flush=True)
+        report["affine_planes"] = max(report.get("affine_planes", rep7), rep7,
+                                      key=lambda r: r["max_abs_err"])
+    phase("kernel 8 (fused_loss) vs plain: flagship 256x256x4, depth 8")
+    rng_np = np.random.default_rng(0)
+    target256 = torch.from_numpy(rng_np.random((256, 256, 3), dtype=np.float32)).to(dev)
+    report["fused_loss"] = kernel_check.check_fused_loss(
+        flag_scene, flag_cam, cfg256, target256, seed=8, frame_idx=3)
+    print(json.dumps(report["fused_loss"]), flush=True)
+
+    # 11. textured main path: the CLI on a textured copy of cornell.scene
+    phase("textured main path: fspt_tpu_torch.cli, textured cornell.scene 1024x1024, "
+          "4 spp, depth 8, 4 frames")
+    tex_scene_file = samples.write_textured_cornell(
+        ROOT / "scenes" / "cornell.scene", OUT / "cornell_textured.scene",
+        ROOT / "tests" / "data" / "piz_pattern.exr", ROOT / "tests" / "data" / "piz_dome.exr")
+    tex_image = OUT / "cornell_textured_1024.png"
+    tex_ckpt = OUT / "cornell_textured_1024.npz"
+    tex_image.unlink(missing_ok=True)
+    tex_ckpt.unlink(missing_ok=True)
+    reset_counts()
+    rc = cli.main(["--file", str(tex_scene_file), "--width", "1024", "--height", "1024",
+                   "--spp", "4", "--depth", "8", "--frames", "4", "--seed", "0",
+                   "--output", str(tex_image), "--checkpoint", str(tex_ckpt)])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"textured main path launches: {launches}")
+    assert rc == 0
+    assert launches["deferred_path"] == 4 and launches["camera_path"] == 0, launches
+    fb, frame = checkpoint.load(str(tex_ckpt), device=dev)
+    tex_ckpt.unlink()
+    assert frame == 4 and torch.isfinite(fb.mean).all()
+    display_mean = fb_mod.to_display(fb.mean).float().mean().item()
+    print(f"display mean {display_mean:.2f} (below 15 means a broken render)")
+    assert display_mean > 15.0, display_mean
+    path_launches["deferred_path"] = launches["deferred_path"]
+
+    # 12. training path at full width
+    cfg_t = RenderConfig(width=1920, height=1080, spp=4, max_depth=8)
+    n_t = cfg_t.width * cfg_t.height * cfg_t.spp
+    phase("training path: make_fused_recovery_step, flagship 1920x1080x4, depth 8")
+    trainer = samples.build("flagship", device=dev)
+    train_scene, train_cam = trainer.compile(device=dev), trainer.cameras[0]
+    tracer_t = cuda_path.make_camera_path_tracer(train_scene, train_cam, cfg_t)
+    fb = fb_mod.create(cfg_t.height, cfg_t.width, device=dev)
+    for f in range(2):
+        out = tracer_t(0, f * cfg_t.spp)
+        fb = fb_mod.accumulate(fb, out.radiance, out.aov_normal, out.aov_depth,
+                               out.aov_mat, cfg_t.height, cfg_t.width, cfg_t.spp)
+    target_t = fb.mean
+    true = {k: getattr(train_scene.materials, k) for k in ("diffuse", "emissive")}
+    start = {"diffuse": (true["diffuse"] * torch.from_numpy(rng_np.uniform(
+                 0.6, 1.4, tuple(true["diffuse"].shape)).astype(np.float32)).to(dev)
+                 ).clamp(0.0, 1.0),
+             "emissive": true["emissive"] * 0.7}
+    adam = lambda ps: torch.optim.Adam(ps, lr=0.02)  # noqa: E731
+    step_times = {}
+    for pool, steps, key, per_step in ((1, 5, "fused_loss", 1), (8, 3, "affine_planes", 2)):
+        step = train.make_fused_recovery_step(None, train_scene, train_cam, cfg_t,
+                                              pool=pool, optimizer=adam)
+        params = dict(start)
+        state = step.init(params)
+        reset_counts()
+        times = []
+        for it in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, train_scene, train_cam, target_t,
+                                       9, it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            finite = bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(v).all()) for v in params.values())
+            print(f"pool={pool} step {it}: loss {float(loss):.6g} ({times[-1]:.1f} ms)",
+                  flush=True)
+            assert finite, (pool, it)
+        launches = {k: c.launches for k, c in counters.items()}
+        print(f"pool={pool} launches {launches}")
+        assert launches[key] == per_step * steps, launches
+        path_launches[key] = launches[key]
+        step_times[pool] = times
+        profile_window(lambda: step(params, state, train_scene, train_cam, target_t, 9,
+                                    steps), f"recovery_pool{pool}")
+    phase("texture example: recover_texture at 512x512, 3 iterations")
+    reset_counts()
+    from fspt_tpu_torch.examples import recover_texture
+
+    assert recover_texture.main(["--iters", "3", "--width", "512", "--height", "512",
+                                 "--out", str(OUT / "recover_tex")]) == 0
+    torch.cuda.synchronize()
+    print(f"texture example launches {dict((k, c.launches) for k, c in counters.items())}")
+    assert cuda_grad.AFFINE_PLANES.launches == 6 + 2 * 3 + 12
+
+    # 13. timings of kernels 4, 7 and 8 at their main-path shapes
+    phase("timing: kernel 4 on the textured cornell.scene 1024x1024x4, depth 8")
+    from fspt_tpu_torch.scene.parser import load_scene
+
+    tb = load_scene(str(tex_scene_file), device=dev)
+    tex_scene = tb.compile(device=dev)
+    tracer4 = cuda_path.make_camera_path_tracer(tex_scene, tb.cameras[0], cfg)
+    full4 = kernel_check.compare_paths(tracer4(0, 0), tracer4.fold(
+        tracer4.plain_planes(0, 0, 0, n)))
+    seg4 = full4["segments"]
+    print(f"deferred_path vs plain at 1024x1024x4: {json.dumps(full4)}")
+    ms4 = cuda_time_ms(lambda: tracer4.planes(0, 0, 0, n), iters=10, warmup=2)
+    plain4 = cuda_time_ms(lambda: tracer4.plain_planes(0, 0, 0, n), iters=1)
+    S = cuda_path.n_slots(cfg)
+    hs4 = cuda_trace.HostScene(tex_scene.geometry)
+    b4, by4 = bound_ms(seg4 * hs4.segment_ops(), n * (S * 44 + 28))
+    timings["deferred_path"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4,
+                                    max_abs_err=full4["max_abs_err"])
+    print(f"deferred_path: {ms4:.3f} ms/frame (planes), {seg4} segments, "
+          f"{seg4 / (ms4 * 1e-3):.4g} segments/s; plain {plain4:.1f} ms; bound {b4:.4f} ms "
+          f"({by4}: {S} slots x 44 B + 28 B per lane, {hs4.segment_ops()} ops/segment)",
+          flush=True)
+    state4 = {"fb": fb_mod.create(cfg.height, cfg.width, device=dev), "frame": 0}
+
+    def textured_step():
+        out = tracer4(0, state4["frame"] * cfg.spp)
+        state4["fb"] = fb_mod.accumulate(state4["fb"], out.radiance, out.aov_normal,
+                                         out.aov_depth, out.aov_mat, cfg.height,
+                                         cfg.width, cfg.spp)
+        state4["frame"] += 1
+
+    tstep_ms = cuda_time_ms(textured_step, iters=10, warmup=2)
+    print(f"textured frame step (kernel 4 + fold + accumulate): {tstep_ms:.3f} ms, "
+          f"{seg4 / (tstep_ms * 1e-3):.4g} segments/s end to end", flush=True)
+
+    phase("timing: kernels 7 and 8 on the flagship 1920x1080x4, depth 8")
+    planes7 = cuda_grad.make_affine_planes(train_scene, train_cam, cfg_t)
+    full7 = kernel_check.check_affine_planes(train_scene, train_cam, cfg_t, seed=9)
+    seg7 = full7["segments"]
+    print(f"affine_planes vs plain at 1920x1080x4: {json.dumps(full7)}")
+    ms7 = cuda_time_ms(lambda: planes7(9, 0, 0, n_t), iters=10, warmup=2)
+    plain7 = cuda_time_ms(lambda: planes7.plain(9, 0, 0, n_t), iters=1)
+    S7 = cuda_path.n_slots(cfg_t)
+    hs_t = cuda_trace.HostScene(train_scene.geometry)
+    b7, by7 = bound_ms(seg7 * hs_t.segment_ops(), n_t * (S7 * 20 + 8))
+    timings["affine_planes"] = dict(ms=ms7, plain_ms=plain7, bound_ms=b7, bound_by=by7,
+                                    max_abs_err=full7["max_abs_err"])
+    print(f"affine_planes: {ms7:.3f} ms/frame, {seg7} segments, "
+          f"{seg7 / (ms7 * 1e-3):.4g} segments/s; plain {plain7:.1f} ms; bound {b7:.4f} ms "
+          f"({by7}: {S7} slots x 20 B + 8 B per lane)", flush=True)
+
+    fused = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t)
+    full8 = kernel_check.check_fused_loss(train_scene, train_cam, cfg_t, target_t,
+                                          seed=7, frame_idx=1, params=start)
+    seg8 = full8["segments"]
+    print(f"fused_loss vs plain at 1920x1080x4: {json.dumps(full8)}")
+    calls = {"f": 2}
+
+    def fused_call():
+        out = fused(start, target_t, 7, calls["f"], 0, cfg_t.height)
+        calls["f"] += 1
+        return out
+
+    ms8 = cuda_time_ms(fused_call, iters=10, warmup=2)
+    _, grads8, _ = fused_call()
+    assert all(bool(torch.isfinite(g).all()) for g in grads8.values())
+    plain8 = cuda_time_ms(lambda: fused.plain(start, target_t, 7, 1, 0, cfg_t.height),
+                          iters=1)
+    b8, by8 = bound_ms(seg8 * hs_t.segment_ops(), target_t.numel() * 4)
+    timings["fused_loss"] = dict(ms=ms8, plain_ms=plain8, bound_ms=b8, bound_by=by8,
+                                 max_abs_err=full8["max_abs_err"])
+    print(f"fused_loss: {ms8:.3f} ms/call, {seg8} segments (both buffers), fwd+bwd "
+          f"{seg8 / (ms8 * 1e-3):.4g} segments/s; plain {plain8:.1f} ms; bound {b8:.4f} ms "
+          f"({by8})", flush=True)
+    for pool, times in step_times.items():
+        steady = times[1:]
+        ms_step = sum(steady) / len(steady)
+        segs_step = seg8 if pool == 1 else 2 * seg7
+        print(f"recovery step pool={pool}: {ms_step:.2f} ms/step (mean of steps 1.., host "
+              f"clock), fwd+bwd {segs_step / (ms_step * 1e-3):.4g} segments/s "
+              f"(~{segs_step} segments per step, both buffers)", flush=True)
+
+    # 14. the kernels line, the card line, the result
     phase("kernels")
-    sources = {"intersect": "fspt_tpu_torch/csrc/fspt_kernels.cu (intersect_kernel)",
-               "camera_path": "fspt_tpu_torch/csrc/fspt_kernels.cu (camera_path_kernel)",
-               "ray_path": "fspt_tpu_torch/csrc/fspt_kernels.cu (ray_path_kernel)"}
     kernels = []
     for key, c in counters.items():
         t = timings[key]
-        reg = regs[f"{key}_kernel"]
+        fn, source = KERNELS[key]
+        reg = regs[fn]
         kernels.append(dict(
-            name=key, route="cuda", source=sources[key],
+            name=key, route="cuda", source=f"{source} ({fn})",
             replaces=c.replaces, launches=path_launches[key],
             max_abs_err=max(report[key]["max_abs_err"], t["max_abs_err"]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None, ported=True, registers=reg.get("registers"),
-            spill_bytes=reg.get("spill")))
+            spill_bytes=reg.get("spill"), stack_bytes=reg.get("stack")))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

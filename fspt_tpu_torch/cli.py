@@ -2,8 +2,9 @@
 
 Port of fspt_tpu/cli.py with the same flags and output, plus ``--device``
 (``cuda`` by default): parse a ``.scene`` file, run N accumulation frames on
-the fastest path (camera-fused CUDA megakernel, else the CUDA intersect
-kernel under the torch integrator, else torch brute force), report
+the fastest path (camera-fused CUDA megakernel, its texture-deferred form
+for a textured scene, else the CUDA intersect kernel under the torch
+integrator, else torch brute force), report
 Mrays/sec per frame (engine.cpp:283-293) and write the tonemapped image and
 optional AOVs.
 
@@ -86,8 +87,11 @@ def main(argv=None):
 
     tracer = make_camera_path_tracer(scene, camera, cfg)
     if tracer is not None:
-        print("render path: camera-fused cuda megakernel"
-              if device.type == "cuda" else "render path: camera-fused plain torch")
+        # A textured scene takes the texture-deferred kernel (slot planes +
+        # a torch fold that gathers the texels).
+        kind = "texture-deferred camera-fused" if hasattr(tracer, "fold") else "camera-fused"
+        print(f"render path: {kind} cuda megakernel" if device.type == "cuda"
+              else f"render path: {kind} plain torch")
 
         def step(fb, frame_idx):
             out = tracer(args.seed, frame_idx * cfg.spp)

@@ -51,3 +51,12 @@ def camera_from_numpy(tree, device=None) -> Camera:
 def framebuffer_from_numpy(tree, device=None) -> Framebuffer:
     """A reference Framebuffer (NumPy leaves) → the port's Framebuffer."""
     return _tensors(Framebuffer, tree, resolve_device(device))
+
+
+def params_from_numpy(params, device=None) -> dict:
+    """Recovery parameters ``{field: array}`` (material columns such as
+    ``diffuse``/``emissive``, or ``texels``) → float32 tensors on
+    ``device``, the form the port's recovery steps take."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(value, np.float32)).to(dev)
+            for name, value in params.items()}

@@ -1,8 +1,10 @@
-"""Build and bind the port's CUDA kernels (csrc/fspt_kernels.cu).
+"""Build and bind the port's CUDA kernels (csrc/*.cu).
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface at first use, into ``build/fspt_tpu_torch/`` at the root of the
-checkout, under a name keyed by a hash of the sources; ``ctypes`` loads it.
+Each source in :data:`LIBRARIES` is compiled by ``nvcc`` into a shared
+library with a plain C interface at first use, into
+``build/fspt_tpu_torch/`` at the root of the checkout, under a name keyed by
+a hash of its sources; ``ctypes`` loads it.  The first use of any kernel
+starts one ``nvcc`` per missing library, all at once, and waits for them.
 There is no fallback: a missing ``nvcc`` or a failed compile raises with the
 compiler's output.
 
@@ -24,8 +26,14 @@ import subprocess
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = (PACKAGE_DIR / "csrc" / "fspt_kernels.cu",
-           PACKAGE_DIR / "csrc" / "fspt_kernels.cuh")
+CSRC = PACKAGE_DIR / "csrc"
+HEADERS = (CSRC / "fspt_kernels.cuh",)
+#: library name → its one source file; all share :data:`HEADERS`.
+LIBRARIES = {
+    "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3
+    "fspt_deferred": CSRC / "fspt_deferred.cu",  # kernels 4 and 7
+    "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
+}
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -42,8 +50,9 @@ class KernelCounter:
     the card, and nowhere else; the plain PyTorch path never touches it.
     """
 
-    def __init__(self, name: str, symbol: str, replaces: str):
+    def __init__(self, name: str, library: str, symbol: str, replaces: str):
         self.name = name
+        self.library = library
         self.symbol = symbol
         self.replaces = replaces
         self.launches = 0
@@ -90,29 +99,54 @@ class CamParams(ctypes.Structure):
     ]
 
 
-# launcher symbol → argtypes (every pointer and the stream as c_void_p)
+# library → launcher symbol → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    # prims, meta, n_prims, start, seg, n, t, normal, mat, kind, uv, stream
-    "fspt_intersect": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-    # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0, lane0,
-    # n, radiance, normal, depth, aov_mat, segcnt, stream
-    "fspt_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _U, _I, _I,
-                         _I, _P, _P, _P, _P, _P, _P],
-    # prims, meta, mats, mat_meta, PathParams, start, seg, pixel, sample, h0,
-    # n, radiance, normal, depth, aov_mat, segcnt, stream
-    "fspt_ray_path": [_P, _P, _P, _P, PathParams, _P, _P, _P, _P, _U, _I,
-                      _P, _P, _P, _P, _P, _P],
+    "fspt_kernels": {
+        # prims, meta, n_prims, start, seg, n, t, normal, mat, kind, uv, stream
+        "fspt_intersect": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+        # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
+        # lane0, n, radiance, normal, depth, aov_mat, segcnt, stream
+        "fspt_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _U, _I, _I,
+                             _I, _P, _P, _P, _P, _P, _P],
+        # prims, meta, mats, mat_meta, PathParams, start, seg, pixel, sample,
+        # h0, n, radiance, normal, depth, aov_mat, segcnt, stream
+        "fspt_ray_path": [_P, _P, _P, _P, PathParams, _P, _P, _P, _P, _U, _I,
+                          _P, _P, _P, _P, _P, _P],
+    },
+    "fspt_deferred": {
+        # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
+        # lane0, n, fields, mat, p_light, normal, depth, aov_mat, segcnt,
+        # stream
+        "fspt_deferred_camera_path": [_P, _P, _P, _P, PathParams, CamParams,
+                                      _U, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                      _P, _P],
+        # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
+        # lane0, n, fields, n_fields, mat, mat_e, p_light, segcnt, stream
+        "fspt_affine_planes": [_P, _P, _P, _P, PathParams, CamParams, _U, _I,
+                               _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    },
+    "fspt_grad": {
+        # prims, meta, mats, mat_meta, PathParams, CamParams, tc_tab, te_tab,
+        # h0, sample0_a, sample0_b, lane0, n, target, partial, seg_partial,
+        # out, seg_out, stream
+        "fspt_fused_loss": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _U,
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
 }
 
-_library = None
+_libraries = {}
 
 
-def source_hash() -> str:
+def source_hash(name: str) -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (LIBRARIES[name], *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / source_hash(name) / f"lib{name}.so"
 
 
 def _nvcc() -> str:
@@ -126,50 +160,59 @@ def _nvcc() -> str:
                        "the fspt_tpu_torch kernels")
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists;
-    returns the library's path."""
-    key = source_hash()
-    out_dir = BUILD_DIR / key
-    lib = out_dir / "libfspt_kernels.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libfspt_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[0])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    (out_dir / "ptxas.log").write_text(log)
-    os.replace(tmp, lib)
-    return lib
+def build_all() -> dict:
+    """Compile every library whose build for these sources is missing, one
+    ``nvcc`` each, all started together; returns ``{name: path}``."""
+    paths = {name: _lib_path(name) for name in LIBRARIES}
+    procs = {}
+    for name, lib in paths.items():
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.parent / f"lib{name}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(LIBRARIES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        (paths[name].parent / "ptxas.log").write_text(log)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def ptxas_log() -> str:
-    """The ``-Xptxas -v`` report of the current build ('' if not built)."""
-    path = BUILD_DIR / source_hash() / "ptxas.log"
-    return path.read_text() if path.exists() else ""
+    """The ``-Xptxas -v`` reports of the current builds ('' where not built)."""
+    logs = []
+    for name in LIBRARIES:
+        path = _lib_path(name).parent / "ptxas.log"
+        if path.exists():
+            logs.append(path.read_text())
+    return "\n".join(logs)
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first use."""
+    if name not in _libraries:
+        lib = ctypes.CDLL(str(build_all()[name]))
+        for symbol, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _library = lib
-    return _library
+        _libraries[name] = lib
+    return _libraries[name]
 
 
 def launch(counter: KernelCounter, *args) -> None:
     """Call a launcher; raise on a non-zero ``cudaGetLastError``, else count
     the launch."""
-    err = getattr(library(), counter.symbol)(*args)
+    err = getattr(library(counter.library), counter.symbol)(*args)
     if err != 0:
         raise RuntimeError(f"{counter.name} kernel launch failed: CUDA error {err}")
     counter.launches += 1

@@ -54,7 +54,7 @@ OPS_PER_TEST = {KIND_SPHERE: 36, KIND_PLANE: 19, KIND_DISC: 19, KIND_QUAD: 19,
                 KIND_CUBOID: 19, KIND_TRIANGLE: 55}
 
 INTERSECT = _build.KernelCounter(
-    "intersect", "fspt_intersect",
+    "intersect", "fspt_kernels", "fspt_intersect",
     "fspt_tpu/ops/pallas_trace.py:421 make_pallas_intersector (body intersect_lanes :189)")
 
 

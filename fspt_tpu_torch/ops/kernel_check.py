@@ -13,7 +13,19 @@ differ in the last bit, and a lane whose branch (``u0 < reflectivity``, a
 near-tie hit) flips follows another path: hence fractions, not equality.
 Intersect: t, normal and texcoords within rtol 1e-5 / atol 1e-6, material
 and kind equal, each on ≥ 99.9 % of lanes.  The ``lane0`` band split of the
-camera-fused kernel must reproduce the full frame bit for bit.
+camera-fused kernels must reproduce the full frame bit for bit.
+
+Deferred kernels (4, 7): every float slot plane at the radiance bar, the
+material rows equal, on ≥ 99.9 % of values, segments within 0.1 %.
+Kernel 7's image through the fold at the radiance bar, and its gradients
+(torch autograd of the fold on the kernel's planes and on the plain
+version's) within rtol 1e-4 of the largest: the fold's adjoint is an
+``index_add`` that sums millions of lanes per table row in float32, in no
+fixed order on the card.  Kernel 8:
+loss at rtol 1e-5, gradients within rtol 1e-4 of the largest, segments
+equal, against the plain version run with float64 parameters: the kernel
+sums its blocks in another order, and at 1080p the float32 plain version's
+own sums are off by more than 1e-4 of the largest gradient.
 """
 
 from __future__ import annotations
@@ -22,7 +34,7 @@ import numpy as np
 import torch
 
 from fspt_tpu_torch.camera import generate_rays
-from fspt_tpu_torch.ops import cuda_path, cuda_trace, rng
+from fspt_tpu_torch.ops import cuda_grad, cuda_path, cuda_trace, rng
 from fspt_tpu_torch.scene.geometry import INVALID_PARAM
 
 FRACTION = 0.999
@@ -136,4 +148,138 @@ def check_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) ->
     rep["band_split_exact"] = bool(torch.equal(band, k.radiance)) and (
         int(lower.segments) + int(upper.segments) == int(k.segments))
     assert rep["band_split_exact"], rep
+    return rep
+
+
+def _check_planes(rep, prefix, k, p):
+    """Float planes close and int planes equal on ≥ FRACTION of values."""
+    if k.dtype.is_floating_point:
+        rep[f"{prefix}_close"] = _frac_close(k, p, 1e-4, 1e-5)
+        rep["max_abs_err"] = max(rep.get("max_abs_err", 0.0), _max_abs(k, p))
+    else:
+        rep[f"{prefix}_close"] = _frac_equal(k, p)
+    assert rep[f"{prefix}_close"] >= FRACTION, (prefix, rep)
+
+
+def check_deferred_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) -> dict:
+    """Kernel 4 against its plain version on the card: every slot plane,
+    the material rows, the folded radiance, and the ``lane0`` band split
+    against the full frame (bit-exact)."""
+    tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
+    assert hasattr(tracer, "plain_planes"), "not a textured scene"
+    n = cfg.height * cfg.width * cfg.spp
+    k = tracer.planes(seed, sample0, 0, n)
+    p = tracer.plain_planes(seed, sample0, 0, n)
+    torch.cuda.synchronize()
+    rep = {"lanes": n}
+    for name, kf, pf in zip(cuda_path.DEFERRED_TEX_FIELDS, k.fields, p.fields):
+        _check_planes(rep, name, kf, pf)
+    _check_planes(rep, "mat", k.mat, p.mat)
+    _check_planes(rep, "p_light", k.p_light, p.p_light)
+    rep["slot_max_abs_err"] = rep.pop("max_abs_err")
+    _check_planes(rep, "aov_normal", k.normal, p.normal)
+    _check_planes(rep, "aov_depth", k.depth, p.depth)
+    rep.pop("max_abs_err")
+    rep["fold"] = compare_paths(tracer.fold(k), tracer.fold(p))
+    rep["max_abs_err"] = rep["fold"]["max_abs_err"]
+
+    half = n // 2 + 37
+    full = tracer(seed, sample0)
+    lower = tracer(seed, sample0, lane0=0, n_lanes=half)
+    upper = tracer(seed, sample0, lane0=half, n_lanes=n - half)
+    torch.cuda.synchronize()
+    rep["band_split_exact"] = bool(torch.equal(
+        torch.cat([lower.radiance, upper.radiance]), full.radiance)) and (
+        int(lower.segments) + int(upper.segments) == int(full.segments))
+    assert rep["band_split_exact"], rep
+    return rep
+
+
+def _grad_close(g, g_ref, rtol=1e-4):
+    """|g − g_ref| within rtol of max |g_ref| everywhere; returns the ratio."""
+    scale = float(g_ref.abs().max())
+    err = float((g - g_ref).abs().max())
+    assert err <= rtol * max(scale, 1e-30), (err, scale)
+    return err / max(scale, 1e-30)
+
+
+def check_affine_planes(scene_pack, camera, cfg, seed: int, sample0: int = 0) -> dict:
+    """Kernel 7 against its plain version on the card: the slot planes, then
+    the image through the fold and its gradients with respect to diffuse and
+    emissive (and texels on a textured scene) by torch autograd."""
+    planes = cuda_grad.make_affine_planes(scene_pack, camera, cfg)
+    n = cfg.height * cfg.width * cfg.spp
+    k = planes(seed, sample0, 0, n)
+    p = planes.plain(seed, sample0, 0, n)
+    torch.cuda.synchronize()
+    rep = {"lanes": n}
+    for name in k.fields:
+        _check_planes(rep, name, k.fields[name], p.fields[name])
+    _check_planes(rep, "mat", k.mat, p.mat)
+    _check_planes(rep, "mat_e", k.mat_e, p.mat_e)
+    _check_planes(rep, "p_light", k.p_light, p.p_light)
+    seg_k, seg_p = int(k.segments), int(p.segments)
+    rep.update(segments=seg_k, plain_segments=seg_p,
+               segments_rel_diff=abs(seg_k - seg_p) / max(seg_p, 1))
+    assert rep["segments_rel_diff"] <= 1e-3, rep
+    rep["slot_max_abs_err"] = rep.pop("max_abs_err")
+
+    table = scene_pack.materials
+    names = ["diffuse", "emissive"] + (["texels"] if planes.mats.any_textured else [])
+    base = {"diffuse": table.diffuse, "emissive": table.emissive,
+            "texels": scene_pack.textures.texels}
+
+    def image_and_grads(pl):
+        leaves = {nm: base[nm].detach().clone().requires_grad_() for nm in names}
+        tex = scene_pack.textures._replace(texels=leaves.get("texels", base["texels"]))
+        zero = torch.zeros_like(pl.fields["s"])
+        rad = torch.stack(cuda_path.fold_deferred_params(
+            planes.mats, cfg, leaves["diffuse"], leaves["emissive"], table.glow, tex,
+            pl.fields["s"], pl.fields["k"], pl.fields["se"], pl.mat, pl.mat_e,
+            pl.fields.get("u", zero), pl.fields.get("v", zero), pl.p_light), dim=-1)
+        img = rad.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)
+        grads = torch.autograd.grad((img ** 2).mean(), [leaves[nm] for nm in names])
+        return img.detach(), dict(zip(names, grads))
+
+    img_k, g_k = image_and_grads(k)
+    img_p, g_p = image_and_grads(p)
+    rep["image_close"] = _frac_close(img_k, img_p, 1e-4, 1e-5)
+    assert rep["image_close"] >= FRACTION, rep
+    rep["max_abs_err"] = _max_abs(img_k, img_p)
+    rep["image_mean"] = img_k.mean().item()
+    for nm in names:
+        rep[f"grad_{nm}_rel_err"] = _grad_close(g_k[nm], g_p[nm])
+    return rep
+
+
+def check_fused_loss(scene_pack, camera, cfg, target, seed: int, frame_idx: int = 0,
+                     params=None, fields=("diffuse", "emissive")) -> dict:
+    """Kernel 8 against its plain version on the card (plain ``defer_all``
+    traces, the torch fold, the lane loss and ``torch.autograd.grad``).
+
+    The bar is held against the plain version with the parameters in
+    float64, which folds the same float32 slots and sums the lanes exactly
+    enough that only the kernel's own rounding shows; the float32 plain
+    version's error against it is reported beside (its ``index_add`` sums
+    millions of lanes per table row in float32, in no fixed order)."""
+    fn = cuda_grad.make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=fields)
+    if params is None:
+        params = {f: getattr(scene_pack.materials, f) for f in fields}
+    loss_k, g_k, seg_k = fn(params, target, seed, frame_idx, 0, cfg.height)
+    loss_p, g_p, seg_p = fn.plain({f: v.double() for f, v in params.items()}, target,
+                                  seed, frame_idx, 0, cfg.height)
+    loss_32, g_32, _ = fn.plain(params, target, seed, frame_idx, 0, cfg.height)
+    torch.cuda.synchronize()
+    rep = dict(lanes=cfg.height * cfg.width * cfg.spp, loss=float(loss_k),
+               plain_loss=float(loss_p), segments=int(seg_k), plain_segments=int(seg_p))
+    rep["loss_rel_err"] = abs(rep["loss"] - rep["plain_loss"]) / max(abs(rep["plain_loss"]),
+                                                                     1e-30)
+    assert rep["loss_rel_err"] <= 1e-5, rep
+    assert rep["segments"] == rep["plain_segments"], rep
+    for f in fields:
+        rep[f"grad_{f}_rel_err"] = _grad_close(g_k[f].double(), g_p[f])
+        rep[f"plain_f32_grad_{f}_rel_err"] = (
+            float((g_32[f].double() - g_p[f]).abs().max())
+            / max(float(g_p[f].abs().max()), 1e-30))
+    rep["max_abs_err"] = max(float((g_k[f].double() - g_p[f]).abs().max()) for f in fields)
     return rep

@@ -11,6 +11,15 @@ the same.  Cameras are added by the caller.
 * :func:`all_primitives` — every primitive kind: sphere, infinite plane,
   disc, quads, rotated cuboid and a few triangles (below the BVH threshold).
 * :func:`all_families` — all nine material families in one closed box.
+* :func:`textured` — the flagship with a seeded checker texture on two walls
+  and a textured sky.
+* ``all_families_textured`` — :func:`all_families` with textured walls, sky,
+  lamp, mirror, ceramic and glow rows.
+* :func:`write_textured_cornell` — a textured copy of a ``.scene`` file of
+  the Cornell box (its red and green walls and its sky textured).
+
+Textures are checkers whose two colours come from a seeded NumPy generator,
+so both packages build the same texels.
 """
 
 from __future__ import annotations
@@ -20,22 +29,46 @@ import numpy as np
 CAMERA_ORIGIN = (0.0, 0.0, -145.0)
 
 
-def _cornell_walls(b, M, s=50.0, light=(15.0, 15.0, 15.0)):
+def checker(rng, n=8, cell=2, scale=1.0):
+    """An ``[n,n,3]`` checker of two colours drawn from ``rng``."""
+    colors = rng.uniform(0.1, 0.9, (2, 3)) * scale
+    yy, xx = np.indices((n, n))
+    odd = ((xx // cell + yy // cell) % 2)[..., None] == 1
+    return np.where(odd, colors[0], colors[1]).astype(np.float32)
+
+
+def _cornell_walls(b, M, s=50.0, light=(15.0, 15.0, 15.0), wall_tex=None,
+                   lamp_tex=-1):
+    """The five walls and the area light.  With ``wall_tex``, the back and
+    left walls take that texture; ``lamp_tex`` textures the lamp's
+    emission."""
     white = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.73, 0.73, 0.73)))
     red = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.65, 0.05, 0.05)))
     green = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.12, 0.45, 0.15)))
-    lamp = b.add_material(M.MaterialSpec(M.LIGHT, emissive=light))
+    lamp = b.add_material(M.MaterialSpec(M.LIGHT, emissive=light, tex_id=lamp_tex))
+    back, left = white, red
+    if wall_tex is not None:
+        back = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.73, 0.73, 0.73),
+                                             tex_id=wall_tex, tex_scale=0.02))
+        left = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.65, 0.05, 0.05),
+                                             tex_id=wall_tex, tex_scale=0.05))
     b.add_quad_uv((-s, -s, -s), (2 * s, 0, 0), (0, 0, 2 * s), white)  # floor
     b.add_quad_uv((-s, s, -s), (0, 0, 2 * s), (2 * s, 0, 0), white)  # ceiling
-    b.add_quad_uv((-s, -s, s), (2 * s, 0, 0), (0, 2 * s, 0), white)  # back
-    b.add_quad_uv((-s, -s, -s), (0, 2 * s, 0), (0, 0, 2 * s), red)  # left
+    b.add_quad_uv((-s, -s, s), (2 * s, 0, 0), (0, 2 * s, 0), back)  # back
+    b.add_quad_uv((-s, -s, -s), (0, 2 * s, 0), (0, 0, 2 * s), left)  # left
     b.add_quad_uv((s, -s, -s), (0, 0, 2 * s), (0, 2 * s, 0), green)  # right
     b.add_quad_uv((-15.0, s - 0.5, -15.0), (30.0, 0, 0), (0, 0, 30.0), lamp)
     return white, red, green, lamp
 
 
-def flagship(b, M):
-    white, _, _, _ = _cornell_walls(b, M)
+def _textured_sky(b, M, rng):
+    tex = b.add_texture(checker(rng, n=16, cell=4, scale=0.3))
+    b.set_sky(b.add_material(M.MaterialSpec(M.LIGHT, emissive=(0.05, 0.07, 0.10),
+                                            tex_id=tex)))
+
+
+def flagship(b, M, wall_tex=None):
+    white, _, _, _ = _cornell_walls(b, M, wall_tex=wall_tex)
     mirror = b.add_material(M.MaterialSpec(M.MIRROR, diffuse=(0.9, 0.9, 0.9)))
     metal = b.add_material(M.MaterialSpec(M.METAL, diffuse=(0.8, 0.6, 0.2), param=0.3))
     b.add_sphere((-22, -35, 8), 15.0, mirror)
@@ -78,11 +111,27 @@ def all_primitives(b, M):
                     n1=np.float32([[0.1, 0, -1], [0, 0.1, -1]]), n2=nrm)
 
 
-def all_families(b, M):
-    _cornell_walls(b, M)
-    sky = b.add_material(M.MaterialSpec(M.LIGHT, emissive=(0.05, 0.07, 0.10)))
-    b.set_sky(sky)
-    mirror = b.add_material(M.MaterialSpec(M.MIRROR, diffuse=(0.9, 0.9, 0.9)))
+def textured(b, M, seed=7):
+    rng = np.random.default_rng(seed)
+    flagship(b, M, wall_tex=b.add_texture(checker(rng)))
+    _textured_sky(b, M, rng)
+
+
+def all_families(b, M, textured=False, seed=11):
+    """All nine families; ``textured`` adds textures to the walls, the sky,
+    the lamp (textured emission), the mirror, the ceramic and the glow."""
+    rng = np.random.default_rng(seed)
+    tex = lamp_tex = None
+    if textured:
+        tex = b.add_texture(checker(rng))
+        lamp_tex = b.add_texture(checker(rng, scale=15.0))
+    _cornell_walls(b, M, wall_tex=tex, lamp_tex=-1 if lamp_tex is None else lamp_tex)
+    if textured:
+        _textured_sky(b, M, rng)
+    else:
+        b.set_sky(b.add_material(M.MaterialSpec(M.LIGHT, emissive=(0.05, 0.07, 0.10))))
+    tex_kw = dict(tex_id=tex, tex_scale=0.1) if textured else {}
+    mirror = b.add_material(M.MaterialSpec(M.MIRROR, diffuse=(0.9, 0.9, 0.9), **tex_kw))
     glass = b.add_material(M.MaterialSpec(M.GLASS, diffuse=(0.95, 0.95, 0.95),
                                           ior=0.75, reflectivity=0.1, frost=0.2))
     clear = b.add_material(M.MaterialSpec(M.GLASS, diffuse=(0.9, 0.95, 0.9),
@@ -90,9 +139,10 @@ def all_families(b, M):
     liquid = b.add_material(M.MaterialSpec(M.LIQUID, diffuse=(0.8, 0.9, 1.0),
                                            ior=0.8, reflectivity=0.2))
     metal = b.add_material(M.MaterialSpec(M.METAL, diffuse=(0.8, 0.6, 0.2), param=0.3))
-    ceramic = b.add_material(M.MaterialSpec(M.CERAMIC, diffuse=(0.2, 0.4, 0.8), param=0.7))
+    ceramic = b.add_material(M.MaterialSpec(M.CERAMIC, diffuse=(0.2, 0.4, 0.8), param=0.7,
+                                            **tex_kw))
     glow = b.add_material(M.MaterialSpec(M.GLOW, diffuse=(0.7, 0.7, 0.2), param=0.6,
-                                         glow=(2.0, 1.0, 0.5)))
+                                         glow=(2.0, 1.0, 0.5), **tex_kw))
     fog = b.add_material(M.MaterialSpec(M.FOG, diffuse=(0.6, 0.6, 0.65), frost=500.0))
     b.add_sphere((-28.0, -36.0, 15.0), 12.0, mirror)
     b.add_sphere((0.0, -38.0, -5.0), 11.0, glass)
@@ -106,7 +156,8 @@ def all_families(b, M):
 
 
 SCENES = {"flagship": flagship, "all_primitives": all_primitives,
-          "all_families": all_families}
+          "all_families": all_families, "textured": textured,
+          "all_families_textured": lambda b, M: all_families(b, M, textured=True)}
 
 
 def build(name: str, device=None, aperture=0.0, focal_depth=80.0):
@@ -121,3 +172,29 @@ def build(name: str, device=None, aperture=0.0, focal_depth=80.0):
     b.add_camera(Camera.create(origin=CAMERA_ORIGIN, aperture_size=aperture,
                                focal_depth=focal_depth, device=device))
     return b
+
+
+def write_textured_cornell(src, dst, wall_texture, sky_texture, wall_scale=0.02):
+    """Copy the ``.scene`` file ``src`` (scenes/cornell.scene) to ``dst``
+    with ``wall_texture`` on its red and green walls and ``sky_texture`` on
+    its sky material (``ambient``); texture paths are written absolute."""
+    import os
+
+    extra = {"red": (wall_texture, wall_scale), "green": (wall_texture, wall_scale),
+             "ambient": (sky_texture, 1.0)}
+    out, current = [], None
+    with open(src) as f:
+        for line in f.read().splitlines():
+            words = line.split()
+            if len(words) == 2 and words[0] == "material":
+                current = words[1]
+            elif line.strip() == "}" and current in extra:
+                path, scale = extra.pop(current)
+                out += [f" texture {os.path.abspath(path)}", f" texture_scale {scale}"]
+                current = None
+            out.append(line)
+    if extra:
+        raise ValueError(f"{src} has no material block for {sorted(extra)}")
+    with open(dst, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return dst

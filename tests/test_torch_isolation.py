@@ -13,7 +13,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "fspt_tpu_torch", "fspt_tpu_torch.cli", "fspt_tpu_torch.convert",
     "fspt_tpu_torch.camera", "fspt_tpu_torch.config", "fspt_tpu_torch.materials",
-    "fspt_tpu_torch.ops._build", "fspt_tpu_torch.ops.cuda_path",
+    "fspt_tpu_torch.ops._build", "fspt_tpu_torch.ops.cuda_grad",
+    "fspt_tpu_torch.ops.cuda_path",
     "fspt_tpu_torch.ops.cuda_trace", "fspt_tpu_torch.ops.intersect",
     "fspt_tpu_torch.ops.kernel_check", "fspt_tpu_torch.ops.rng",
     "fspt_tpu_torch.render.dispatch", "fspt_tpu_torch.render.framebuffer",
@@ -21,7 +22,10 @@ MODULES = [
     "fspt_tpu_torch.scene.geometry", "fspt_tpu_torch.scene.mesh",
     "fspt_tpu_torch.scene.parser", "fspt_tpu_torch.scene.samples",
     "fspt_tpu_torch.utils.checkpoint", "fspt_tpu_torch.utils.image",
-    "fspt_tpu_torch.utils.vecmath", "chip_smoke",
+    "fspt_tpu_torch.utils.vecmath", "fspt_tpu_torch.parallel",
+    "fspt_tpu_torch.parallel.train", "fspt_tpu_torch.examples",
+    "fspt_tpu_torch.examples.recover_albedo", "fspt_tpu_torch.examples.recover_texture",
+    "chip_smoke",
 ]
 
 
@@ -61,3 +65,11 @@ def test_entry_points_refuse_cpu_fallback():
     scene = os.path.join(REPO, "scenes", "cornell.scene")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--file", scene, "--width", "8", "--height", "8", "--frames", "1"])
+    from fspt_tpu_torch import convert
+    from fspt_tpu_torch.examples import recover_albedo, recover_texture
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_numpy({"diffuse": [[0.5, 0.5, 0.5]]})
+    for example in (recover_albedo, recover_texture):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.main(["--iters", "1"])

@@ -47,3 +47,39 @@ def test_camera_path_kernel_matches_plain(cuda):
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
     kernel_check.check_camera_tracer(b.compile(device=cuda), b.cameras[0], cfg, seed=5,
                                      sample0=2)
+
+
+def test_deferred_camera_kernel_matches_plain(cuda):
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families_textured", device=cuda, aperture=1.5,
+                      focal_depth=120.0)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    kernel_check.check_deferred_tracer(b.compile(device=cuda), b.cameras[0], cfg,
+                                       seed=6, sample0=2)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_affine_planes_kernel_matches_plain(cuda, fast):
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families_textured", device=cuda, aperture=1.5,
+                      focal_depth=120.0)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8, fast_render=fast)
+    kernel_check.check_affine_planes(b.compile(device=cuda), b.cameras[0], cfg, seed=7)
+
+
+def test_fused_loss_kernel_matches_plain(cuda):
+    import numpy as np
+
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("flagship", device=cuda)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
+    kernel_check.check_fused_loss(b.compile(device=cuda), b.cameras[0], cfg, target,
+                                  seed=8, frame_idx=3)

@@ -123,3 +123,30 @@ def test_checkpoint_crosses_packages(tmp_path):
     assert frame2 == 9
     _assert_fields_equal(got, fb2)
     assert ckpt.load(str(tmp_path / "missing.npz"), device="cpu") is None
+
+
+def test_textures_and_recovery_params_cross_packages():
+    """A textured scene's TexturePack (texels, offsets, sizes) crosses over
+    through ``convert`` and equals the port's own build of the same sample;
+    recovery parameters cross as float32 tensors."""
+    from fspt_tpu import materials as RM
+    from fspt_tpu.scene.builder import SceneBuilder as RefBuilder
+    from fspt_tpu_torch.scene import samples
+
+    rb = RefBuilder()
+    samples.SCENES["all_families_textured"](rb, RM)
+    ref = rb.compile()
+    assert int(np.asarray(ref.textures.offset).shape[0]) == 3
+    crossed = convert.scene_from_numpy(_np_tree(ref), device="cpu")
+    _assert_fields_equal(crossed.textures, ref.textures)
+    _assert_fields_equal(crossed.materials, ref.materials)
+    own = samples.build("all_families_textured", device="cpu").compile(device="cpu")
+    _assert_fields_equal(own.textures, ref.textures)
+    _assert_fields_equal(own.materials, ref.materials)
+
+    params = {"diffuse": np.asarray(ref.materials.diffuse, np.float64),
+              "texels": np.asarray(ref.textures.texels)}
+    got = convert.params_from_numpy(params, device="cpu")
+    for k, v in params.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), v.astype(np.float32))
