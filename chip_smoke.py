@@ -41,13 +41,28 @@ Phases, each announced by one line:
 13. timings of kernels 4, 7 and 8 at their main-path shapes beside their
    plain versions and bounds, and the recovery step end to end (fwd+bwd
    segments/s, both buffers counted);
-14. one JSON line of per-kernel numbers; then the card line; the last line
+14. kernels 5 (treelet cull) and 6 (treelet sweep) against their plain
+   versions on the mesh bench scene (``samples.heightfield``, 99,458
+   triangles in 778 treelets): 65,536 camera primaries and one queue
+   iteration's bounce rays, fed as the mesh intersector feeds them; every
+   output must be equal;
+15. the mesh frame at 256×256×1, depth 4, through the queue on the kernel
+   path against the plain path (kernels 1, 5, 6 plain);
+16. mesh main path: ``fspt_tpu_torch.cli`` renders the heightfield scene
+   (written by ``samples.write_heightfield_scene``) at 1024×1024, 4 spp,
+   depth 4, 3 frames, then again with ``--first-hit-cache``; kernels 1, 5
+   and 6 launch once per queue iteration, and the image must be lit;
+17. mesh timings: the frame step (ms/frame, segments/s), kernels 5 and 6
+   per launch on one full queue iteration (262,144 rays) of primaries and
+   of bounce rays and per frame, the key sort, the post-pass, the queue's
+   torch work, beside the plain versions and the bounds; a profiler window;
+18. one JSON line of per-kernel numbers; then the card line; the last line
    is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
-before printing any result.  Phases 9-14 run after phase 8; each main path
-runs with every launch count set to 0 just before it and read just after.
+before printing any result.  Each main path runs with every launch count
+set to 0 just before it and read just after.
 """
 
 from __future__ import annotations
@@ -102,6 +117,8 @@ KERNELS = {
     "deferred_path": ("deferred_camera_kernel", "fspt_tpu_torch/csrc/fspt_deferred.cu"),
     "affine_planes": ("affine_planes_kernel", "fspt_tpu_torch/csrc/fspt_deferred.cu"),
     "fused_loss": ("fused_loss_kernel", "fspt_tpu_torch/csrc/fspt_grad.cu"),
+    "treelet_cull": ("treelet_cull_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
+    "treelet_sweep": ("treelet_sweep_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
 }
 PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce"]
 
@@ -162,11 +179,12 @@ def main():
         return 1
 
     from fspt_tpu_torch import cli
-    from fspt_tpu_torch.camera import generate_rays
+    from fspt_tpu_torch.camera import generate_rays, rays_for_lanes
     from fspt_tpu_torch.config import RenderConfig
     import numpy as np
 
-    from fspt_tpu_torch.ops import _build, cuda_grad, cuda_path, cuda_trace, kernel_check, rng
+    from fspt_tpu_torch.ops import (_build, cuda_bvh, cuda_grad, cuda_path, cuda_trace,
+                                    kernel_check, rng)
     from fspt_tpu_torch.parallel import train
     from fspt_tpu_torch.render import framebuffer as fb_mod
     from fspt_tpu_torch.render.dispatch import make_scene_step
@@ -179,7 +197,9 @@ def main():
                 "ray_path": cuda_path.RAY_PATH,
                 "deferred_path": cuda_path.DEFERRED_PATH,
                 "affine_planes": cuda_grad.AFFINE_PLANES,
-                "fused_loss": cuda_grad.FUSED_LOSS}
+                "fused_loss": cuda_grad.FUSED_LOSS,
+                "treelet_cull": cuda_bvh.TREELET_CULL,
+                "treelet_sweep": cuda_bvh.TREELET_SWEEP}
 
     def reset_counts():
         for c in counters.values():
@@ -586,7 +606,201 @@ def main():
               f"clock), fwd+bwd {segs_step / (ms_step * 1e-3):.4g} segments/s "
               f"(~{segs_step} segments per step, both buffers)", flush=True)
 
-    # 14. the kernels line, the card line, the result
+    # 14. kernels 5 and 6 against their plain versions on the mesh scene
+    from fspt_tpu_torch.render.queue import DEFAULT_QUEUE, render_queued
+
+    phase("kernels 5 (treelet_cull) and 6 (treelet_sweep) vs plain: heightfield, "
+          "65,536 primaries and one queue iteration's bounce rays")
+    hfb = samples.build("heightfield", device=dev)
+    hf_scene, hf_cam = hfb.compile(device=dev), hfb.cameras[0]
+    inter = cuda_bvh.make_mesh_intersector(hf_scene)
+    trav = inter.traverser
+    n_tris = hf_scene.tri_shade.mat.shape[0]
+    print(f"heightfield: {n_tris} triangles, {trav.tables.n_leaves} treelets", flush=True)
+    assert n_tris == 99458 and trav.tables.n_leaves == 778
+
+    def recorded_iterations(cfg_r, keep):
+        """Run one queued heightfield frame; the intersector's inputs of the
+        calls in ``keep`` (queue iterations) and the number of calls."""
+        calls = {}
+
+        def recording(o, d, alive):
+            idx = recording.n
+            recording.n += 1
+            if idx in keep:
+                calls[idx] = (o.clone(), d.clone(), alive.clone())
+            return inter(o, d, alive)
+
+        recording.n = 0
+        recording.accepts_alive = True
+        render_queued(hf_scene, hf_cam, cfg_r, 0, 0, intersector=recording,
+                      queue=DEFAULT_QUEUE)
+        return calls, recording.n
+
+    cfg_hf256 = RenderConfig(width=256, height=256, spp=1, max_depth=4)
+    prim = generate_rays(hf_cam, 256, 256, 1, 0, 0)[:2]
+    calls, _ = recorded_iterations(cfg_hf256, {1})
+    for kind, (o, d, alive) in (("primaries", (*prim, None)), ("bounces", calls[1])):
+        rep = kernel_check.check_treelet_kernels(trav, *inter.sweep_inputs(o, d, alive)[:3])
+        print(f"{kind}: {json.dumps(rep)}", flush=True)
+        for key in ("treelet_cull", "treelet_sweep"):
+            report.setdefault(key, {"max_abs_err": 0.0})
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], rep["max_abs_err"])
+
+    # 15. the mesh frame, kernel path against plain path
+    phase("mesh frame vs plain: heightfield 256x256x1, depth 4, queued (kernels 1, 5, 6)")
+    rep = kernel_check.check_mesh_frame(hf_scene, hf_cam, cfg_hf256, seed=2)
+    print(json.dumps(rep), flush=True)
+
+    # 16. mesh main path: the CLI on the heightfield scene, uncached and cached
+    hf_file = samples.write_heightfield_scene(OUT / "heightfield")
+    n_hf = 1024 * 1024 * 4
+    min_iters = -(-n_hf // DEFAULT_QUEUE)  # every lane passes through the queue
+    mesh_frames = 3
+    for cached in (False, True):
+        label = "with --first-hit-cache" if cached else "uncached"
+        phase(f"mesh main path: fspt_tpu_torch.cli, heightfield 1024x1024, 4 spp, depth 4, "
+              f"{mesh_frames} frames, {label}")
+        hf_image = OUT / f"heightfield_1024{'_cached' if cached else ''}.png"
+        hf_ckpt = OUT / "heightfield_1024.npz"
+        hf_image.unlink(missing_ok=True)
+        hf_ckpt.unlink(missing_ok=True)
+        reset_counts()
+        t0 = time.time()
+        rc = cli.main(["--file", str(hf_file), "--width", "1024", "--height", "1024",
+                       "--spp", "4", "--depth", "4", "--frames", str(mesh_frames),
+                       "--seed", "0", "--output", str(hf_image), "--checkpoint", str(hf_ckpt)]
+                      + (["--first-hit-cache"] if cached else []))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        assert rc == 0
+        # One launch of each of kernels 1, 5 and 6 per queue iteration; the
+        # cached run adds one per chunk of the pose pass.
+        pose_calls = min_iters if cached else 0
+        iters = launches["treelet_sweep"] - pose_calls
+        print(f"mesh CLI {label}: {wall:.1f} s; launches {launches}; queue iterations per "
+              f"frame {iters / mesh_frames:.1f}; per frame: intersect "
+              f"{(launches['intersect'] - pose_calls) / mesh_frames:.1f}, treelet_cull "
+              f"{(launches['treelet_cull'] - pose_calls) / mesh_frames:.1f}, treelet_sweep "
+              f"{iters / mesh_frames:.1f}", flush=True)
+        assert launches["intersect"] == launches["treelet_cull"] == launches["treelet_sweep"]
+        assert iters >= mesh_frames * min_iters, launches
+        fb, frame, extra = checkpoint.load(str(hf_ckpt), device=dev, with_extra=True)
+        hf_ckpt.unlink()
+        assert frame == mesh_frames and bool(extra["first_hit_cache"]) == cached
+        assert torch.isfinite(fb.mean).all()
+        display_mean = fb_mod.to_display(fb.mean).float().mean().item()
+        print(f"display mean {display_mean:.2f} (below 15 means a broken render)")
+        assert display_mean > 15.0, display_mean
+        if not cached:
+            for key in ("treelet_cull", "treelet_sweep"):
+                path_launches[key] = launches[key]
+            uncached_mean = fb.mean.mean().item()
+        else:
+            # Same scene, another estimator (frozen jitter): close means.
+            print(f"mean radiance cached {fb.mean.mean().item():.5f} vs uncached "
+                  f"{uncached_mean:.5f}")
+            assert abs(fb.mean.mean().item() - uncached_mean) <= 0.05 * uncached_mean
+
+    # 17. mesh timings
+    phase("timing: mesh frame step and kernels 5, 6 (heightfield 1024x1024x4, depth 4)")
+    cfg_hf = RenderConfig(width=1024, height=1024, spp=4, max_depth=4)
+    name_m, mesh_step = make_scene_step(hf_scene, cfg_hf)
+    assert name_m.startswith("queued wavefront + cuda treelet BVH"), name_m
+    mstate = {"fb": fb_mod.create(1024, 1024, device=dev), "frame": 0, "segs": 0}
+
+    def mesh_frame():
+        mstate["fb"], segs = mesh_step(hf_scene, hf_cam, mstate["fb"], 0, mstate["frame"])
+        mstate["frame"] += 1
+        mstate["segs"] = segs
+
+    mesh_ms = cuda_time_ms(mesh_frame, iters=3, warmup=1)
+    mesh_segs = int(mstate["segs"])
+    print(f"mesh frame step: {mesh_ms:.2f} ms/frame, {mesh_segs} segments/frame, "
+          f"{mesh_segs / (mesh_ms * 1e-3):.4g} segments/s end to end", flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            mesh_frame()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    dev_ev = {e.key: (e.self_device_time_total, e.count) for e in events
+              if e.device_type == DeviceType.CUDA}
+    busy_us = sum(us for us, _ in dev_ev.values())
+
+    def dev_ms(pred):
+        return sum(us for k, (us, _) in dev_ev.items() if pred(k)) / 2 / 1e3
+
+    stage_ms = {
+        "treelet_cull": dev_ms(lambda k: "treelet_cull_kernel" in k),
+        "treelet_sweep": dev_ms(lambda k: "treelet_sweep_kernel" in k),
+        "intersect": dev_ms(lambda k: "intersect_kernel" in k),
+        "sorts": dev_ms(lambda k: "sort" in k.lower() or "radix" in k.lower()),
+    }
+    stage_ms["other torch (queue, post, gathers)"] = busy_us / 2 / 1e3 - sum(stage_ms.values())
+    print(f"profile of 2 mesh frames: window {window_us:.0f} us, device busy {busy_us:.0f} us "
+          f"({busy_us / window_us:.1%}); device ms per frame by stage: "
+          f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}", flush=True)
+    (OUT / "profile_mesh_frame.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=30))
+    assert stage_ms["treelet_sweep"] > 0 and stage_ms["treelet_cull"] > 0
+
+    # Per-launch timings on full queues of 262,144 rays: the primaries of
+    # image rows 512-575 (the queue's first iterations start at the bottom
+    # rows, which see only the floor) and the rays of a mid-frame queue
+    # iteration (bounces).
+    mid = min_iters + 2
+    calls, n_calls = recorded_iterations(cfg_hf, {mid})
+    lanes = torch.arange(8 * DEFAULT_QUEUE, 9 * DEFAULT_QUEUE, dtype=torch.int32, device=dev)
+    prim = rays_for_lanes(hf_cam, 1024, 1024, 4, 0, 0, lanes)[:2]
+    mesh_t = {}
+    for kind, (o, d, alive) in (("primaries", (*prim, None)), ("bounces", calls[mid])):
+        start_s, seg_s, t_init_s, _ = inter.sweep_inputs(o, d, alive)
+        full = kernel_check.check_treelet_kernels(trav, start_s, seg_s, t_init_s)
+        print(f"{kind} at the main path's shape, kernels vs plain: {json.dumps(full)}")
+        live = int((t_init_s > 0).sum())
+        F = cuda_bvh.ray_features(start_s, seg_s, t_init_s)
+        tables = trav.tables
+        L = tables.n_leaves
+        key = cuda_bvh.launch_cull(F, tables)
+        counts, order, tlo = cuda_bvh.order_from_key(key)
+        t_k, best_k, visits = cuda_bvh.launch_sweep(counts, order, tlo, F, tables)
+        n_pad, B = F.shape[0], F.shape[0] // cuda_bvh.BLOCK_RAYS
+        ms5 = cuda_time_ms(lambda: cuda_bvh.launch_cull(F, tables), iters=20, warmup=2)
+        plain5 = cuda_time_ms(lambda: cuda_bvh.plain_cull(F, tables), iters=1)
+        ms_sort = cuda_time_ms(lambda: cuda_bvh.order_from_key(key), iters=20, warmup=2)
+        ms6 = cuda_time_ms(lambda: cuda_bvh.launch_sweep(counts, order, tlo, F, tables),
+                           iters=20, warmup=2)
+        plain6 = cuda_time_ms(lambda: cuda_bvh.plain_sweep(counts, order, tlo, F, tables),
+                              iters=1)
+        ms_post = cuda_time_ms(lambda: trav.post(start_s, seg_s, t_k[:start_s.shape[0]],
+                                                 best_k[:start_s.shape[0]]), iters=20, warmup=2)
+        vis_sum = int(visits.long().sum())
+        b5, by5 = bound_ms(live * L * cuda_bvh.OPS_PER_SLAB,
+                           n_pad * cuda_bvh.N_FEATURES * 4 + L * 24 + B * L * 4)
+        b6, by6 = bound_ms(vis_sum * cuda_bvh.BLOCK_RAYS * cuda_bvh.TREELET
+                           * cuda_bvh.OPS_PER_TRIANGLE,
+                           n_pad * cuda_bvh.N_FEATURES * 4 + tables.weights.numel() * 4
+                           + B * (4 + 8 * L) + n_pad * 8 + B * 4)
+        mesh_t[kind] = {
+            "treelet_cull": dict(ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5,
+                                 max_abs_err=full["max_abs_err"]),
+            "treelet_sweep": dict(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6,
+                                  max_abs_err=full["max_abs_err"])}
+        print(f"{kind} iteration: {n_pad} rays ({live} live), {B} blocks; survivors/block "
+              f"{counts.float().mean().item():.1f}; leaf visits/block mean "
+              f"{visits.float().mean().item():.2f} max {int(visits.max())} (sum {vis_sum}); "
+              f"treelet_cull {ms5:.4f} ms (plain {plain5:.2f}, bound {b5:.4f} {by5}); "
+              f"key sort {ms_sort:.4f} ms; treelet_sweep {ms6:.4f} ms (plain {plain6:.2f}, "
+              f"bound {b6:.4f} {by6}); post {ms_post:.4f} ms", flush=True)
+    print(f"queue iterations per frame: {n_calls}")
+    timings.update(mesh_t["bounces"])  # a mid-frame iteration: the kernels line
+
+    # 18. the kernels line, the card line, the result
     phase("kernels")
     kernels = []
     for key, c in counters.items():

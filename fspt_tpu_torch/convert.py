@@ -15,8 +15,9 @@ import torch
 from fspt_tpu_torch.camera import Camera
 from fspt_tpu_torch.config import resolve_device
 from fspt_tpu_torch.materials import MaterialTable, TexturePack
+from fspt_tpu_torch.ops.bvh import FlatBVH
 from fspt_tpu_torch.render.framebuffer import Framebuffer
-from fspt_tpu_torch.scene.builder import ScenePack
+from fspt_tpu_torch.scene.builder import ScenePack, TriShade
 from fspt_tpu_torch.scene.geometry import GeometryPack
 
 
@@ -26,18 +27,17 @@ def _tensors(cls, tree, dev):
 
 
 def scene_from_numpy(tree, device=None) -> ScenePack:
-    """A reference ScenePack (NumPy leaves) → the port's ScenePack.
-
-    Raises NotImplementedError for a BVH scene (the mesh slice's work).
-    """
-    if getattr(tree, "bvh", None) is not None:
-        raise NotImplementedError("BVH scenes come with the mesh slice of the port")
+    """A reference ScenePack (NumPy leaves) → the port's ScenePack, its
+    BVH and triangle shading attributes included."""
     dev = resolve_device(device)
+    bvh = getattr(tree, "bvh", None)
     return ScenePack(
         geometry=_tensors(GeometryPack, tree.geometry, dev),
         materials=_tensors(MaterialTable, tree.materials, dev),
         textures=_tensors(TexturePack, tree.textures, dev),
         sky_mat=torch.tensor(int(np.asarray(tree.sky_mat)), dtype=torch.int32, device=dev),
+        bvh=None if bvh is None else _tensors(FlatBVH, bvh, dev),
+        tri_shade=None if bvh is None else _tensors(TriShade, tree.tri_shade, dev),
     )
 
 

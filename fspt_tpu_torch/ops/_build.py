@@ -33,6 +33,7 @@ LIBRARIES = {
     "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3
     "fspt_deferred": CSRC / "fspt_deferred.cu",  # kernels 4 and 7
     "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
+    "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5 and 6
 }
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -131,6 +132,13 @@ _SIGNATURES = {
         # out, seg_out, stream
         "fspt_fused_loss": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _U,
                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "fspt_bvh": {
+        # F, lbmin, lbmax, n_leaves, n_blocks, key, stream
+        "fspt_treelet_cull": [_P, _P, _P, _I, _I, _P, _P],
+        # counts, order, tlo, n_leaves, group, F, weights, n_blocks, t, best,
+        # visits, stream
+        "fspt_treelet_sweep": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
     },
 }
 

@@ -303,18 +303,19 @@ def plain_intersect(scene: HostScene, start, seg):
             torch.stack([uu, vv], dim=-1))
 
 
-def make_cuda_intersector(geometry):
+def make_cuda_intersector(geometry, plain: bool = False):
     """``fn(start[N,3], seg[N,3]) → Hit`` over the scene's primitives, or
     None above :data:`MAX_SPECIALIZED_PRIMS` (as the reference).
 
-    A CPU ``start`` takes the plain version; a CUDA one launches kernel 1.
+    A CPU ``start`` takes the plain version; a CUDA one launches kernel 1
+    (``plain=True``: the plain version on any device, for kernel checks).
     """
     scene = HostScene(geometry)
     if scene.prim_count > MAX_SPECIALIZED_PRIMS:
         return None
 
     def intersect(start, seg) -> Hit:
-        if start.device.type == "cpu":
+        if plain or start.device.type == "cpu":
             t, normal, mat, kind, uv = plain_intersect(scene, start, seg)
         elif start.device.type == "cuda":
             t, normal, mat, kind, uv = launch_intersect(

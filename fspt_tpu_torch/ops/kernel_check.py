@@ -26,6 +26,13 @@ loss at rtol 1e-5, gradients within rtol 1e-4 of the largest, segments
 equal, against the plain version run with float64 parameters: the kernel
 sums its blocks in another order, and at 1080p the float32 plain version's
 own sums are off by more than 1e-4 of the largest gradient.
+
+Treelet kernels (5, 6): equal to their plain versions on 100 % of values —
+the survivor counts, leaf order and entry t after the key sort (kernel 5),
+the packed winner, its t and the leaf visits (kernel 6).  Both sides add
+the same terms in the same order, so anything less is a fault.  The mesh
+frame on the kernel path (kernels 1, 5, 6) against the plain path: the
+path bar above, with equal segment counts.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from fspt_tpu_torch.camera import generate_rays
-from fspt_tpu_torch.ops import cuda_grad, cuda_path, cuda_trace, rng
+from fspt_tpu_torch.ops import cuda_bvh, cuda_grad, cuda_path, cuda_trace, rng
 from fspt_tpu_torch.scene.geometry import INVALID_PARAM
 
 FRACTION = 0.999
@@ -56,7 +63,9 @@ def _frac_close(a, b, rtol, atol):
 
 
 def _frac_equal(a, b):
-    return (a == b).float().mean().item()
+    """Share of equal values from an integer count: exactly 1.0 when all
+    are equal (a float mean on the card need not be), and for no values."""
+    return int((a == b).sum()) / a.numel() if a.numel() else 1.0
 
 
 def _max_abs(a, b):
@@ -282,4 +291,55 @@ def check_fused_loss(scene_pack, camera, cfg, target, seed: int, frame_idx: int 
             float((g_32[f].double() - g_p[f]).abs().max())
             / max(float(g_p[f].abs().max()), 1e-30))
     rep["max_abs_err"] = max(float((g_k[f].double() - g_p[f]).abs().max()) for f in fields)
+    return rep
+
+
+def check_treelet_kernels(traverser, start, seg, t_init) -> dict:
+    """Kernels 5 and 6 against their plain versions on CUDA rays, as the
+    mesh intersector feeds them (sorted, seeded): every output equal."""
+    tables = traverser.tables
+    F = cuda_bvh.ray_features(start, seg, t_init)
+    key_k = cuda_bvh.launch_cull(F, tables)
+    key_p = cuda_bvh.plain_cull(F, tables)
+    ck, ok_, tk = cuda_bvh.order_from_key(key_k)
+    cp, op, tp = cuda_bvh.order_from_key(key_p)
+    t_k, best_k, vis_k = cuda_bvh.launch_sweep(cp, op, tp, F, tables)
+    t_p, best_p, vis_p = cuda_bvh.plain_sweep(cp, op, tp, F, tables)
+    torch.cuda.synchronize()
+    n_leaves = tables.n_leaves
+    # Only the first counts[b] entries of a row are leaves; the rest are pads.
+    listed = torch.arange(n_leaves, device=cp.device)[None, :] < cp[:, None].long()
+    rep = dict(
+        rays=start.shape[0], blocks=int(cp.shape[0]), leaves=n_leaves,
+        live_fraction=(t_init > 0).float().mean().item(),
+        counts_equal=_frac_equal(ck, cp),
+        order_equal=_frac_equal(ok_[listed], op[listed]),
+        tlo_equal=_frac_equal(tk[listed], tp[listed]),
+        t_equal=_frac_equal(t_k, t_p),
+        best_equal=_frac_equal(best_k, best_p),
+        visits_equal=_frac_equal(vis_k, vis_p),
+        hit_fraction=(best_p[:start.shape[0]] >= 0).float().mean().item(),
+        mean_survivors=cp.float().mean().item(),
+        mean_visits=vis_p.float().mean().item(),
+        max_visits=int(vis_p.max()),
+        max_abs_err=_max_abs(t_k, t_p),
+    )
+    for key in ("counts_equal", "order_equal", "tlo_equal", "t_equal", "best_equal",
+                "visits_equal"):
+        assert rep[key] == 1.0, (key, rep)
+    return rep
+
+
+def check_mesh_frame(scene_pack, camera, cfg, seed: int, sample0: int = 0,
+                     queue: int = 1 << 18) -> dict:
+    """One queued mesh frame on the kernel path (kernels 1, 5, 6) against
+    the same frame with their plain versions, both on the card."""
+    from fspt_tpu_torch.render.queue import render_queued
+
+    outs = [render_queued(scene_pack, camera, cfg, seed, sample0, queue=queue,
+                          intersector=cuda_bvh.make_mesh_intersector(scene_pack, plain=plain))
+            for plain in (False, True)]
+    torch.cuda.synchronize()
+    rep = compare_paths(*outs)
+    assert rep["segments"] == rep["plain_segments"], rep
     return rep

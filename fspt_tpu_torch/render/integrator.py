@@ -3,9 +3,9 @@
 Port of fspt_tpu/render/integrator.py: the reference's recursive
 ``TraceStep`` (engine.cpp:59-159) as an iterative bounce loop over a ray
 SoA — intersect → shade → spawn for the whole wavefront per bounce.  This
-is the port's general render path (any analytic scene, textured ones
+is the port's general render path (any scene, textured and BVH ones
 included); the CUDA megakernels in ops/cuda_path.py replace it on the
-CLI's main path.
+CLI's analytic path, and render/queue.py reschedules it for BVH scenes.
 
 Semantics kept from the reference: depth cap → loop length; fast-render
 white above depth 1; miss → sky ×3; backface flip; ε-offset 0.03; affine
@@ -23,17 +23,49 @@ from fspt_tpu_torch import materials as mat_mod
 from fspt_tpu_torch.camera import Camera, generate_rays
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.ops import rng
-from fspt_tpu_torch.ops.intersect import Hit, intersect_scene
+from fspt_tpu_torch.ops.intersect import KIND_TRIANGLE, Hit, intersect_scene
 from fspt_tpu_torch.render import framebuffer as fb_mod
 from fspt_tpu_torch.scene.builder import ScenePack
 from fspt_tpu_torch.utils import vecmath as vm
 
 
+def _intersect_with_bvh(scene: ScenePack, start, seg) -> Hit:
+    """Closest hit: analytic primitives (brute force) ∪ BVH triangles, the
+    closer one winning (reference scene.cpp:227-248, mesh.cpp:154-160)."""
+    from fspt_tpu_torch.ops.bvh import traverse_bvh
+
+    base = intersect_scene(scene.geometry, start, seg)
+    t_tri, tri_id, u, v = traverse_bvh(scene.bvh, start, seg)
+    return merge_triangle_hit(scene.tri_shade, base, start, seg, t_tri, tri_id, u, v,
+                              tri_hit_wins=(tri_id >= 0) & (t_tri < base.t))
+
+
+def merge_triangle_hit(ts, base: Hit, start, seg, t_tri, tri_id, u, v, tri_hit_wins) -> Hit:
+    """``base`` with the lanes of ``tri_hit_wins`` replaced by their
+    triangle hit, whose shading attributes are gathered from ``ts``
+    (a TriShade) by original triangle id."""
+    tid = torch.clamp(tri_id, min=0).long()
+    u3, v3 = u[:, None], v[:, None]
+    normal = ts.n0[tid] + (ts.n1[tid] - ts.n0[tid]) * u3 + (ts.n2[tid] - ts.n0[tid]) * v3
+    texcoords = ts.t0[tid] + (ts.t1[tid] - ts.t0[tid]) * u3 + (ts.t2[tid] - ts.t0[tid]) * v3
+    w = tri_hit_wins
+    t = torch.where(w, t_tri, base.t)
+    return Hit(
+        t=t,
+        point=start + seg * t[:, None],
+        normal=torch.where(w[:, None], normal, base.normal),
+        texcoords=torch.where(w[:, None], texcoords, base.texcoords),
+        mat=torch.where(w, ts.mat[tid], base.mat),
+        prim_kind=torch.where(w, KIND_TRIANGLE, base.prim_kind),
+        hit=base.hit | (tri_id >= 0),
+    )
+
+
 def intersect_full(scene: ScenePack, start, seg) -> Hit:
-    """Closest hit against the full scene (analytic primitives; BVH scenes
-    come with the mesh slice)."""
+    """Closest hit against the full scene: analytic primitives ∪ BVH
+    triangles."""
     if scene.bvh is not None:
-        raise NotImplementedError("BVH scenes come with the mesh slice of the port")
+        return _intersect_with_bvh(scene, start, seg)
     return intersect_scene(scene.geometry, start, seg)
 
 
@@ -50,8 +82,10 @@ def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,
                    intersector=None) -> TraceOutput:
     """Trace a ray wavefront to completion and return per-lane radiance.
 
-    ``intersector(start, seg) → Hit`` overrides the brute-force
-    :func:`intersect_full` (e.g. the CUDA intersector of ops/cuda_trace.py).
+    ``intersector(start, seg) → Hit`` overrides :func:`intersect_full`
+    (e.g. the CUDA intersector of ops/cuda_trace.py); one with
+    ``accepts_alive`` (the mesh intersector of ops/cuda_bvh.py) also gets
+    the lanes' liveness and skips the dead ones.
     """
     if cfg.edge_eps > 0.0:
         raise NotImplementedError(
@@ -82,8 +116,12 @@ def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,
     for depth in range(cfg.effective_depth):
         segments = segments + alive.sum()
 
-        hit = (intersector(start, seg) if intersector is not None
-               else intersect_full(scene, start, seg))
+        if intersector is None:
+            hit = intersect_full(scene, start, seg)
+        elif getattr(intersector, "accepts_alive", False):
+            hit = intersector(start, seg, alive)
+        else:
+            hit = intersector(start, seg)
 
         # Backface flip → is_internal (scene.cpp:238-247).
         side = vm.dot(hit.normal, start - hit.point)

@@ -3,8 +3,9 @@
 Port of fspt_tpu/scene/builder.py (reference scene.h:94-185,
 scene.cpp:164-214): the builder accumulates primitives and materials on the
 host and ``compile()`` packs them into flat tensors on the device.  Scenes
-with 64 or more triangles, which the reference hands to its BVH, are refused
-until the port's mesh slice lands.
+with ``bvh_threshold`` (64) or more triangles get a flattened BVH
+(ops/bvh.py) and per-triangle shading attributes (:class:`TriShade`) in
+place of the brute-force triangle rows.
 """
 
 from __future__ import annotations
@@ -21,19 +22,33 @@ from fspt_tpu_torch.materials import MaterialSpec, MaterialTable, TexturePack
 from fspt_tpu_torch.scene import geometry as geom
 
 
+class TriShade(NamedTuple):
+    """Per-triangle shading attributes, indexed by original triangle id
+    (the BVH returns original ids, so these gathers stay stable)."""
+
+    n0: torch.Tensor  # [T,3]
+    n1: torch.Tensor
+    n2: torch.Tensor
+    t0: torch.Tensor  # [T,2]
+    t1: torch.Tensor
+    t2: torch.Tensor
+    mat: torch.Tensor  # [T] int32
+
+
 class ScenePack(NamedTuple):
     """Everything the device needs to render: the compiled scene.
 
-    ``bvh``/``tri_shade`` keep the reference's layout; they stay None until
-    the mesh slice brings BVH scenes to the port.
+    ``bvh``/``tri_shade`` are set for triangle-heavy scenes: the triangles
+    then live in the flattened BVH (ops/bvh.FlatBVH) instead of the
+    brute-force rows of ``geometry``.
     """
 
     geometry: geom.GeometryPack
     materials: MaterialTable
     textures: TexturePack
     sky_mat: torch.Tensor  # int32 scalar row index of the sky material
-    bvh: object = None
-    tri_shade: object = None
+    bvh: object = None  # Optional[ops.bvh.FlatBVH]
+    tri_shade: object = None  # Optional[TriShade]
 
     @property
     def device(self) -> torch.device:
@@ -163,11 +178,8 @@ class SceneBuilder:
         return merged
 
     def compile(self, bvh_threshold: int = 64, device=None) -> ScenePack:
-        """Pack the scene onto ``device`` (``cuda`` unless told otherwise).
-
-        Raises NotImplementedError where the reference would build a BVH:
-        ``bvh_threshold`` or more triangles.
-        """
+        """Pack the scene onto ``device`` (``cuda`` unless told otherwise);
+        ``bvh_threshold`` or more triangles get a BVH."""
         dev = resolve_device(device)
         materials = list(self._materials)
         if self._sky_mat is None:
@@ -179,10 +191,23 @@ class SceneBuilder:
         table = mat_mod.pack_materials(materials, dev)
 
         tris = self._merge_triangles()
+        bvh = tri_shade = None
         if tris is not None and len(tris["v0"]) >= bvh_threshold:
-            raise NotImplementedError(
-                f"{len(tris['v0'])} triangles need a BVH: BVH scenes come "
-                "with the mesh slice of the port")
+            from fspt_tpu_torch.ops.bvh import build_bvh
+
+            v0, v1, v2 = (np.asarray(tris[k], np.float32) for k in ("v0", "v1", "v2"))
+            bvh = build_bvh(v0, v1, v2, device=dev)
+            cr = np.cross(v1 - v0, v2 - v0)
+            ln = np.linalg.norm(cr, axis=-1, keepdims=True)
+            ng = (cr / np.where(ln > 0, ln, 1.0)).astype(np.float32)
+            zeros = np.zeros((len(v0), 2), np.float32)
+            f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+            tri_shade = TriShade(
+                n0=f32(tris.get("n0", ng)), n1=f32(tris.get("n1", ng)),
+                n2=f32(tris.get("n2", ng)), t0=f32(tris.get("t0", zeros)),
+                t1=f32(tris.get("t1", zeros)), t2=f32(tris.get("t2", zeros)),
+                mat=torch.from_numpy(np.asarray(tris["mat"], np.int32)).to(dev))
+            tris = None  # keep the brute-force rows empty
 
         pack = geom.pack_geometry(
             self._spheres, self._planes, self._discs, self._quads,
@@ -193,4 +218,6 @@ class SceneBuilder:
             materials=table,
             textures=self._pack_textures(dev),
             sky_mat=torch.tensor(sky_idx, dtype=torch.int32, device=dev),
+            bvh=bvh,
+            tri_shade=tri_shade,
         )

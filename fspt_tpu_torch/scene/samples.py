@@ -17,6 +17,12 @@ the same.  Cameras are added by the caller.
   lamp, mirror, ceramic and glow rows.
 * :func:`write_textured_cornell` — a textured copy of a ``.scene`` file of
   the Cornell box (its red and green walls and its sky textured).
+* :func:`heightfield` — the reference's mesh bench scene
+  (``bench.py:build_mesh_scene``): a ``2·(grid−1)²``-triangle heightfield
+  (99,458 at ``grid=224``), a floor quad, an area light and a sky; its
+  camera, with depth of field, is :data:`HEIGHTFIELD_CAMERA`.
+* :func:`write_heightfield_scene` — the same scene as a ``.scene`` file and
+  an OBJ mesh, for the CLI.
 
 Textures are checkers whose two colours come from a seeded NumPy generator,
 so both packages build the same texels.
@@ -155,22 +161,148 @@ def all_families(b, M, textured=False, seed=11):
     b.add_sphere((5.0, 0.0, 0.0), 40.0, fog)
 
 
+HEIGHTFIELD_CAMERA = dict(origin=(0.0, 25.0, -110.0), target=(0.0, -15.0, 0.0),
+                          aperture_size=1.5, focal_depth=95.0)
+
+
+def _heightfield_mesh(grid):
+    """Grid points ``P [grid, grid, 3]`` and the two triangles of every
+    cell as ``(v0, v1, v2)`` index arrays into ``P.reshape(-1, 3)``."""
+    xs = np.linspace(-45, 45, grid, dtype=np.float32)
+    X, Z = np.meshgrid(xs, xs, indexing="ij")
+    Y = (6.0 * np.sin(X * 0.18) * np.cos(Z * 0.15)
+         + 3.0 * np.sin(X * 0.51 + 1.0) * np.sin(Z * 0.43) - 20.0)
+    P = np.stack([X, Y, Z], axis=-1)
+    idx = np.arange(grid * grid).reshape(grid, grid)
+    a, bq = idx[:-1, :-1].reshape(-1), idx[1:, :-1].reshape(-1)
+    c, d = idx[1:, 1:].reshape(-1), idx[:-1, 1:].reshape(-1)
+    return P, (np.concatenate([a, a]), np.concatenate([bq, c]), np.concatenate([c, d]))
+
+
+def heightfield(b, M, grid=224):
+    """The mesh bench scene of ``bench.py:115-152`` (camera by the caller)."""
+    white = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.7, 0.7, 0.7)))
+    terra = b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=(0.55, 0.45, 0.35)))
+    light = b.add_material(M.MaterialSpec(M.LIGHT, emissive=(12.0, 12.0, 12.0)))
+    b.set_sky(b.add_material(M.MaterialSpec(M.LIGHT, emissive=(0.3, 0.4, 0.6))))
+    s = 60.0
+    b.add_quad_uv((-s, -30.0, -s), (2 * s, 0, 0), (0, 0, 2 * s), white)  # floor
+    b.add_quad_uv((-20, 55.0, -20), (40, 0, 0), (0, 0, 40), light)  # light
+    P, (i0, i1, i2) = _heightfield_mesh(grid)
+    flat = P.reshape(-1, 3)
+    b.add_triangles(flat[i0], flat[i1], flat[i2], terra)
+
+
+def write_heightfield_scene(dst_dir, grid=224):
+    """Write :func:`heightfield` as ``heightfield.obj`` and
+    ``heightfield.scene`` (floor, light, sky and camera as the sample) into
+    ``dst_dir``; returns the ``.scene`` path.
+
+    Faces are written clockwise: the OBJ loader's CW→CCW flip
+    (scene/mesh.py) turns ``f v2 v1 v0`` back into ``(v0, v1, v2)``, so the
+    parsed triangles equal the sample's.  Coordinates are written in the
+    shortest form that reads back to the same float32.
+    """
+    import os
+
+    os.makedirs(dst_dir, exist_ok=True)
+    P, (i0, i1, i2) = _heightfield_mesh(grid)
+    fmt = lambda x: np.format_float_positional(x, unique=True, trim="0")
+    lines = [f"# heightfield, grid {grid}: {len(i0)} triangles"]
+    lines += [f"v {fmt(x)} {fmt(y)} {fmt(z)}" for x, y, z in P.reshape(-1, 3)]
+    lines += [f"f {c + 1} {b + 1} {a + 1}" for a, b, c in zip(i0, i1, i2)]
+    obj = os.path.join(dst_dir, "heightfield.obj")
+    with open(obj, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cam = HEIGHTFIELD_CAMERA
+    v3 = lambda v: " ".join(str(float(x)) for x in v)
+    scene = f"""# The mesh bench scene: a heightfield in a lit box (fspt_tpu_torch samples)
+
+material white
+{{
+ color 0.7 0.7 0.7
+}}
+
+material terra
+{{
+ color 0.55 0.45 0.35
+}}
+
+material lamp
+{{
+ emission 12.0 12.0 12.0
+}}
+
+material ambient
+{{
+ emission 0.3 0.4 0.6
+}}
+
+sky
+{{
+ material ambient
+}}
+
+camera
+{{
+ position {v3(cam["origin"])}
+ target {v3(cam["target"])}
+ fov 45.0
+ aperture {cam["aperture_size"]}
+ focal_depth {cam["focal_depth"]}
+}}
+
+# floor
+quad
+{{
+ material white
+ position -60.0 -30.0 -60.0
+ u 120.0 0.0 0.0
+ v 0.0 0.0 120.0
+}}
+
+# area light
+quad
+{{
+ material lamp
+ position -20.0 55.0 -20.0
+ u 40.0 0.0 0.0
+ v 0.0 0.0 40.0
+}}
+
+mesh
+{{
+ file heightfield.obj
+ material terra
+}}
+"""
+    path = os.path.join(dst_dir, "heightfield.scene")
+    with open(path, "w") as f:
+        f.write(scene)
+    return path
+
+
 SCENES = {"flagship": flagship, "all_primitives": all_primitives,
           "all_families": all_families, "textured": textured,
-          "all_families_textured": lambda b, M: all_families(b, M, textured=True)}
+          "all_families_textured": lambda b, M: all_families(b, M, textured=True),
+          "heightfield": heightfield}
+CAMERAS = {"heightfield": HEIGHTFIELD_CAMERA}
 
 
-def build(name: str, device=None, aperture=0.0, focal_depth=80.0):
-    """The named scene in this package's builder, with the standard camera
-    (origin (0, 0, -145) looking at the origin) created on ``device``."""
+def build(name: str, device=None, aperture=0.0, focal_depth=80.0, **scene_kw):
+    """The named scene in this package's builder with its camera created on
+    ``device``: the standard one (origin (0, 0, -145) looking at the origin,
+    ``aperture``, ``focal_depth``) unless the scene has its own
+    (:data:`CAMERAS`).  ``scene_kw`` go to the scene function (``grid``)."""
     from fspt_tpu_torch import materials as M
     from fspt_tpu_torch.camera import Camera
     from fspt_tpu_torch.scene.builder import SceneBuilder
 
     b = SceneBuilder()
-    SCENES[name](b, M)
-    b.add_camera(Camera.create(origin=CAMERA_ORIGIN, aperture_size=aperture,
-                               focal_depth=focal_depth, device=device))
+    SCENES[name](b, M, **scene_kw)
+    cam = CAMERAS.get(name, dict(origin=CAMERA_ORIGIN, aperture_size=aperture,
+                                 focal_depth=focal_depth))
+    b.add_camera(Camera.create(**cam, device=device))
     return b
 
 

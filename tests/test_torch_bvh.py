@@ -1,0 +1,263 @@
+"""The port's BVH layer against the reference's, on the CPU.
+
+* builders: the port's native and NumPy BVH builders give identical arrays,
+  both equal to ``fspt_tpu.ops.bvh._build_bvh_numpy``; the treelet chunking
+  is array-equal to the reference's; the native OBJ parser equals the
+  Python one;
+* the plain cull (kernel 5's plain version + the key sort) against the
+  NumPy formula of tests/test_pallas_bvh.py: same survivor sets, ascending
+  entry t;
+* the plain culled traverser (kernels 5 and 6 plain) against the
+  reference's XLA ``traverse_bvh``, at the reference's own bar
+  (tests/test_pallas_bvh.py:66-98): t at rtol 1e-4 / atol 1e-6, ids equal on
+  ≥ 99.9 % of hits (near-tie winners depend on blocking), u at rtol 1e-3 /
+  atol 1e-4; dead lanes win nothing;
+* whole renders of the heightfield sample: the port's BVH
+  ``render_wavefront`` (its torch BVH walk, and the mesh intersector) against
+  the reference's, at the path bar of tests/test_pallas_bvh.py:142-158
+  (rtol 1e-4 / atol 1e-6 on ≥ 99.9 % of values, equal segments).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fspt_tpu import materials as ref_M
+from fspt_tpu.camera import Camera as RefCamera
+from fspt_tpu.config import RenderConfig as RefConfig
+from fspt_tpu.ops import bvh as ref_bvh
+from fspt_tpu.ops import pallas_bvh as ref_pbvh
+from fspt_tpu.render import integrator as ref_integrator
+from fspt_tpu.scene.builder import SceneBuilder as RefBuilder
+
+from fspt_tpu_torch import convert
+from fspt_tpu_torch.config import RenderConfig
+from fspt_tpu_torch.ops import bvh, cuda_bvh
+from fspt_tpu_torch.render import integrator
+from fspt_tpu_torch.scene import samples
+from fspt_tpu_torch.utils import native
+
+from conftest import assert_images_close
+
+CPU = torch.device("cpu")
+
+
+def _tris(n, seed=0):
+    rs = np.random.RandomState(seed)
+    v0 = rs.uniform(-40, 40, (n, 3)).astype(np.float32)
+    v1 = v0 + rs.uniform(-8, 8, (n, 3)).astype(np.float32)
+    v2 = v0 + rs.uniform(-8, 8, (n, 3)).astype(np.float32)
+    return v0, v1, v2
+
+
+def _rays(n, seed=1):
+    rs = np.random.RandomState(seed)
+    start = rs.uniform(-60, 60, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return start, (d * 200.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("max_leaf", [4, 128])
+def test_native_and_numpy_builders_equal_reference(max_leaf):
+    v0, v1, v2 = _tris(2000, seed=3)
+    nat = native.build_bvh(v0, v1, v2, max_leaf)
+    plain = bvh._build_bvh_numpy(v0, v1, v2, max_leaf)
+    ref = ref_bvh._build_bvh_numpy(v0, v1, v2, max_leaf)
+    for a, b, c, name in zip(nat, plain, ref, ["order", "bmin", "bmax", "first", "count",
+                                               "miss"]):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(a, c, err_msg=name)
+
+
+def test_build_bvh_matches_reference():
+    v0, v1, v2 = _tris(700, seed=4)
+    port = bvh.build_bvh(v0, v1, v2, device=CPU)
+    ref = ref_bvh.build_bvh(v0, v1, v2)
+    for name in bvh.FlatBVH._fields:
+        np.testing.assert_array_equal(getattr(port, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+
+
+def test_native_obj_parser_equals_python(tmp_path):
+    from fspt_tpu_torch.scene.mesh import parse_obj
+
+    obj = tmp_path / "m.obj"
+    obj.write_text(
+        "# comment\n"
+        "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nv 0 0 1\n"
+        "vn 0 0 1\nvn 0 1 0\n"
+        "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n"
+        "f 1/1/1 2/2/1 3/3/1 4/4/1\n"
+        "f -1//-1 -2// -3\n"
+        "f 1 2 5\n")
+    a, b = native.parse_obj(str(obj)), parse_obj(str(obj))
+    for k in ("vertices", "normals", "texcoords", "faces"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("grid", [None, 40])
+def test_treelet_chunks_equal_reference(grid):
+    if grid is None:
+        v0, v1, v2 = _tris(3000, seed=5)
+    else:
+        b = RefBuilder()
+        samples.heightfield(b, ref_M, grid=grid)
+        tris = b._merge_triangles()
+        v0, v1, v2 = tris["v0"], tris["v1"], tris["v2"]
+    port = cuda_bvh.build_treelet_chunks(v0, v1, v2)
+    ref = ref_pbvh.build_treelet_chunks(v0, v1, v2)
+    for name in bvh.FlatBVH._fields:
+        np.testing.assert_array_equal(getattr(port, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    assert (port.count.numpy() == cuda_bvh.TREELET).sum() >= len(port.count) - 1
+
+
+def test_morton_keys_equal_reference():
+    """The blocking key (and so which rays share a block) is the
+    reference's, dead lanes last."""
+    import jax.numpy as jnp
+
+    r = np.random.default_rng(0)
+    start = r.uniform(-60, 60, (4000, 3)).astype(np.float32)
+    seg = (r.normal(size=(4000, 3)) * 100).astype(np.float32)
+    alive = r.random(4000) > 0.3
+    lo, hi = np.float32([-45, -30, -45]), np.float32([45, -10, 45])
+    ref = ref_pbvh.morton_keys(*(jnp.asarray(a) for a in (start, seg, alive, lo, hi)))
+    port = cuda_bvh.morton_keys(*(torch.from_numpy(a) for a in (start, seg, alive, lo, hi)))
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+def test_plain_cull_matches_numpy_formula():
+    v0, v1, v2 = _tris(3000, seed=11)
+    coarse = bvh.build_bvh(v0, v1, v2, max_leaf=cuda_bvh.TREELET, device=CPU)
+    trav = cuda_bvh.make_culled_traverser(coarse)
+    n = 512
+    sb, gb = _rays(n, seed=12)
+    tb = np.ones(n, np.float32)
+    tb[::7] = 0.0  # dead lanes mixed in
+    counts, order, tlo, _ = trav.prepare(torch.from_numpy(sb), torch.from_numpy(gb),
+                                         torch.from_numpy(tb))
+
+    count = coarse.count.numpy()
+    leaves = np.nonzero(count > 0)[0]
+    lbmin, lbmax = coarse.bmin.numpy()[leaves], coarse.bmax.numpy()[leaves]
+    r = 1.0 / np.where(np.abs(gb) < 1e-30, np.where(gb >= 0, 1e-30, -1e-30), gb)
+    ta = (lbmin[None] - sb[:, None]) * r[:, None]
+    tbx = (lbmax[None] - sb[:, None]) * r[:, None]
+    t_lo = np.minimum(ta, tbx).max(axis=-1)
+    t_hi = np.maximum(ta, tbx).min(axis=-1)
+    ov = ((t_lo <= t_hi) & (t_hi >= 0.0) & (t_lo <= np.minimum(tb, 1.0)[:, None])
+          & (tb > 0.0)[:, None])
+    key = np.where(ov, np.maximum(t_lo, 0.0), 3.0e38)
+    key = key.reshape(n // cuda_bvh.BLOCK_RAYS, cuda_bvh.BLOCK_RAYS, -1).min(axis=1)
+    counts_ref = (key < 3.0e38).sum(axis=1)
+    np.testing.assert_array_equal(counts.numpy(), counts_ref)
+    assert counts_ref.min() > 0
+    for b in range(len(counts_ref)):
+        k = int(counts_ref[b])
+        assert set(order[b, :k].tolist()) == set(np.nonzero(key[b] < 3.0e38)[0].tolist())
+        assert (np.diff(tlo[b, :k].numpy()) >= 0).all()
+
+
+def _traverser_vs_xla(n_tris, n_rays, seed, t_init=None):
+    v0, v1, v2 = _tris(n_tris, seed=seed)
+    fine = ref_bvh.build_bvh(v0, v1, v2)
+    coarse = bvh.build_bvh(v0, v1, v2, max_leaf=cuda_bvh.TREELET, device=CPU)
+    start, seg = _rays(n_rays, seed=seed + 1)
+    t_ref, id_ref, u_ref, _ = (np.asarray(a) for a in ref_bvh.traverse_bvh(fine, start, seg))
+    trav = cuda_bvh.make_culled_traverser(coarse)
+    out = trav(torch.from_numpy(start), torch.from_numpy(seg),
+               None if t_init is None else torch.from_numpy(t_init))
+    return (t_ref, id_ref, u_ref), tuple(a.numpy() for a in out)
+
+
+def test_culled_traverser_matches_xla():
+    (t_ref, id_ref, u_ref), (t, ids, u, _) = _traverser_vs_xla(3000, 1500, seed=7)
+    np.testing.assert_allclose(t_ref, t, rtol=1e-4, atol=1e-6)
+    h = t_ref < 2.0
+    assert h.mean() > 0.2
+    assert (id_ref[h] == ids[h]).mean() > 0.999
+    np.testing.assert_allclose(u_ref[h], u[h], rtol=1e-3, atol=1e-4)
+
+
+def test_culled_traverser_dead_lanes():
+    alive = np.zeros(600, bool)
+    alive[::3] = True
+    t0 = np.where(alive, 2.0, 0.0).astype(np.float32)
+    (t_ref, id_ref, _), (t, ids, _, _) = _traverser_vs_xla(1000, 600, seed=9, t_init=t0)
+    assert (ids[~alive] == -1).all()
+    np.testing.assert_array_equal(t[~alive], 0.0)
+    live = alive & (t_ref < 2.0)
+    np.testing.assert_allclose(t_ref[live], t[live], rtol=1e-4, atol=1e-6)
+    assert (id_ref[live] == ids[live]).mean() > 0.999
+
+
+def test_torch_traverse_bvh_matches_reference():
+    v0, v1, v2 = _tris(800, seed=2)
+    start, seg = _rays(700, seed=3)
+    t_ref, id_ref, u_ref, v_ref = (np.asarray(a) for a in ref_bvh.traverse_bvh(
+        ref_bvh.build_bvh(v0, v1, v2), start, seg))
+    t, ids, u, v = (a.numpy() for a in bvh.traverse_bvh(
+        bvh.build_bvh(v0, v1, v2, device=CPU), torch.from_numpy(start), torch.from_numpy(seg)))
+    np.testing.assert_allclose(t, t_ref, rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(ids, id_ref)
+    h = t_ref < 2.0
+    np.testing.assert_allclose(u[h], u_ref[h], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(v[h], v_ref[h], rtol=1e-4, atol=1e-5)
+
+
+def _heightfield_pair(grid=10):
+    ref_b = RefBuilder()
+    samples.heightfield(ref_b, ref_M, grid=grid)
+    ref_b.add_camera(RefCamera.create(**samples.HEIGHTFIELD_CAMERA))
+    port_b = samples.build("heightfield", device=CPU, grid=grid)
+    return ref_b, port_b
+
+
+@pytest.mark.parametrize("path", ["bvh_walk", "mesh_intersector"])
+def test_render_wavefront_heightfield_matches_reference(path):
+    ref_b, port_b = _heightfield_pair()
+    ref_scene = ref_b.compile()
+    scene = port_b.compile(device=CPU)
+    assert scene.bvh is not None and ref_scene.bvh is not None
+    w, h, spp, depth = 16, 12, 2, 3
+    ref = ref_integrator.render_wavefront(ref_scene, ref_b.cameras[0],
+                                          RefConfig(width=w, height=h, spp=spp, max_depth=depth),
+                                          7, 0)
+    inter = cuda_bvh.make_mesh_intersector(scene) if path == "mesh_intersector" else None
+    out = integrator.render_wavefront(scene, port_b.cameras[0],
+                                      RenderConfig(width=w, height=h, spp=spp, max_depth=depth),
+                                      7, 0, intersector=inter)
+    assert_images_close(np.asarray(ref.radiance), out.radiance.numpy(), rtol=1e-4,
+                        atol=1e-6, frac=0.999)
+    assert int(ref.segments) == int(out.segments)
+    assert (np.asarray(ref.aov_mat) == out.aov_mat.numpy()).mean() >= 0.999
+    assert out.radiance.mean() > 0.01
+
+
+def test_heightfield_scene_file_equals_sample(tmp_path):
+    """The written .scene + OBJ parse back into the sample scene exactly:
+    the OBJ's clockwise faces meet the loader's CW→CCW flip."""
+    from fspt_tpu_torch.scene.parser import load_scene
+
+    fb = load_scene(samples.write_heightfield_scene(str(tmp_path), grid=10), device=CPU)
+    sb = samples.build("heightfield", device=CPU, grid=10)
+    from_file, sample = fb.compile(device=CPU), sb.compile(device=CPU)
+    for part in ("geometry", "materials", "bvh", "tri_shade"):
+        a, b = getattr(from_file, part), getattr(sample, part)
+        for name in a._fields:
+            assert torch.equal(getattr(a, name), getattr(b, name)), (part, name)
+    assert int(from_file.sky_mat) == int(sample.sky_mat)
+    for name in sb.cameras[0]._fields:
+        assert torch.equal(getattr(fb.cameras[0], name), getattr(sb.cameras[0], name)), name
+
+
+def test_convert_carries_the_bvh():
+    ref_b, port_b = _heightfield_pair()
+    converted = convert.scene_from_numpy(ref_b.compile(), device=CPU)
+    scene = port_b.compile(device=CPU)
+    for part in ("bvh", "tri_shade"):
+        a, b = getattr(converted, part), getattr(scene, part)
+        for name in a._fields:
+            assert torch.equal(getattr(a, name), getattr(b, name)), (part, name)

@@ -13,16 +13,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "fspt_tpu_torch", "fspt_tpu_torch.cli", "fspt_tpu_torch.convert",
     "fspt_tpu_torch.camera", "fspt_tpu_torch.config", "fspt_tpu_torch.materials",
-    "fspt_tpu_torch.ops._build", "fspt_tpu_torch.ops.cuda_grad",
+    "fspt_tpu_torch.ops._build", "fspt_tpu_torch.ops.bvh", "fspt_tpu_torch.ops.cuda_bvh",
+    "fspt_tpu_torch.ops.cuda_grad",
     "fspt_tpu_torch.ops.cuda_path",
     "fspt_tpu_torch.ops.cuda_trace", "fspt_tpu_torch.ops.intersect",
     "fspt_tpu_torch.ops.kernel_check", "fspt_tpu_torch.ops.rng",
     "fspt_tpu_torch.render.dispatch", "fspt_tpu_torch.render.framebuffer",
-    "fspt_tpu_torch.render.integrator", "fspt_tpu_torch.scene.builder",
+    "fspt_tpu_torch.render.integrator", "fspt_tpu_torch.render.queue",
+    "fspt_tpu_torch.scene.builder",
     "fspt_tpu_torch.scene.geometry", "fspt_tpu_torch.scene.mesh",
     "fspt_tpu_torch.scene.parser", "fspt_tpu_torch.scene.samples",
     "fspt_tpu_torch.utils.checkpoint", "fspt_tpu_torch.utils.image",
-    "fspt_tpu_torch.utils.vecmath", "fspt_tpu_torch.parallel",
+    "fspt_tpu_torch.utils.native", "fspt_tpu_torch.utils.vecmath", "fspt_tpu_torch.parallel",
     "fspt_tpu_torch.parallel.train", "fspt_tpu_torch.examples",
     "fspt_tpu_torch.examples.recover_albedo", "fspt_tpu_torch.examples.recover_texture",
     "chip_smoke",
@@ -47,7 +49,7 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
-def test_entry_points_refuse_cpu_fallback():
+def test_entry_points_refuse_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from fspt_tpu_torch import Camera, SceneBuilder, cli
@@ -73,3 +75,17 @@ def test_entry_points_refuse_cpu_fallback():
     for example in (recover_albedo, recover_texture):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.main(["--iters", "1"])
+    # The mesh path: a BVH scene through the CLI (both estimators), the
+    # BVH builder and the heightfield sample.
+    from fspt_tpu_torch.ops import bvh
+    from fspt_tpu_torch.scene import samples
+
+    hf = samples.write_heightfield_scene(str(tmp_path), grid=10)
+    for extra in ([], ["--first-hit-cache"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--file", hf, "--width", "8", "--height", "8", "--frames", "1"] + extra)
+    tri = [[[0.0, 0.0, 0.0]], [[1.0, 0.0, 0.0]], [[0.0, 1.0, 0.0]]]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bvh.build_bvh(*tri)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        samples.build("heightfield", grid=10)

@@ -83,3 +83,43 @@ def test_fused_loss_kernel_matches_plain(cuda):
         (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
     kernel_check.check_fused_loss(b.compile(device=cuda), b.cameras[0], cfg, target,
                                   seed=8, frame_idx=3)
+
+
+@pytest.fixture
+def heightfield(cuda):
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("heightfield", device=cuda, grid=60)
+    return b.compile(device=cuda), b.cameras[0]
+
+
+def test_treelet_kernels_match_plain(cuda, heightfield):
+    """Kernels 5 and 6 on primary rays and on one queue iteration's bounce
+    rays of the heightfield, fed as the mesh intersector feeds them."""
+    from fspt_tpu_torch.camera import generate_rays
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.ops.cuda_bvh import make_mesh_intersector
+    from fspt_tpu_torch.render.queue import render_queued
+
+    scene, cam = heightfield
+    inter = make_mesh_intersector(scene)
+    calls = []
+
+    def recording(o, d, alive):
+        calls.append((o, d, alive))
+        return inter(o, d, alive)
+
+    recording.accepts_alive = True
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    render_queued(scene, cam, cfg, 3, 0, intersector=recording)
+    start, seg, _, _ = generate_rays(cam, 64, 48, 2, 3, 0)
+    for o, d, alive in ((start, seg, None), calls[1]):
+        kernel_check.check_treelet_kernels(inter.traverser, *inter.sweep_inputs(o, d, alive)[:3])
+
+
+def test_mesh_frame_matches_plain(cuda, heightfield):
+    from fspt_tpu_torch.ops import kernel_check
+
+    scene, cam = heightfield
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    kernel_check.check_mesh_frame(scene, cam, cfg, seed=5, queue=1024)

@@ -118,7 +118,8 @@ def test_render_wavefront_matches_reference(fast):
 def test_textured_scene_raises_and_bvh_scene_refused():
     """A textured scene takes the texture-deferred tracer (kernel 4); the
     rays-in tracer declines it, as the reference's does; a BVH-sized mesh
-    still raises until the mesh slice."""
+    compiles with a BVH, and both megakernel tracers refuse it (it takes
+    the queued mesh path), as the reference's do."""
     b = SceneBuilder()
     tex = b.add_texture(np.ones((4, 4, 3), np.float32))
     b.add_sphere((0, 0, 0), 1.0, b.add_material(
@@ -132,5 +133,7 @@ def test_textured_scene_raises_and_bvh_scene_refused():
     assert cuda_path.make_path_tracer(scene, cfg) is None
     tri = np.zeros((64, 3), np.float32)
     b.add_triangles(tri, tri + (1, 0, 0), tri + (0, 1, 0), 0)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        b.compile(device="cpu")
+    mesh = b.compile(device="cpu")
+    assert mesh.bvh is not None and mesh.tri_shade.mat.shape == (64,)
+    assert cuda_path.make_camera_path_tracer(mesh, cam, cfg) is None
+    assert cuda_path.make_path_tracer(mesh, cfg) is None
