@@ -35,9 +35,9 @@ Phases, each announced by one line:
    piz_dome.exr on the sky) at 1024², 4 spp, depth 8, 4 frames; kernel 4's
    launch count must rise by 4 and the image must be lit;
 12. training path at full width: ``make_fused_recovery_step`` on the
-   flagship at 1920×1080, 4 spp, depth 8 — 5 steps at pool 1 (kernel 8, one
-   launch per step) and 3 at pool 8 (kernel 7, two launches per step) —
-   then 3 steps of the texture example at 512²; every loss finite;
+   flagship at 1920×1080, 4 spp, depth 8 — 5 steps at pool 1 with diffuse
+   and emissive (kernel 8 affine, one launch per step) — then 3 steps of
+   the texture example at 512² (kernel 7); every loss finite and falling;
 13. timings of kernels 4, 7 and 8 at their main-path shapes beside their
    plain versions and bounds, and the recovery step end to end (fwd+bwd
    segments/s, both buffers counted);
@@ -56,7 +56,25 @@ Phases, each announced by one line:
    per launch on one full queue iteration (262,144 rays) of primaries and
    of bounce rays and per frame, the key sort, the post-pass, the queue's
    torch work, beside the plain versions and the bounds; a profiler window;
-18. one JSON line of per-kernel numbers; then the card line; the last line
+18. kernels 9 (grad_forward), 10 (grad_backward) and kernel 8's whole
+   chain (fused_loss_chain, and remat: the same kernel) against their plain
+   versions (the body with run-time table tensors, under autograd) at
+   128×128, 2 spp, depth 4, thin-lens cameras: all families with the seven
+   material fields, the flagship with diffuse/emissive/param and with the
+   camera (alone and joint); then the plain versions' and the kernels'
+   times at that size;
+19. training path at full width on the path-body adjoint: 4 steps at pool 1
+   with diffuse, emissive, param and the camera (kernel 8 whole chain, one
+   launch per step) and 4 at pool 8 with diffuse, emissive, param (kernels
+   9 and 10, two launches each per step); losses finite and falling;
+20. the camera example (``examples/recover_camera``) at its default size
+   for 40 iterations on kernel 8's whole chain; its loss must fall;
+21. kernels 9, 10 and 8's whole chain against their plain versions at the
+   full-width shape from the training start: kernel 9 over all 8,294,400
+   lanes, kernels 10 and 8 (whose plain versions run under autograd) on a
+   band of rows mid-frame; then their timings there beside their bounds,
+   and both adjoint recovery routes end to end;
+22. one JSON line of per-kernel numbers; then the card line; the last line
    is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
@@ -119,8 +137,20 @@ KERNELS = {
     "fused_loss": ("fused_loss_kernel", "fspt_tpu_torch/csrc/fspt_grad.cu"),
     "treelet_cull": ("treelet_cull_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
     "treelet_sweep": ("treelet_sweep_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
+    "grad_forward": ("grad_forward_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
+    "grad_backward": ("grad_backward_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
+    "fused_loss_chain": ("fused_loss_chain_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
 }
-PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce"]
+PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce", "adjoint_reduce"]
+
+#: Fields of the adjoint phases: every material column (kernel checks on
+#: all families), the whole-chain route's and the kernel-9/10 route's.
+ADJOINT_FIELDS = ("diffuse", "emissive", "glow", "param", "ior", "reflectivity", "frost")
+CHAIN_FIELDS = ("diffuse", "emissive", "param", "camera")
+PAIR_FIELDS = ("diffuse", "emissive", "param")
+#: Rows of the mid-frame band on which kernels 10 and 8's whole chain are held
+#: against their plain versions (under autograd) at the full-width shape.
+BAND_ROWS = 4
 
 
 def ptxas_report(log):
@@ -145,30 +175,278 @@ def ptxas_report(log):
     return out
 
 
-def profile_window(fn, label, top=6):
-    """Profile ``fn()`` once on the card; print the device busy share of the
-    window and the kernels taking the most device time, and keep the table
+def profile_window(fn, label, counters, top=6):
+    """Profile ``fn()`` once on the card, after one unrecorded warm-up call
+    of ``fn`` under the profiler (its CUPTI start-up); print how many of the
+    window's launches of each port kernel the trace holds, the device busy
+    share of the window (read from the trace only where it holds every
+    launch) and the kernels taking the most device time, and keep the table
     in build/chip_smoke/profile_<label>.txt."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = {k: c.launches for k, c in counters.items()}
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     events = prof.key_averages()
-    dev_us = sorted(((e.self_device_time_total, e.key) for e in events
-                     if e.device_type == DeviceType.CUDA), reverse=True)
+    # Device-side spans of annotations (the schedule's ProfilerStep*, the
+    # optimizer's step) cover kernels that are counted on their own.
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation and not e.key.startswith("ProfilerStep")]
+    complete = True
+    for key, c in counters.items():
+        launched = c.launches - before[key]
+        if launched:
+            traced = sum(e.count for e in dev if KERNELS[key][0] in e.key)
+            complete = complete and traced == launched
+            print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
+    dev_us = sorted(((e.self_device_time_total, e.key) for e in dev), reverse=True)
     busy_us = sum(us for us, _ in dev_us)
+    share = f"{busy_us / window_us:.1%}" if complete else "not read: launches missing"
     print(f"profile {label}: window {window_us:.0f} us, device busy {busy_us:.0f} us "
-          f"({busy_us / window_us:.1%}); top kernels by device time:")
+          f"({share}); top kernels by device time:")
     for us, key in dev_us[:top]:
         print(f"  {us:10.0f} us  {key[:90]}")
     (OUT / f"profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=25))
+
+
+def check_launches(launches, want, label):
+    """Every kernel in ``want`` launched exactly that often, no other."""
+    print(f"{label} launches {launches}", flush=True)
+    for key, count in launches.items():
+        assert count == want.get(key, 0), (label, key, launches, want)
+
+
+def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, train_cam,
+                   target_t, start, seg_ops, camera_argv):
+    """Phases 18-21: the path-body adjoint (kernels 9, 10 and kernel 8's
+    whole chain) — checks at ``cfg_chk``, the two recovery routes at
+    ``cfg_t`` on ``train_scene`` from the perturbed ``start`` (diffuse,
+    emissive), the camera example with ``camera_argv``, and timings.
+    Returns ``(report, timings, launches)`` entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from fspt_tpu_torch.examples import recover_camera
+    from fspt_tpu_torch.ops import cuda_grad, cuda_path, kernel_check
+    from fspt_tpu_torch.parallel import train
+    from fspt_tpu_torch.scene import samples
+
+    report = {k: {"max_abs_err": 0.0} for k in ("grad_forward", "grad_backward",
+                                                 "fused_loss_chain")}
+    timings, path_launches = {}, {}
+    K = cuda_grad.TANGENT_K
+
+    # 18. kernels 9, 10 and 8's whole chain against their plain versions
+    H, W, spp = cfg_chk.height, cfg_chk.width, cfg_chk.spp
+    size = f"{W}x{H}x{spp}, depth {cfg_chk.max_depth}"
+    n_c = H * W * spp
+    target_c = torch.from_numpy(np.random.default_rng(1).random(
+        (H, W, 3), dtype=np.float32)).to(dev)
+    scenes = {}
+    for name in ("all_families", "flagship"):
+        b = samples.build(name, device=dev, aperture=1.5, focal_depth=120.0)
+        scenes[name] = (b.compile(device=dev), b.cameras[0])
+    for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", PAIR_FIELDS)):
+        phase(f"kernels 9 (grad_forward) and 10 (grad_backward) vs plain: {name} + DoF, "
+              f"{size}, fields {fields}")
+        rep = kernel_check.check_grad_path_tracer(*scenes[name], cfg_chk, fields, seed=3,
+                                                  sample0=1)
+        print(json.dumps(rep), flush=True)
+        print(f"lanes with a zeroed non-finite contribution (kernel 10): "
+              f"{rep['nonfinite_lanes']}")
+        for key, err in (("grad_forward", rep["max_abs_err"]),
+                         ("grad_backward", rep["grad_max_abs_err"])):
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+    for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
+                         ("flagship", CHAIN_FIELDS)):
+        phase(f"kernel 8 whole chain (fused_loss_chain) and remat vs plain: {name} + DoF, "
+              f"{size}, fields {fields}")
+        rep = kernel_check.check_fused_loss_chain(*scenes[name], cfg_chk, target_c, fields,
+                                                  seed=4, frame_idx=2)
+        print(json.dumps(rep), flush=True)
+        print(f"lanes with a zeroed non-finite contribution (kernel 8 whole chain): "
+              f"{rep['nonfinite_lanes']}")
+        report["fused_loss_chain"]["max_abs_err"] = max(
+            report["fused_loss_chain"]["max_abs_err"], rep["max_abs_err"])
+
+    phase(f"plain versions and kernels 9, 10, 8 whole chain: all families, {size}, "
+          f"{len(ADJOINT_FIELDS)} fields")
+    fam_scene, fam_cam = scenes["all_families"]
+    params_c = {f: getattr(fam_scene.materials, f) for f in ADJOINT_FIELDS}
+    tracer_c = cuda_grad.make_grad_path_tracer(fam_scene, fam_cam, cfg_chk,
+                                               fields=ADJOINT_FIELDS)
+    pv_c = cuda_grad.pack_params(params_c, tracer_c.fields)
+    cot_c = torch.from_numpy(np.random.default_rng(3).normal(size=(3, n_c)).astype(
+        np.float32)).to(dev)
+    chain_c = cuda_grad.make_fused_loss_grad_fn(fam_scene, fam_cam, cfg_chk,
+                                                fields=ADJOINT_FIELDS)
+    small = {
+        "grad_forward": (lambda: tracer_c.kernel_forward(pv_c, 3, 1, 0, n_c),
+                         lambda: tracer_c.plain(pv_c, 3, 1, 0, n_c)),
+        "grad_backward": (lambda: tracer_c.kernel_backward(pv_c, cot_c, 3, 1, 0, n_c),
+                          lambda: tracer_c.plain_grad(pv_c, cot_c, 3, 1, 0, n_c)),
+        "fused_loss_chain": (lambda: chain_c(params_c, target_c, 4, 2, 0, H),
+                             lambda: chain_c.plain(params_c, target_c, 4, 2, 0, H)),
+    }
+    for key, (kern, plain) in small.items():
+        timings[key] = dict(check_ms=cuda_time_ms(kern, iters=3),
+                            plain_ms=cuda_time_ms(plain, iters=1),
+                            plain_shape=f"all_families {size}, P={tracer_c.n_params}")
+        print(f"{key} at {size}: kernel {timings[key]['check_ms']:.3f} ms, plain "
+              f"{timings[key]['plain_ms']:.1f} ms", flush=True)
+
+    # 19. training path at full width on the path-body adjoint
+    Ht, Wt = cfg_t.height, cfg_t.width
+    n_t = Ht * Wt * cfg_t.spp
+    phase(f"training path: make_fused_recovery_step, flagship {Wt}x{Ht}x{cfg_t.spp}, depth "
+          f"{cfg_t.max_depth}: whole chain (pool 1) and kernels 9-10 (pool 8)")
+    offset = torch.tensor([1.0, -0.5, -2.0] + [0.0] * 6, device=dev)
+    params0 = dict(start, param=train_scene.materials.param * 0.6,
+                   camera=cuda_path.camera_pvec(train_cam).to(dev) + offset)
+    adam = lambda ps: torch.optim.Adam(ps, lr=0.02)  # noqa: E731
+    routes = {"chain": (CHAIN_FIELDS, 1, {"fused_loss_chain": 1}),
+              "pair": (PAIR_FIELDS, 8, {"grad_forward": 2, "grad_backward": 2})}
+    step_times = {}
+    steps = 4
+    for label, (fields, pool, per_step) in routes.items():
+        step = train.make_fused_recovery_step(None, train_scene, train_cam, cfg_t,
+                                              fields=fields, pool=pool, optimizer=adam)
+        params = {f: params0[f] for f in fields}
+        state = step.init(params)
+        reset_counts()
+        times, losses = [], []
+        for it in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, train_scene, train_cam, target_t, 9,
+                                       it)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            print(f"{label} pool={pool} step {it}: loss {losses[-1]:.6g} ({times[-1]:.1f} ms)",
+                  flush=True)
+            assert np.isfinite(losses[-1]) and all(
+                bool(torch.isfinite(v).all()) for v in params.values()), (label, it)
+        launches = {k: c.launches for k, c in counters.items()}
+        check_launches(launches, {k: v * steps for k, v in per_step.items()},
+                       f"{label} pool={pool}")
+        assert losses[-1] < losses[0], (label, losses)
+        path_launches.update({k: launches[k] for k in per_step})
+        step_times[label] = times
+
+        def two_steps():
+            for it in range(steps, steps + 2):
+                step(params, state, train_scene, train_cam, target_t, 9, it)
+
+        profile_window(two_steps, f"recovery_{label}", counters)
+
+    # 20. the camera example
+    args = recover_camera.parse_args(camera_argv)
+    phase(f"camera example: recover_camera {' '.join(camera_argv)}")
+    reset_counts()
+    res = recover_camera.run(camera_argv)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"camera example: {json.dumps(res)}", flush=True)
+    # One whole-chain launch per gradient frame of every iteration and of
+    # the two evaluations; kernel 2 renders the targets and the images.
+    check_launches(launches, {"fused_loss_chain": (args.iters + 2) * args.grad_frames,
+                              "camera_path": launches["camera_path"]}, "camera example")
+    assert res["loss_end"] < res["loss_start"], res
+
+    # 21. the kernels against their plain versions at the main path's shape
+    # (kernel 9 over the whole frame; kernels 10 and 8's whole chain, whose
+    # plain versions run under autograd, on a band of rows mid-frame), from
+    # the training start; then their timings
+    y0, rows = Ht // 2, BAND_ROWS
+    phase(f"kernels 9, 10 and 8 whole chain vs plain at the main path's shape: flagship "
+          f"{Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}; kernel 9 on all {n_t} lanes, "
+          f"10 and 8 on rows {y0}..{y0 + rows - 1}")
+    pair = cuda_grad.make_grad_path_tracer(train_scene, train_cam, cfg_t, fields=PAIR_FIELDS)
+    pv_t = cuda_grad.pack_params({f: params0[f] for f in PAIR_FIELDS}, pair.fields)
+    rep = kernel_check.check_grad_forward(pair, pv_t, 9, 0, 0, n_t)
+    print(f"grad_forward, whole frame: {json.dumps(rep)}", flush=True)
+    report["grad_forward"]["max_abs_err"] = max(report["grad_forward"]["max_abs_err"],
+                                                rep["max_abs_err"])
+    rep = kernel_check.check_grad_path_tracer(
+        train_scene, train_cam, cfg_t, PAIR_FIELDS, seed=9, sample0=cfg_t.spp,
+        params={f: params0[f] for f in PAIR_FIELDS}, y0=y0, rows=rows)
+    print(f"grad_forward and grad_backward, band: {json.dumps(rep)}", flush=True)
+    for key, err in (("grad_forward", rep["max_abs_err"]),
+                     ("grad_backward", rep["grad_max_abs_err"])):
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+    rep = kernel_check.check_fused_loss_chain(
+        train_scene, train_cam, cfg_t, target_t[y0:y0 + rows], CHAIN_FIELDS, seed=9,
+        frame_idx=1, params={f: params0[f] for f in CHAIN_FIELDS}, y0=y0, rows=rows)
+    print(f"fused_loss_chain and remat, band: {json.dumps(rep)}", flush=True)
+    report["fused_loss_chain"]["max_abs_err"] = max(report["fused_loss_chain"]["max_abs_err"],
+                                                    rep["max_abs_err"])
+
+    phase(f"timing: kernels 9, 10 and 8 whole chain, flagship {Wt}x{Ht}x{cfg_t.spp}, "
+          f"depth {cfg_t.max_depth}")
+    _, segcnt = pair.kernel_forward(pv_t, 9, 0, 0, n_t)
+    seg9 = int(segcnt.sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cot_t = torch.randn((3, n_t), generator=gen, device=dev)
+    g10 = pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)
+    assert bool(torch.isfinite(g10).all())
+    print(f"kernel 10 at full width: lanes with a zeroed non-finite contribution "
+          f"{int(pair.nonfinite)} of {n_t}")
+    ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
+    ms10 = cuda_time_ms(lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t), iters=2)
+    chain_t = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t,
+                                                fields=CHAIN_FIELDS)
+    params_t = {f: params0[f] for f in CHAIN_FIELDS}
+    loss8, g8, seg8 = chain_t(params_t, target_t, 7, 1, 0, Ht)
+    seg8 = int(seg8)
+    assert bool(torch.isfinite(loss8)) and all(bool(torch.isfinite(g).all())
+                                               for g in g8.values())
+    print(f"kernel 8 whole chain at full width: lanes with a zeroed non-finite contribution "
+          f"{int(chain_t.nonfinite)} of {n_t}")
+    ms8 = cuda_time_ms(lambda: chain_t(params_t, target_t, 7, 1, 0, Ht), iters=2)
+    mats_t = cuda_path.HostMaterials(train_scene.materials)
+    P_pair = cuda_grad.param_count(mats_t, PAIR_FIELDS)
+    P_chain = cuda_grad.param_count(mats_t, CHAIN_FIELDS)
+    # Kernel 9 is kernel 2's work; an adjoint costs at least ~4x the forward
+    # operations of its traces (the cheap-gradient bound of reverse mode).
+    full = {
+        "grad_forward": (ms9, bound_ms(seg9 * seg_ops, n_t * 16 + P_pair * 4), seg9, P_pair),
+        "grad_backward": (ms10, bound_ms(4 * seg9 * seg_ops, n_t * 12 + P_pair * 8), seg9,
+                          P_pair),
+        "fused_loss_chain": (ms8, bound_ms(4 * seg8 * seg_ops,
+                                           target_t.numel() * 4 + P_chain * 8), seg8, P_chain),
+    }
+    for key, (ms, (b, by), segs, P) in full.items():
+        passes = 1 if key == "grad_forward" else -(-P // K)
+        timings[key].update(ms=ms, bound_ms=b, bound_by=by, max_abs_err=0.0, tangent_k=K,
+                            passes=passes, params=P)
+        print(f"{key}: {ms:.3f} ms/launch, {segs} segments, P={P}, {passes} pass(es) of "
+              f"K={K}; {segs / (ms * 1e-3):.4g} segments/s; bound {b:.4f} ms ({by}); "
+              f"plain {timings[key]['plain_ms']:.1f} ms at the check size", flush=True)
+    for label, segs_step, kernel_ms in (("chain", seg8, ms8), ("pair", 2 * seg9,
+                                                               2 * (ms9 + ms10))):
+        steady = step_times[label][1:]
+        ms_step = sum(steady) / len(steady)
+        print(f"recovery step {label} (pool={routes[label][1]}): {ms_step:.2f} ms/step (mean "
+              f"of steps 1.., host clock), fwd+bwd {segs_step / (ms_step * 1e-3):.4g} "
+              f"segments/s (~{segs_step} segments per step, both buffers); kernel share "
+              f"of step time {kernel_ms / ms_step:.1%} (the step's kernels {kernel_ms:.2f} ms "
+              f"by CUDA events over the step's host time)",
+              flush=True)
+    return report, timings, path_launches
 
 
 def main():
@@ -199,7 +477,10 @@ def main():
                 "affine_planes": cuda_grad.AFFINE_PLANES,
                 "fused_loss": cuda_grad.FUSED_LOSS,
                 "treelet_cull": cuda_bvh.TREELET_CULL,
-                "treelet_sweep": cuda_bvh.TREELET_SWEEP}
+                "treelet_sweep": cuda_bvh.TREELET_SWEEP,
+                "grad_forward": cuda_grad.GRAD_FORWARD,
+                "grad_backward": cuda_grad.GRAD_BACKWARD,
+                "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN}
 
     def reset_counts():
         for c in counters.values():
@@ -487,33 +768,33 @@ def main():
                  ).clamp(0.0, 1.0),
              "emissive": true["emissive"] * 0.7}
     adam = lambda ps: torch.optim.Adam(ps, lr=0.02)  # noqa: E731
-    step_times = {}
-    for pool, steps, key, per_step in ((1, 5, "fused_loss", 1), (8, 3, "affine_planes", 2)):
-        step = train.make_fused_recovery_step(None, train_scene, train_cam, cfg_t,
-                                              pool=pool, optimizer=adam)
-        params = dict(start)
-        state = step.init(params)
-        reset_counts()
-        times = []
-        for it in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, state, loss = step(params, state, train_scene, train_cam, target_t,
-                                       9, it)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            finite = bool(torch.isfinite(loss)) and all(
-                bool(torch.isfinite(v).all()) for v in params.values())
-            print(f"pool={pool} step {it}: loss {float(loss):.6g} ({times[-1]:.1f} ms)",
-                  flush=True)
-            assert finite, (pool, it)
-        launches = {k: c.launches for k, c in counters.items()}
-        print(f"pool={pool} launches {launches}")
-        assert launches[key] == per_step * steps, launches
-        path_launches[key] = launches[key]
-        step_times[pool] = times
-        profile_window(lambda: step(params, state, train_scene, train_cam, target_t, 9,
-                                    steps), f"recovery_pool{pool}")
+    # Radiometric fields at pool 1 take kernel 8's affine construction; at
+    # pool 8 an untextured scene takes kernels 9-10 (phase 19).
+    steps = 5
+    step = train.make_fused_recovery_step(None, train_scene, train_cam, cfg_t, pool=1,
+                                          optimizer=adam)
+    params = dict(start)
+    state = step.init(params)
+    reset_counts()
+    step_times, losses = [], []
+    for it in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, train_scene, train_cam, target_t, 9, it)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        finite = np.isfinite(losses[-1]) and all(
+            bool(torch.isfinite(v).all()) for v in params.values())
+        print(f"pool=1 step {it}: loss {losses[-1]:.6g} ({step_times[-1]:.1f} ms)",
+              flush=True)
+        assert finite, it
+    launches = {k: c.launches for k, c in counters.items()}
+    check_launches(launches, {"fused_loss": steps}, "pool=1")
+    assert losses[-1] < losses[0], losses
+    path_launches["fused_loss"] = launches["fused_loss"]
+    profile_window(lambda: step(params, state, train_scene, train_cam, target_t, 9, steps),
+                   "recovery_pool1", counters)
     phase("texture example: recover_texture at 512x512, 3 iterations")
     reset_counts()
     from fspt_tpu_torch.examples import recover_texture
@@ -521,8 +802,11 @@ def main():
     assert recover_texture.main(["--iters", "3", "--width", "512", "--height", "512",
                                  "--out", str(OUT / "recover_tex")]) == 0
     torch.cuda.synchronize()
-    print(f"texture example launches {dict((k, c.launches) for k, c in counters.items())}")
-    assert cuda_grad.AFFINE_PLANES.launches == 6 + 2 * 3 + 12
+    # Kernel 7 (the textured scene's construction 3): 6 target frames, two
+    # renders per step, 12 frames of the two final images.
+    launches = {k: c.launches for k, c in counters.items()}
+    check_launches(launches, {"affine_planes": 6 + 2 * 3 + 12}, "texture example")
+    path_launches["affine_planes"] = launches["affine_planes"]
 
     # 13. timings of kernels 4, 7 and 8 at their main-path shapes
     phase("timing: kernel 4 on the textured cornell.scene 1024x1024x4, depth 8")
@@ -598,13 +882,11 @@ def main():
     print(f"fused_loss: {ms8:.3f} ms/call, {seg8} segments (both buffers), fwd+bwd "
           f"{seg8 / (ms8 * 1e-3):.4g} segments/s; plain {plain8:.1f} ms; bound {b8:.4f} ms "
           f"({by8})", flush=True)
-    for pool, times in step_times.items():
-        steady = times[1:]
-        ms_step = sum(steady) / len(steady)
-        segs_step = seg8 if pool == 1 else 2 * seg7
-        print(f"recovery step pool={pool}: {ms_step:.2f} ms/step (mean of steps 1.., host "
-              f"clock), fwd+bwd {segs_step / (ms_step * 1e-3):.4g} segments/s "
-              f"(~{segs_step} segments per step, both buffers)", flush=True)
+    steady = step_times[1:]
+    ms_step = sum(steady) / len(steady)
+    print(f"recovery step pool=1 (affine): {ms_step:.2f} ms/step (mean of steps 1.., host "
+          f"clock), fwd+bwd {seg8 / (ms_step * 1e-3):.4g} segments/s (~{seg8} segments per "
+          f"step, both buffers)", flush=True)
 
     # 14. kernels 5 and 6 against their plain versions on the mesh scene
     from fspt_tpu_torch.render.queue import DEFAULT_QUEUE, render_queued
@@ -800,20 +1082,31 @@ def main():
     print(f"queue iterations per frame: {n_calls}")
     timings.update(mesh_t["bounces"])  # a mid-frame iteration: the kernels line
 
-    # 18. the kernels line, the card line, the result
+    # 18-21. the path-body adjoint: kernels 9, 10 and 8's whole chain
+    rep_adj, t_adj, launches_adj = adjoint_phases(
+        dev, counters, reset_counts, RenderConfig(width=128, height=128, spp=2, max_depth=4),
+        cfg_t, train_scene, train_cam, target_t, start, hs_t.segment_ops(),
+        ["--iters", "40", "--out", str(OUT / "recover_cam")])
+    report.update(rep_adj)
+    timings.update(t_adj)
+    path_launches.update(launches_adj)
+
+    # 22. the kernels line, the card line, the result
     phase("kernels")
     kernels = []
     for key, c in counters.items():
         t = timings[key]
         fn, source = KERNELS[key]
         reg = regs[fn]
+        extra = {k: t[k] for k in ("check_ms", "plain_shape", "tangent_k", "passes", "params")
+                 if k in t}
         kernels.append(dict(
             name=key, route="cuda", source=f"{source} ({fn})",
             replaces=c.replaces, launches=path_launches[key],
             max_abs_err=max(report[key]["max_abs_err"], t["max_abs_err"]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None, ported=True, registers=reg.get("registers"),
-            spill_bytes=reg.get("spill"), stack_bytes=reg.get("stack")))
+            spill_bytes=reg.get("spill"), stack_bytes=reg.get("stack"), **extra))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

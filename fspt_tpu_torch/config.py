@@ -39,8 +39,8 @@ class RenderConfig:
     light_clamp: float = 10.0
     # Number of uniforms drawn per bounce from the per-sample RNG stream.
     bounce_slots: int = 4
-    # Edge-reparameterization bandwidth (silhouette gradients).  The port's
-    # forward slice supports only 0 (off); the gradient slice brings it.
+    # Edge-reparameterization bandwidth (silhouette gradients).  The port
+    # supports only 0 (off) until its vertex-recovery slice.
     edge_eps: float = 0.0
 
     @property

@@ -27,13 +27,14 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-HEADERS = (CSRC / "fspt_kernels.cuh",)
+HEADERS = (CSRC / "fspt_kernels.cuh", CSRC / "fspt_tangent.cuh")
 #: library name → its one source file; all share :data:`HEADERS`.
 LIBRARIES = {
     "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3
     "fspt_deferred": CSRC / "fspt_deferred.cu",  # kernels 4 and 7
     "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
     "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5 and 6
+    "fspt_adjoint": CSRC / "fspt_adjoint.cu",    # kernels 9, 10, 8 whole chain
 }
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,6 +101,16 @@ class CamParams(ctypes.Structure):
     ]
 
 
+class TracedCamParams(ctypes.Structure):
+    """Constants of the traced raygen (mirrors ``TracedCamParams`` in
+    csrc/fspt_kernels.cuh, passed by value)."""
+
+    _fields_ = [
+        ("aspect", ctypes.c_float),    # width / height
+        ("half_deg", ctypes.c_float),  # 0.5·π/180
+    ]
+
+
 # library → launcher symbol → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "fspt_kernels": {
@@ -139,6 +150,22 @@ _SIGNATURES = {
         # counts, order, tlo, n_leaves, group, F, weights, n_blocks, t, best,
         # visits, stream
         "fspt_treelet_sweep": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+    },
+    "fspt_adjoint": {
+        # prims, meta, mats, mat_meta, PathParams, CamParams, pvec, cells,
+        # n_cells, h0, sample0, lane0, n, radiance, segcnt, stream
+        "fspt_grad_forward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
+                              _I, _I, _P, _P, _P],
+        # ... as fspt_grad_forward up to n, then cot, partial, int_partial,
+        # out, int_out, stream
+        "fspt_grad_backward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
+                               _I, _I, _P, _P, _P, _P, _P, _P],
+        # prims, meta, mats, mat_meta, PathParams, CamParams, TracedCamParams,
+        # pvec, cells, n_cells, use_camera, h0, sample0_a, sample0_b, lane0,
+        # n, target, partial, int_partial, out, int_out, stream
+        "fspt_fused_loss_chain": [_P, _P, _P, _P, PathParams, CamParams, TracedCamParams,
+                                  _P, _P, _I, _I, _U, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                  _P],
     },
 }
 

@@ -1,37 +1,49 @@
-"""Gradient kernels: 7 (affine slot planes) and 8 (fused dual-buffer loss,
-affine construction).
+"""Gradient kernels: 7 (affine slot planes), 8 (fused dual-buffer loss),
+9 and 10 (the path tracer with run-time parameters and its adjoint).
 
-Counterpart of fspt_tpu/ops/pallas_grad.py.  Both kernels rest on one fact:
-the radiometric table values (diffuse, emissive, glow, texels) scale
-radiance but never bend a ray, so the path traced for any value of them is
-the same, and the radiance is an affine fold over per-depth slots that the
-trace emits (ops/cuda_path.py ``build_path_core(defer_all=True)``).  The
-gradient then needs no adjoint of the path body.
+Counterpart of fspt_tpu/ops/pallas_grad.py.
 
 * ``affine_planes_kernel`` (csrc/fspt_deferred.cu) replaces
   ``pallas_grad.py:make_affine_grad_image_fn`` (kernel ``:360``): it writes
-  the slot planes; :func:`ops.cuda_path.fold_deferred_params` folds them in
-  torch, and torch autograd differentiates that fold.  The planes do not
-  depend on any parameter, so no ``torch.autograd.Function`` is needed.
+  the slot planes of the ``defer_all`` body; :func:`ops.cuda_path.
+  fold_deferred_params` folds them in torch, and torch autograd
+  differentiates that fold.  The radiometric values (diffuse, emissive,
+  glow, texels) scale radiance but never bend a ray, so the planes do not
+  depend on them and no adjoint of the path body is needed.
 * ``fused_loss_kernel`` (csrc/fspt_grad.cu) replaces
   ``pallas_grad.py:make_fused_loss_grad_fn`` (kernel ``:589``) in its
   affine construction: two traces, the fold, the lane loss and the
   hand-written adjoint of fold and clamp in one launch, with a fixed-order
   reduction across blocks.
+* ``fused_loss_chain_kernel`` (csrc/fspt_adjoint.cu) is kernel 8's whole
+  chain (``:700-753``), for scalar fields (param, ior, reflectivity, frost)
+  and the camera: two traces, the lane loss and the adjoint of both whole
+  paths in one launch.
+* ``grad_forward_kernel`` and ``grad_backward_kernel`` (csrc/fspt_adjoint.cu)
+  replace ``pallas_grad.py:make_grad_path_tracer`` (kernels ``:216`` and
+  ``:227``): radiance with the optimized table cells read at run time, and
+  its vector-Jacobian product for a radiance cotangent, glued by a
+  ``torch.autograd.Function``.
 
-The whole-chain and remat constructions of kernel 8, the in-kernel-adjoint
-pair (kernels 9-10), scalar fields and camera gradients need the adjoint of
-the path body itself; they raise ``NotImplementedError`` naming that slice.
+The adjoint of the path body is forward mode on the card (the body on
+``Tangent<K>``, csrc/fspt_tangent.cuh); each kernel's plain version is torch
+autograd of the plain body with ``tmats`` (:func:`ops.cuda_path.
+build_path_core`), which the tests hold against the reference's
+``jax.grad``.  Parameters are mapped onto table cells by name, so ``fields``
+may come in any order.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from fspt_tpu_torch.ops import _build, rng
 from fspt_tpu_torch.ops.cuda_path import (
+    CAMERA_PARAM_COUNT,
     HostCamera,
     _cam_params,
     _device_of,
@@ -40,26 +52,34 @@ from fspt_tpu_torch.ops.cuda_path import (
     bias_table,
     build_fused_raygen,
     build_path_core,
+    build_traced_raygen,
     fold_deferred_params,
     n_slots,
 )
+from fspt_tpu_torch.render.integrator import TraceOutput
+from fspt_tpu_torch.utils import vecmath as vm
 
 VEC3_FIELDS = ("diffuse", "emissive", "glow")
 SCALAR_FIELDS = ("param", "ior", "reflectivity", "frost")
-#: Pseudo-field: the 9 camera scalars, always packed last.
+#: Pseudo-field: the 9 camera scalars (cuda_path.camera_pvec), packed last.
 CAMERA_FIELD = "camera"
-CAMERA_PARAM_COUNT = 9
 #: Fields whose values scale radiance without ever bending a ray.
 RADIOMETRIC_FIELDS = frozenset({"diffuse", "emissive", "glow"})
-
-PATH_ADJOINT_SLICE = (
-    "comes with the path-body-adjoint slice of the port (kernels 9-10 and "
-    "kernel 8's whole-chain and remat constructions)")
+#: The first column of each field in a material table row (csrc kMatStride).
+FIELD_COLUMN = {"diffuse": 0, "emissive": 3, "glow": 6, "param": 9, "ior": 10,
+                "reflectivity": 11, "frost": 12}
 
 #: Limits of kernel 8's per-thread arrays (csrc/fspt_grad.cu).
 GRAD_BLOCK = 128
 MAX_SLOTS = 16
 MAX_GRAD_MATS = 64
+#: Block of the adjoint kernels and the rows of their shared table
+#: (csrc/fspt_adjoint.cu).
+ADJOINT_BLOCK = 128
+MAX_ADJOINT_MATS = 64
+#: K, the derivatives a Tangent carries per pass of kernels 10 and 8's whole
+#: chain (csrc/fspt_adjoint.cu kTangentK).
+TANGENT_K = 4
 
 AFFINE_PLANES = _build.KernelCounter(
     "affine_planes", "fspt_deferred", "fspt_affine_planes",
@@ -67,6 +87,16 @@ AFFINE_PLANES = _build.KernelCounter(
 FUSED_LOSS = _build.KernelCounter(
     "fused_loss", "fspt_grad", "fspt_fused_loss",
     "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn (body :589)")
+GRAD_FORWARD = _build.KernelCounter(
+    "grad_forward", "fspt_adjoint", "fspt_grad_forward",
+    "fspt_tpu/ops/pallas_grad.py:216 make_grad_path_tracer fwd (body :188)")
+GRAD_BACKWARD = _build.KernelCounter(
+    "grad_backward", "fspt_adjoint", "fspt_grad_backward",
+    "fspt_tpu/ops/pallas_grad.py:227 make_grad_path_tracer bwd (body :193)")
+FUSED_LOSS_CHAIN = _build.KernelCounter(
+    "fused_loss_chain", "fspt_adjoint", "fspt_fused_loss_chain",
+    "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn, whole chain "
+    "(body :589, :700-753)")
 
 
 def _field_size(mats, f) -> int:
@@ -92,15 +122,223 @@ def pack_params(params: dict, fields):
 
 
 def unpack_params(pvec, mats, fields) -> dict:
-    """Inverse of :func:`pack_params` (works on gradients too)."""
+    """Inverse of :func:`pack_params` (works on gradients too).  Trailing
+    dimensions of ``pvec`` (per-lane copies ``[P, n]``) are kept."""
     out = {}
     off = 0
     for f in _ordered(fields):
         n = _field_size(mats, f)
         col = pvec[off:off + n]
-        out[f] = col.reshape(mats.count, 3) if f in VEC3_FIELDS else col
+        out[f] = col.reshape(mats.count, 3, *col.shape[1:]) if f in VEC3_FIELDS else col
         off += n
     return out
+
+
+def _material_fields(fields):
+    return tuple(f for f in _ordered(fields) if f != CAMERA_FIELD)
+
+
+def cell_map(mats, fields) -> np.ndarray:
+    """The table cell (row·16 + column) of each packed material parameter,
+    in :func:`pack_params` order: the kernels write the parameter vector
+    into these cells by name."""
+    cells = []
+    for f in _material_fields(fields):
+        width = 3 if f in VEC3_FIELDS else 1
+        cells += [row * 16 + FIELD_COLUMN[f] + c for row in range(mats.count)
+                  for c in range(width)]
+    return np.asarray(cells, np.int32)
+
+
+def _param_table(table, mats, fields, pvec):
+    """``table`` with the material fields of ``pvec`` in place: the ``tmats``
+    of :func:`ops.cuda_path.build_path_core`."""
+    cols = unpack_params(pvec, mats, fields)
+    return table._replace(**{f: cols[f] for f in _material_fields(fields)})
+
+
+def _lane_leaves(pvec, n):
+    """``pvec`` as per-lane leaves ``[P, n]``: autograd then returns every
+    lane's gradient, whose sum over lanes the plain versions take in
+    float64."""
+    return pvec.detach().to(torch.float32)[:, None].expand(-1, n).clone().requires_grad_()
+
+
+def _lane_grad(value, leaves):
+    """``d value / d leaves`` in float64; zeros where ``value`` does not
+    depend on them (no lane reached a parameter's table cell)."""
+    if not value.requires_grad:
+        return torch.zeros(leaves.shape, dtype=torch.float64, device=leaves.device)
+    (g,) = torch.autograd.grad(value, [leaves])
+    return g.double()
+
+
+def _traced_params(cfg) -> _build.TracedCamParams:
+    return _build.TracedCamParams(aspect=cfg.width / cfg.height,
+                                  half_deg=0.5 * (float(vm.PI) / 180.0))
+
+
+def _adjoint_envelope(scene_pack):
+    """(HostScene, HostMaterials) of a scene the adjoint kernels take: an
+    untextured one the megakernels take (pallas_grad.py:157-164), or None."""
+    found = _specializable(scene_pack)
+    if found is None or found[1].any_textured:
+        return None
+    return found
+
+
+class _GradTrace(torch.autograd.Function):
+    """Kernel 9 forward, kernel 10 backward (the reference's custom VJP,
+    pallas_grad.py:239-255)."""
+
+    @staticmethod
+    def forward(ctx, pvec, forward_fn, backward_fn):
+        radiance, segcnt = forward_fn(pvec)
+        ctx.backward_fn = backward_fn
+        ctx.save_for_backward(pvec)
+        ctx.mark_non_differentiable(segcnt)
+        return radiance, segcnt
+
+    @staticmethod
+    def backward(ctx, g_radiance, _g_segcnt):
+        (pvec,) = ctx.saved_tensors
+        return ctx.backward_fn(pvec, g_radiance), None, None
+
+
+def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive")):
+    """The path tracer with run-time material parameters, differentiable
+    with respect to them: kernels 9 and 10.
+
+    Returns ``trace(pvec, seed, sample0, lane0=0, n_lanes=None) →
+    TraceOutput`` (radiance ``[N,3]``; the AOVs are zeros, as the
+    reference's loss-only tracer) differentiable with respect to ``pvec =
+    pack_params(params, fields)``, or None for a BVH scene, a textured one
+    or one over 512 primitives.  A scene on the CPU runs autograd of the
+    plain body with ``tmats``; on the card the forward launches kernel 9 and
+    the backward kernel 10 with the radiance cotangent.  ``trace.fields``,
+    ``trace.n_params``, ``trace.mats``; ``trace.plain`` runs the plain
+    version on any device, ``trace.plain_grad(pvec, cot, seed, sample0,
+    lane0, n)`` its ``torch.autograd.grad`` with lane sums in float64, and
+    ``trace.kernel_forward(pvec, seed, sample0, lane0, n)`` and
+    ``trace.kernel_backward(pvec, cot, seed, sample0, lane0, n)`` launch the
+    kernels themselves (card only), and ``trace.nonfinite`` holds the lanes
+    whose non-finite contribution the last kernel-10 launch zeroed.
+    """
+    if CAMERA_FIELD in fields:
+        raise ValueError("camera gradients take make_fused_loss_grad_fn; the "
+                         "in-kernel-adjoint pair uses the fixed camera")
+    found = _adjoint_envelope(scene_pack)
+    if found is None:
+        return None
+    scene, mats = found
+    fields = _ordered(fields)
+    P = param_count(mats, fields)
+    sky_idx = int(scene_pack.sky_mat)
+    cam = HostCamera(camera, cfg.width, cfg.height)
+    dev = _device_of(scene_pack)
+    table = scene_pack.materials
+    raygen = build_fused_raygen(cam, cfg)
+    if dev.type == "cuda" and mats.count > MAX_ADJOINT_MATS:
+        raise ValueError(f"kernels 9-10 take at most {MAX_ADJOINT_MATS} material rows; "
+                         f"got {mats.count}")
+
+    def plain_planes(pvec, seed, sample0, lane0, n):
+        h0 = rng.seed_hash(seed)
+        core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, want_aovs=False,
+                               tmats=_param_table(table, mats, fields, pvec))
+        outs = core(h0, *raygen(h0, sample0, lane0, n, dev))
+        return torch.stack(outs[:3]), outs[8]
+
+    def plain_grad(pvec, cot, seed, sample0, lane0, n):
+        leaves = _lane_leaves(pvec, n)
+        radiance, _ = plain_planes(leaves, seed, sample0, lane0, n)
+        return _lane_grad((radiance * cot.detach()).sum(), leaves).sum(dim=1)
+
+    if dev.type == "cuda":
+        cells = torch.from_numpy(cell_map(mats, fields)).to(dev)
+        pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
+        cp = _cam_params(cam, cfg)
+
+    def tables(pvec):
+        """The launch's table pointers and its float32 parameter vector."""
+        pvec = pvec.detach().to(torch.float32).contiguous()
+        _build.check_cuda_tensor("pvec", pvec, torch.float32, (P,), dev)
+        prims, meta = scene.tables(dev)
+        mtab, mmeta = mats.tables(dev)
+        return (prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
+                pp, cp), pvec
+
+    def kernel_forward(pvec, seed, sample0, lane0, n):
+        """Kernel 9: radiance ``[3, n]`` and segments ``[n]``."""
+        head, pv = tables(pvec)
+        radiance = torch.empty((3, n), dtype=torch.float32, device=dev)
+        segcnt = torch.empty((n,), dtype=torch.int32, device=dev)
+        _build.launch(GRAD_FORWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
+                      rng.seed_hash(seed), int(sample0), int(lane0), n, radiance.data_ptr(),
+                      segcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        return radiance, segcnt
+
+    def kernel_backward(pvec, cot, seed, sample0, lane0, n):
+        """Kernel 10: ``Σ_lanes cotᵀ·∂radiance/∂pvec`` for ``cot [3, n]``."""
+        head, pv = tables(pvec)
+        cot = cot.to(torch.float32).contiguous()
+        _build.check_cuda_tensor("cotangent", cot, torch.float32, (3, n), dev)
+        blocks = -(-n // ADJOINT_BLOCK)
+        partial = torch.empty((blocks, P), dtype=torch.float32, device=dev)
+        int_partial = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
+        out = torch.empty((P,), dtype=torch.float64, device=dev)
+        int_out = torch.empty((2,), dtype=torch.int64, device=dev)
+        _build.launch(GRAD_BACKWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
+                      rng.seed_hash(seed), int(sample0), int(lane0), n, cot.data_ptr(),
+                      partial.data_ptr(), int_partial.data_ptr(), out.data_ptr(),
+                      int_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        trace.nonfinite = int_out[1]
+        return out.to(torch.float32)
+
+    def trace(pvec, seed, sample0, lane0=0, n_lanes=None):
+        n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
+        if dev.type == "cpu":
+            planes, segcnt = plain_planes(pvec, seed, sample0, lane0, n)
+        else:
+            planes, segcnt = _GradTrace.apply(
+                pvec.to(torch.float32),
+                lambda pv: kernel_forward(pv, seed, sample0, lane0, n),
+                lambda pv, cot: kernel_backward(pv, cot, seed, sample0, lane0, n))
+        zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+        return TraceOutput(radiance=planes.t(), aov_normal=torch.zeros((n, 3), device=dev),
+                           aov_depth=zeros, aov_mat=zeros.to(torch.int32),
+                           segments=segcnt.sum())
+
+    trace.fields = fields
+    trace.n_params = P
+    trace.mats = mats
+    trace.plain = plain_planes
+    trace.plain_grad = plain_grad
+    trace.kernel_forward = kernel_forward
+    trace.kernel_backward = kernel_backward
+    trace.nonfinite = None
+    return trace
+
+
+def make_grad_image_fn(scene_pack, camera, cfg, fields=("diffuse", "emissive")):
+    """Band images on kernels 9-10 (pallas_grad.py:291-316): ``img_fn(params,
+    seed, frame_idx, y0, rows) → ([rows,W,3] mean-over-spp image,
+    segments)``, differentiable with respect to the tensors in ``params``
+    (the selected table columns), or None where
+    :func:`make_grad_path_tracer` is."""
+    tracer = make_grad_path_tracer(scene_pack, camera, cfg, fields=fields)
+    if tracer is None:
+        return None
+
+    def img_fn(params, seed, frame_idx, y0, rows):
+        pvec = pack_params(params, tracer.fields)
+        n = rows * cfg.width * cfg.spp
+        out = tracer(pvec, seed, frame_idx * cfg.spp, y0 * cfg.width * cfg.spp, n)
+        img = out.radiance.reshape(rows, cfg.width, cfg.spp, 3).mean(dim=2)
+        return img, out.segments
+
+    img_fn.tracer = tracer
+    return img_fn
 
 
 class AffinePlanes(NamedTuple):
@@ -220,39 +458,84 @@ def table_grads(mats, g_coef, g_bias, fields) -> dict:
 
 def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissive"),
                             remat: bool = False, affine: bool | None = None):
-    """ONE kernel per call: dual-buffer loss AND parameter gradient
-    (kernel 8, affine construction).
+    """ONE kernel per call: dual-buffer loss AND parameter gradient (kernel
+    8).
 
     Buffer A takes the samples of ``frame_idx``, buffer B those of
     ``frame_idx + 10007``; the loss pairs them lane by lane,
     ``mean((A − t)(B − t))`` over lanes and channels, an unbiased estimate
-    of the squared error.  Its gradient comes from the adjoint of the fold
-    only: the trace never depends on radiometric values.
+    of the squared error.  ``fields`` are any of :data:`VEC3_FIELDS`,
+    :data:`SCALAR_FIELDS` and ``"camera"`` (the 9-vector of
+    :func:`ops.cuda_path.camera_pvec`, packed last).  Constructions, as the
+    reference chooses them (pallas_grad.py:583-587):
+
+    * affine (the default for radiometric fields; ``affine=True`` with any
+      other field raises ``ValueError``): two ``defer_all`` traces, the fold
+      and the hand-written adjoint of the fold only (csrc/fspt_grad.cu): the
+      trace never depends on radiometric values.
+    * whole chain (the default otherwise, or ``affine=False``): two traces
+      and the adjoint of both whole paths (csrc/fspt_adjoint.cu); with
+      ``"camera"`` the rays come from the traced raygen
+      (:func:`ops.cuda_path.build_traced_raygen`).
+    * remat (``remat=True`` where the whole chain applies): on the card the
+      same kernel as the whole chain.  The reference checkpointed the vjp at
+      bounce boundaries to bound its live set on the TPU (and that kernel
+      miscompiles there, pallas_grad.py:542-548); forward mode keeps no
+      live set, so there is nothing to checkpoint.  Its plain version
+      checkpoints each bounce of the stepper (``torch.utils.checkpoint``).
 
     Returns ``fn(params, target[rows,W,3], seed, frame_idx, y0, rows) →
-    (loss, grads, segments)`` normalized by ``1/(3n)`` as the reference,
-    or None for a textured scene (as the reference: texel recovery takes
-    kernel 7) or one the megakernels do not take.  Scalar fields,
-    ``"camera"``, ``affine=False`` and ``remat=True`` need the adjoint of the
-    path body and raise ``NotImplementedError``.
-
-    A scene on the CPU runs the plain version: the plain ``defer_all``
-    traces, :func:`ops.cuda_path.fold_deferred_params`, the lane loss and
-    ``torch.autograd.grad``.  ``fn.plain`` runs it on any device.
+    (loss, grads, segments)`` normalized by ``1/(3n)`` as the reference, or
+    None for a textured scene (as the reference: texel recovery takes kernel
+    7) or one the megakernels do not take.  A scene on the CPU runs the
+    plain version, ``fn.plain`` runs it on any device: the plain traces, the
+    lane loss and ``torch.autograd.grad`` (the whole chain's with per-lane
+    leaves summed in float64, returned in float64).  ``fn.nonfinite`` holds
+    the lanes whose non-finite contribution the last whole-chain launch
+    zeroed.
     """
     fields = _ordered(fields)
-    if remat or affine is False:
-        raise NotImplementedError(f"remat and whole-chain backwards {PATH_ADJOINT_SLICE}")
-    if not set(fields) <= RADIOMETRIC_FIELDS:
-        raise NotImplementedError(
-            f"gradients of {sorted(set(fields) - RADIOMETRIC_FIELDS)} {PATH_ADJOINT_SLICE}")
-    planes = make_affine_planes(scene_pack, camera, cfg)
-    if planes is None or planes.mats.any_textured:
+    radiometric_only = set(fields) <= RADIOMETRIC_FIELDS
+    if affine and not radiometric_only:
+        raise ValueError(f"the affine backward needs radiometric fields, got {fields}")
+    unknown = set(fields) - set(VEC3_FIELDS + SCALAR_FIELDS) - {CAMERA_FIELD}
+    if unknown:
+        raise ValueError(f"unknown fields {sorted(unknown)}")
+    found = _adjoint_envelope(scene_pack)
+    if found is None:
         return None
-    scene, mats = planes.scene, planes.mats
+    scene, mats = found
     sky_idx = int(scene_pack.sky_mat)
     cam = HostCamera(camera, cfg.width, cfg.height)
     dev = _device_of(scene_pack)
+    build = _affine_loss if (radiometric_only if affine is None else affine) else _chain_loss
+    plain, launch = build(scene_pack, camera, cfg, fields, remat, scene, mats, cam, sky_idx,
+                          dev)
+
+    def entry(run, cast):
+        def fn(params, target, seed, frame_idx, y0, rows):
+            n = rows * cfg.width * cfg.spp
+            loss, grads, segs = run(params, target, seed, frame_idx * cfg.spp,
+                                    (frame_idx + 10007) * cfg.spp,
+                                    y0 * cfg.width * cfg.spp, n)
+            norm = 1.0 / (3.0 * n)
+            if cast:
+                loss, grads = loss.float(), {f: g.float() for f, g in grads.items()}
+            return loss * norm, {f: g * norm for f, g in grads.items()}, segs
+
+        fn.fields = fields
+        return fn
+
+    fn = entry(plain, True) if dev.type == "cpu" else entry(launch, False)
+    fn.plain = entry(plain, False)
+    fn.nonfinite = None
+    launch.owner = fn
+    return fn
+
+
+def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_idx, dev):
+    """Kernel 8's affine construction: ``(plain, launch)``."""
+    planes = make_affine_planes(scene_pack, camera, cfg)
     table = scene_pack.materials
     if dev.type == "cuda" and (mats.count > MAX_GRAD_MATS or n_slots(cfg) > MAX_SLOTS):
         raise ValueError(f"kernel 8 takes at most {MAX_GRAD_MATS} material rows and "
@@ -307,18 +590,81 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
         g = out[1:].reshape(2, mats.count, 3)
         return out[0], table_grads(mats, g[0], g[1], fields), seg_out[0]
 
-    def entry(run):
-        def fn(params, target, seed, frame_idx, y0, rows):
-            n = rows * cfg.width * cfg.spp
-            loss, grads, segs = run(params, target, seed, frame_idx * cfg.spp,
-                                    (frame_idx + 10007) * cfg.spp,
-                                    y0 * cfg.width * cfg.spp, n)
-            norm = 1.0 / (3.0 * n)
-            return loss * norm, {f: g * norm for f, g in grads.items()}, segs
+    return plain, launch
 
-        fn.fields = fields
-        return fn
 
-    fn = entry(plain if dev.type == "cpu" else launch)
-    fn.plain = entry(plain)
-    return fn
+def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_idx, dev):
+    """Kernel 8's whole chain (and remat): ``(plain, launch)``."""
+    table = scene_pack.materials
+    if dev.type == "cuda" and mats.count > MAX_ADJOINT_MATS:
+        raise ValueError(f"kernel 8's whole chain takes at most {MAX_ADJOINT_MATS} "
+                         f"material rows; got {mats.count}")
+    use_camera = CAMERA_FIELD in fields
+    P = param_count(mats, fields)
+    P_mat = P - (CAMERA_PARAM_COUNT if use_camera else 0)
+    raygen = build_fused_raygen(cam, cfg)
+    traygen = build_traced_raygen(cam, cfg)
+
+    def rays(leaves, h0, sample0, lane0, n):
+        if use_camera:
+            return traygen(list(leaves[P_mat:]), h0, sample0, lane0, n, dev)
+        return raygen(h0, sample0, lane0, n, dev)
+
+    def radiance(leaves, h0, sample0, lane0, n):
+        tm = _param_table(table, mats, fields, leaves)
+        r = rays(leaves, h0, sample0, lane0, n)
+        if not remat:
+            core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, want_aovs=False,
+                                   tmats=tm)
+            outs = core(h0, *r)
+        else:
+            init, step, finalize = build_path_core(scene, mats, cfg, sky_idx, cam.z_far,
+                                                   want_aovs=False, tmats=tm,
+                                                   return_stepper=True)
+            st = init(h0, *r)
+            for depth in range(cfg.effective_depth):
+                st = checkpoint(lambda s, d=depth: step(d, s)[0], st, use_reentrant=False)
+            outs = finalize(st, [])
+        return torch.stack(outs[:3], dim=-1), outs[8].sum()
+
+    def plain(params, target, seed, sample_a, sample_b, lane0, n):
+        leaves = _lane_leaves(pack_params(params, fields).to(dev), n)
+        tgt = target.reshape(-1, 3).repeat_interleave(cfg.spp, dim=0).double()
+        h0 = rng.seed_hash(seed)
+        res, segs = [], 0
+        for sample0 in (sample_a, sample_b):
+            rad, seg = radiance(leaves, h0, sample0, lane0, n)
+            res.append(rad.double() - tgt)
+            segs = segs + seg
+        loss = (res[0] * res[1]).sum()
+        g = _lane_grad(loss, leaves).sum(dim=1)
+        return loss.detach(), unpack_params(g, mats, fields), segs
+
+    if dev.type == "cuda":
+        cells = torch.from_numpy(cell_map(mats, fields)).to(dev)
+        pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
+        cp = _cam_params(cam, cfg)
+        tp = _traced_params(cfg)
+
+    def launch(params, target, seed, sample_a, sample_b, lane0, n):
+        pvec = pack_params(params, fields).detach().to(dev).contiguous()
+        tgt = target.detach().to(torch.float32).reshape(-1, 3).contiguous()
+        _build.check_cuda_tensor("target", tgt, torch.float32, (n // cfg.spp, 3), dev)
+        blocks = -(-n // ADJOINT_BLOCK)
+        partial = torch.empty((blocks, 1 + P), dtype=torch.float32, device=dev)
+        int_partial = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
+        out = torch.empty((1 + P,), dtype=torch.float64, device=dev)
+        int_out = torch.empty((2,), dtype=torch.int64, device=dev)
+        prims, meta = scene.tables(dev)
+        mtab, mmeta = mats.tables(dev)
+        _build.launch(FUSED_LOSS_CHAIN, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
+                      mmeta.data_ptr(), pp, cp, tp, pvec.data_ptr(), cells.data_ptr(), P_mat,
+                      int(use_camera), rng.seed_hash(seed), int(sample_a), int(sample_b),
+                      int(lane0), n, tgt.data_ptr(), partial.data_ptr(),
+                      int_partial.data_ptr(), out.data_ptr(), int_out.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        launch.owner.nonfinite = int_out[1]
+        out = out.to(torch.float32)
+        return out[0], unpack_params(out[1:], mats, fields), int_out[0]
+
+    return plain, launch

@@ -166,6 +166,45 @@ def _atan2(y, x):
     return torch.where(y < 0.0, -r, r)
 
 
+class _GrazeDiv(torch.autograd.Function):
+    """``ns / ts`` whose derivatives floor ``|ts|`` at ``floor``.
+
+    The reference's ``_graze_div`` (pallas_trace.py:137-163): the plane-hit
+    parameter is exact, but at glancing incidence its derivatives (∝ 1/ts)
+    overflow float32; the backward clamps ``|ts|`` to ``floor`` (≈ 1e-3 of
+    the segment length), so such lanes get a bounded derivative instead of
+    NaN.  csrc/fspt_kernels.cuh ``graze_div`` is its forward-mode form."""
+
+    @staticmethod
+    def forward(ctx, ns, ts, floor):
+        ctx.save_for_backward(ns, ts, floor)
+        return ns / ts
+
+    @staticmethod
+    def backward(ctx, ct):
+        ns, ts, floor = ctx.saved_tensors
+        sgn = torch.where(ts < 0.0, -1.0, 1.0)
+        ts_safe = sgn * torch.maximum(torch.abs(ts), floor)
+        return ct / ts_safe, -ct * ns / (ts_safe * ts_safe), None
+
+
+class _GrazeSqrt(torch.autograd.Function):
+    """``sqrt(x)`` whose derivative floors the root at ``floor``: the
+    reference's ``_graze_sqrt`` (pallas_trace.py:166-183), the sphere-tangent
+    analog of :class:`_GrazeDiv`."""
+
+    @staticmethod
+    def forward(ctx, x, floor):
+        r = torch.sqrt(x)
+        ctx.save_for_backward(r, floor)
+        return r
+
+    @staticmethod
+    def backward(ctx, ct):
+        r, floor = ctx.saved_tensors
+        return ct / (2.0 * torch.maximum(r, floor)), None
+
+
 def intersect_lanes(scene: HostScene, sx, sy, sz, dx, dy, dz,
                     want_texcoords: bool = True):
     """Plain PyTorch version of kernel 1 over lane planes.
@@ -173,6 +212,11 @@ def intersect_lanes(scene: HostScene, sx, sy, sz, dx, dy, dz,
     Returns ``(t, nx, ny, nz, mat, kind, u, v)``; a miss has ``t = 2``,
     ``mat = 0`` and ``kind = -1``.  ``want_texcoords=False`` skips the
     texcoord math (the path body never reads it).
+
+    Differentiable with respect to the lane planes: every division and root
+    is in a safe-``where`` form, so a branch that is not selected cannot put
+    NaN into the gradient, and plane hits and sphere roots carry the
+    reference's derivative floors (:class:`_GrazeDiv`, :class:`_GrazeSqrt`).
     """
     eps = vm.EPSILON
     zero = torch.zeros_like(sx)
@@ -180,6 +224,10 @@ def intersect_lanes(scene: HostScene, sx, sy, sz, dx, dy, dz,
     nx, ny, nz, uu, vv = zero, zero, zero, zero, zero
     mat = torch.full(sx.shape, -1, dtype=torch.int32, device=sx.device)
     kind = torch.full(sx.shape, -1, dtype=torch.int32, device=sx.device)
+    diff = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (sx, sy, sz, dx, dy, dz))
+    if diff:
+        seg_floor = (1e-3 * torch.sqrt(dx * dx + dy * dy + dz * dz) + 1e-20).detach()
 
     for k, m, row in scene.rows:
         r = [float(x) for x in row]
@@ -192,11 +240,21 @@ def intersect_lanes(scene: HostScene, sx, sy, sz, dx, dy, dz,
             oc2 = ox * ox + oy * oy + oz * oz
             cc = oc2 - rad * rad
             disc = b * b - 4.0 * a * cc
-            sq = torch.sqrt(torch.where(disc >= 0.0, disc, 1.0))
+            root_of = torch.where(disc >= 0.0, disc, 1.0)
+            if diff:
+                sq = _GrazeSqrt.apply(root_of, (1e-3 * torch.abs(b) + 1e-12).detach())
+            else:
+                sq = torch.sqrt(root_of)
             inside = oc2 <= rad * rad
-            tc = torch.where(inside, -b + sq, -b - sq) / (2.0 * a)
+            # A zero-length segment (a refraction lost to total internal
+            # reflection) gives 0/0 = NaN, as in the kernel; the guard only
+            # keeps that NaN out of the gradient.
+            pos_a = a > 0.0
+            tc = torch.where(pos_a, torch.where(inside, -b + sq, -b - sq)
+                             / torch.where(pos_a, 2.0 * a, 1.0), float("nan"))
             valid = (disc >= 0.0) & (tc >= 0.0) & (tc <= 1.0)
-            px, py, pz = sx + dx * tc, sy + dy * tc, sz + dz * tc
+            tv = torch.where(valid, tc, 0.0)
+            px, py, pz = sx + dx * tv, sy + dy * tv, sz + dz * tv
             hn = ((px - c0) * inv_r, (py - c1) * inv_r, (pz - c2) * inv_r)
         elif k == KIND_TRIANGLE:
             v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, eps_area = r[:10]
@@ -222,7 +280,10 @@ def intersect_lanes(scene: HostScene, sx, sy, sz, dx, dy, dz,
             ts = p0 * dx + p1 * dy + p2 * dz
             ns = -(p0 * sx + p1 * sy + p2 * sz + pw)
             np_ = torch.abs(ts) >= eps
-            tc = ns / torch.where(np_, ts, 1.0)
+            if diff:
+                tc = _GrazeDiv.apply(ns, torch.where(np_, ts, 1.0), seg_floor)
+            else:
+                tc = ns / torch.where(np_, ts, 1.0)
             valid = np_ & (tc >= 0.0) & (tc <= 1.0)
             px, py, pz = sx + dx * tc, sy + dy * tc, sz + dz * tc
             if k == KIND_CUBOID:

@@ -27,6 +27,20 @@ equal, against the plain version run with float64 parameters: the kernel
 sums its blocks in another order, and at 1080p the float32 plain version's
 own sums are off by more than 1e-4 of the largest gradient.
 
+Adjoint kernels (9, 10, 8's whole chain).  Kernel 9 against its plain
+version (the body with ``tmats``): 100 % of radiance values at the path bar
+and equal segment counts, as kernel 2 (it is kernel 2's float body over the
+same table values; a last-bit ``sinf``/``cosf`` difference keeps some values
+from equality, never from the bar).  Kernel 10
+and kernel 8's gradients against ``torch.autograd.grad`` of the plain
+version, with each lane's gradient summed over lanes in float64: every
+entry within rtol 1e-3, or within 1e-5 of the largest |entry| (forward
+against reverse mode re-associates every sum of the chain rule, and an entry
+whose lanes cancel keeps only that noise); kernel 8's loss within rtol 1e-5
+and its segments equal, its camera entries within rtol 2e-3 (the
+reference's own bar, tests/test_pallas_grad.py:345); ``remat=True`` equal to
+``remat=False`` bit for bit (one kernel).
+
 Treelet kernels (5, 6): equal to their plain versions on 100 % of values —
 the survivor counts, leaf order and entry t after the key sort (kernel 5),
 the packed winner, its t and the leaf visits (kernel 6).  Both sides add
@@ -291,6 +305,122 @@ def check_fused_loss(scene_pack, camera, cfg, target, seed: int, frame_idx: int 
             float((g_32[f].double() - g_p[f]).abs().max())
             / max(float(g_p[f].abs().max()), 1e-30))
     rep["max_abs_err"] = max(float((g_k[f].double() - g_p[f]).abs().max()) for f in fields)
+    return rep
+
+
+def _count(x):
+    """A launch's device-side count as an int (None where no kernel ran)."""
+    return None if x is None else int(x)
+
+
+def _adjoint_close(g, g_ref, rtol=1e-3, floor=1e-5, atol=0.0):
+    """Every entry of ``g`` within ``rtol`` of ``g_ref`` or within ``floor``
+    of max |g_ref| (or ``atol``); returns the worst error over its allowance."""
+    g, g_ref = g.double().reshape(-1), g_ref.double().reshape(-1)
+    allow = torch.maximum(rtol * g_ref.abs(), torch.full_like(g_ref, max(
+        floor * float(g_ref.abs().max()), atol, 1e-30)))
+    ratio = float(((g - g_ref).abs() / allow).max())
+    assert ratio <= 1.0, (ratio, g.tolist(), g_ref.tolist())
+    return ratio
+
+
+def _band(cfg, y0, rows):
+    """The frame lanes of rows ``y0 .. y0+rows-1``: ``(lane0, n)``."""
+    rows = cfg.height - y0 if rows is None else rows
+    return y0 * cfg.width * cfg.spp, rows * cfg.width * cfg.spp
+
+
+def _forward_report(rad_k, seg_k, rad_p, seg_p) -> dict:
+    """Kernel 9's radiance ``[3, n]`` and per-lane segments against its plain
+    version's: 100 % of values within the path bar, equal segments."""
+    rep = dict(radiance_close=_frac_close(rad_k, rad_p, 1e-4, 1e-5),
+               radiance_equal=_frac_equal(rad_k, rad_p),
+               segments=int(seg_k.sum()), plain_segments=int(seg_p.sum()),
+               segments_equal=_frac_equal(seg_k, seg_p),
+               max_abs_err=_max_abs(rad_k, rad_p))
+    assert rep["radiance_close"] == 1.0, rep
+    assert rep["segments_equal"] == 1.0, rep
+    return rep
+
+
+def check_grad_forward(tracer, pvec, seed: int, sample0: int, lane0: int, n: int) -> dict:
+    """Kernel 9 alone against its plain version, with no autograd (so at any
+    size the plain body fits in memory)."""
+    rad_k, seg_k = tracer.kernel_forward(pvec, seed, sample0, lane0, n)
+    with torch.no_grad():
+        rad_p, seg_p = tracer.plain(pvec.detach(), seed, sample0, lane0, n)
+    torch.cuda.synchronize()
+    return dict(lanes=n, params=tracer.n_params, **_forward_report(rad_k, seg_k, rad_p, seg_p))
+
+
+def check_grad_path_tracer(scene_pack, camera, cfg, fields, seed: int, sample0: int = 0,
+                           params=None, y0: int = 0, rows=None) -> dict:
+    """Kernel 9 against its plain version (100 % of radiance values, equal
+    segments) and kernel 10 against ``torch.autograd.grad`` of the plain
+    version for a seeded radiance cotangent, through the autograd glue, on
+    the frame rows ``y0 .. y0+rows-1`` (all by default), from ``params``
+    (the table's columns by default)."""
+    tracer = cuda_grad.make_grad_path_tracer(scene_pack, camera, cfg, fields=fields)
+    lane0, n = _band(cfg, y0, rows)
+    if params is None:
+        params = {f: getattr(scene_pack.materials, f) for f in fields}
+    pvec = cuda_grad.pack_params(params, tracer.fields).detach().requires_grad_()
+    out = tracer(pvec, seed, sample0, lane0, n)
+    planes_p, seg_p = tracer.plain(pvec.detach(), seed, sample0, lane0, n)
+    cot = torch.from_numpy(np.random.default_rng(seed).normal(size=(3, n)).astype(
+        np.float32)).to(pvec.device)
+    (g_k,) = torch.autograd.grad((out.radiance.t() * cot).sum(), [pvec])
+    g_p = tracer.plain_grad(pvec, cot, seed, sample0, lane0, n)
+    torch.cuda.synchronize()
+    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params)
+    rep.update(_forward_report(out.radiance.t(), out.segments, planes_p, seg_p.sum()))
+    del rep["segments_equal"]  # the glue returns the sum only
+    rep.update(grad_max_abs_err=float((g_k.double() - g_p).abs().max()),
+               grad_max=float(g_p.abs().max()), nonfinite_lanes=_count(tracer.nonfinite))
+    assert rep["grad_max"] > 0, rep
+    rep["grad_err_over_bar"] = _adjoint_close(g_k, g_p)
+    return rep
+
+
+def check_fused_loss_chain(scene_pack, camera, cfg, target, fields, seed: int,
+                           frame_idx: int = 0, params=None, y0: int = 0, rows=None) -> dict:
+    """Kernel 8's whole chain against its plain version (autograd of the two
+    traces and the lane loss, lane sums in float64), and ``remat=True``
+    against ``remat=False`` (the same kernel: equal bit for bit), on the
+    frame rows ``y0 .. y0+rows-1`` (all by default; ``target`` holds those
+    rows only), from ``params`` (the table's columns and the camera by
+    default)."""
+    fn = cuda_grad.make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=fields,
+                                           affine=False)
+    if params is None:
+        params = {f: (cuda_path.camera_pvec(camera) if f == cuda_grad.CAMERA_FIELD
+                      else getattr(scene_pack.materials, f)) for f in fields}
+    rows = cfg.height - y0 if rows is None else rows
+    loss_k, g_k, seg_k = fn(params, target, seed, frame_idx, y0, rows)
+    nonfinite = fn.nonfinite
+    remat = cuda_grad.make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=fields,
+                                              affine=False, remat=True)
+    loss_r, g_r, seg_r = remat(params, target, seed, frame_idx, y0, rows)
+    loss_p, g_p, seg_p = fn.plain(params, target, seed, frame_idx, y0, rows)
+    torch.cuda.synchronize()
+    rep = dict(lanes=rows * cfg.width * cfg.spp, lane0=_band(cfg, y0, rows)[0],
+               params=cuda_grad.param_count(cuda_path.HostMaterials(scene_pack.materials),
+                                            fields),
+               loss=float(loss_k), plain_loss=float(loss_p), segments=int(seg_k),
+               plain_segments=int(seg_p), nonfinite_lanes=_count(nonfinite))
+    rep["loss_rel_err"] = abs(rep["loss"] - rep["plain_loss"]) / max(abs(rep["plain_loss"]),
+                                                                     1e-30)
+    assert rep["loss_rel_err"] <= 1e-5, rep
+    assert rep["segments"] == rep["plain_segments"], rep
+    rep["remat_equal"] = bool(float(loss_r) == float(loss_k) and int(seg_r) == int(seg_k)
+                              and all(torch.equal(g_r[f], g_k[f]) for f in g_k))
+    assert rep["remat_equal"], rep
+    for f in g_k:
+        camera_field = f == cuda_grad.CAMERA_FIELD
+        rep[f"grad_{f}_err_over_bar"] = _adjoint_close(
+            g_k[f], g_p[f], rtol=2e-3 if camera_field else 1e-3,
+            atol=1e-7 if camera_field else 0.0)
+    rep["max_abs_err"] = max(float((g_k[f].double() - g_p[f]).abs().max()) for f in g_k)
     return rep
 
 

@@ -6,9 +6,12 @@ reference's BASELINE configs 4-5).  The reference shards rays over a device
 mesh and ``pmean``-reduces the gradients; this slice takes ``mesh=None``
 only, and the sharded form comes with the port's parallel slice.
 
-The renderers differentiated here are the gradient kernels of
-ops/cuda_grad.py: kernel 8 (the fused dual-buffer loss) and kernel 7 (the
-affine slot planes, folded under torch autograd).
+The renderers differentiated here: the gradient kernels of
+ops/cuda_grad.py — kernel 8 (the fused dual-buffer loss, affine or whole
+chain), kernels 9-10 (the path tracer with run-time parameters and its
+adjoint) and kernel 7 (the affine slot planes, folded under torch autograd) —
+and, by default, torch autograd of the whole wavefront renderer
+(:func:`render_image_rows`).
 """
 
 from __future__ import annotations
@@ -18,12 +21,10 @@ from typing import NamedTuple
 import torch
 
 from fspt_tpu_torch.config import RenderConfig
+from fspt_tpu_torch.render import integrator
 
 DISTRIBUTED_SLICE = ("a device mesh comes with the parallel slice of the port "
                      "(torch.distributed); pass mesh=None")
-DIFF_PATH_SLICE = ("recovery by autograd of the whole renderer "
-                   "(render_image_rows) comes with the slice that ports "
-                   "ops/diff_path.py; pass render_fn or loss_and_grad_fn")
 
 # Physical box constraints per material-table column; projecting onto them
 # after each step breaks the albedo↔emission gauge freedom (radiance only
@@ -40,6 +41,15 @@ def _apply_params(scene, params):
     """Swap the optimizable columns into the scene's material table."""
     table = scene.materials._replace(**params)
     return scene._replace(materials=table)
+
+
+def render_image_rows(scene, camera, cfg: RenderConfig, seed, frame_idx, y0, rows,
+                      intersector=None):
+    """Differentiable mean-radiance image of a scanline band ``[rows,W,3]``
+    (the wavefront integrator under torch autograd)."""
+    out = integrator.render_wavefront(scene, camera, cfg, seed, frame_idx * cfg.spp,
+                                      y0=y0, rows=rows, intersector=intersector)
+    return out.radiance.reshape(rows, cfg.width, cfg.spp, 3).mean(dim=2)
 
 
 def _pool(x, p):
@@ -59,8 +69,8 @@ class RecoveryState(NamedTuple):
 
 def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissive"),
                        lr: float = 0.5, optimizer=None, constraints=None,
-                       pool: int = 8, render_fn=None, loss_fn=None,
-                       loss_and_grad_fn=None):
+                       apply_fn=_apply_params, pool: int = 8, render_fn=None,
+                       loss_fn=None, loss_and_grad_fn=None):
     """A gradient step on the named parameters (material-table columns or
     ``texels``), on one device.
 
@@ -75,10 +85,12 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
     ``step(params, state, scene, camera, target, seed, frame_idx) →
     (params, state, loss)``.
 
-    The loss: ``render_fn(params, scene, camera, seed, frame_idx, y0,
-    rows) → [rows,W,3]`` image renders two independently sampled buffers
-    (``frame_idx`` and ``frame_idx + 10007``); their residuals are pooled
-    over ``pool``×``pool`` patches and
+    The loss: two independently sampled buffers (``frame_idx`` and
+    ``frame_idx + 10007``) are rendered, by default with
+    :func:`render_image_rows` of ``apply_fn(scene, params)`` (torch
+    autograd of the whole renderer), or by ``render_fn(params, scene,
+    camera, seed, frame_idx, y0, rows) → [rows,W,3]``; their residuals are
+    pooled over ``pool``×``pool`` patches and
     multiplied (the dual-buffer product: unbiased where plain MSE against a
     Monte Carlo render is not).  ``loss_fn(img_a, img_b, target)`` replaces
     that objective; torch autograd gives the gradient.
@@ -86,16 +98,13 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
     grads, segments)`` replaces all of it (the fused loss kernel,
     ops/cuda_grad.make_fused_loss_grad_fn).
 
-    ``mesh`` must be None, and one of the hooks must be given: the
-    reference's sharded form and its default (autograd of the whole
-    renderer) come with later slices and raise ``NotImplementedError``, as
-    its ``pair_render_fn`` hook (whose one caller, the BVH vertex recovery,
-    is not ported) does not exist yet.
+    ``mesh`` must be None: the reference's sharded form comes with the
+    parallel slice and raises ``NotImplementedError``.  Its
+    ``pair_render_fn`` and ``intersector_bind`` hooks (whose callers are the
+    vertex recoveries) come with the vertex slice.
     """
     if mesh is not None:
         raise NotImplementedError(DISTRIBUTED_SLICE)
-    if render_fn is None and loss_and_grad_fn is None:
-        raise NotImplementedError(DIFF_PATH_SLICE)
     rows = cfg.height
     box = DEFAULT_CONSTRAINTS if constraints is None else constraints
 
@@ -105,8 +114,13 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
             return loss, grads
         leaves = {k: params[k].detach().clone().requires_grad_() for k in param_names}
         live = {**params, **leaves}
-        img_a = render_fn(live, scene, camera, seed, frame_idx, 0, rows)
-        img_b = render_fn(live, scene, camera, seed, frame_idx + 10007, 0, rows)
+        if render_fn is not None:
+            img_a = render_fn(live, scene, camera, seed, frame_idx, 0, rows)
+            img_b = render_fn(live, scene, camera, seed, frame_idx + 10007, 0, rows)
+        else:
+            scene = apply_fn(scene, live)
+            img_a = render_image_rows(scene, camera, cfg, seed, frame_idx, 0, rows)
+            img_b = render_image_rows(scene, camera, cfg, seed, frame_idx + 10007, 0, rows)
         if loss_fn is not None:
             loss = loss_fn(img_a, img_b, target)
         else:
@@ -157,31 +171,31 @@ def make_fused_recovery_step(mesh, scene, camera, cfg: RenderConfig,
                              optimizer=None, constraints=None, pool: int = 8,
                              loss_fn=None):
     """The one gradient front door: recovery on the port's gradient
-    kernels, fastest applicable construction chosen automatically —
+    kernels, fastest applicable construction chosen automatically, as the
+    reference chooses it (fspt_tpu/parallel/train.py:240-276) —
 
-    1. the fused loss kernel (kernel 8: dual-buffer loss and every
-       gradient in one launch per step) when the default lane-level loss
-       applies (``pool=1``, no ``loss_fn``), the fields are radiometric
-       (diffuse, emissive, glow) and the scene has no texture;
-    3. otherwise the affine-deferred fold (kernel 7), for radiometric fields
-       and ``"texels"``, with any image loss through torch autograd of
-       loss∘fold.
+    1. the fused loss kernel (kernel 8: dual-buffer loss and every gradient
+       in one launch per step; material columns and the ``"camera"``
+       9-vector of :func:`ops.cuda_path.camera_pvec`) when the default
+       lane-level loss applies (``pool=1``, no ``loss_fn``) on an
+       untextured scene;
+    2. the in-kernel-adjoint pair (kernels 9-10, band images through a
+       ``torch.autograd.Function``) on an untextured scene, for any material
+       column and any image loss;
+    3. the affine-deferred fold (kernel 7), for textured scenes and
+       ``"texels"``: radiometric fields only, with any image loss through
+       torch autograd of loss∘fold.
 
-    The reference tries construction 2 (the in-kernel-adjoint pair, kernels
-    9-10) before 3 on an untextured scene (fspt_tpu/parallel/train.py:
-    253-264).  For radiometric fields construction 3 computes the same
-    gradient, exactly up to float re-association: the path never depends on
-    these values (pallas_path.py:245-248, pallas_grad.py:550-551).  Requests
-    only construction 2 serves — scalar fields (param, ior, reflectivity,
-    frost) and ``"camera"`` — raise ``NotImplementedError``: they need the
-    adjoint of the path body, a later slice.
-
-    Returns the step of :func:`make_recovery_step`; ``mesh`` must be None.
-    Raises ValueError for a scene the megakernels do not take.
+    ``params`` of the returned step is a dict of the selected fields (e.g.
+    ``{"diffuse": [M,3], "camera": camera_pvec(cam)}``).  ``"camera"`` needs
+    construction 1 and raises ``ValueError`` elsewhere.  Returns the step of
+    :func:`make_recovery_step`; ``mesh`` must be None.  Raises ValueError
+    for a scene the megakernels do not take (use make_recovery_step then).
     """
-    from fspt_tpu_torch.ops.cuda_grad import (PATH_ADJOINT_SLICE, RADIOMETRIC_FIELDS,
+    from fspt_tpu_torch.ops.cuda_grad import (CAMERA_FIELD, RADIOMETRIC_FIELDS,
                                               make_affine_grad_image_fn,
-                                              make_fused_loss_grad_fn)
+                                              make_fused_loss_grad_fn,
+                                              make_grad_image_fn)
 
     if mesh is not None:
         raise NotImplementedError(DISTRIBUTED_SLICE)
@@ -192,12 +206,16 @@ def make_fused_recovery_step(mesh, scene, camera, cfg: RenderConfig,
             return make_recovery_step(None, cfg, param_names=fields, lr=lr,
                                       optimizer=optimizer, constraints=constraints,
                                       pool=1, loss_and_grad_fn=fused)
-    other = set(fields) - RADIOMETRIC_FIELDS - {"texels"}
-    if other:
-        raise NotImplementedError(f"recovery of {sorted(other)} {PATH_ADJOINT_SLICE}")
-    img_fn = make_affine_grad_image_fn(scene, camera, cfg)
+    if CAMERA_FIELD in fields:
+        raise ValueError("camera recovery needs the fused loss kernel (untextured "
+                         "scene the megakernels take, pool=1, default loss)")
+    img_fn = None
+    if "texels" not in fields:
+        img_fn = make_grad_image_fn(scene, camera, cfg, fields=fields)
+    if img_fn is None and set(fields) <= RADIOMETRIC_FIELDS | {"texels"}:
+        img_fn = make_affine_grad_image_fn(scene, camera, cfg)
     if img_fn is None:
-        raise ValueError("scene can't use the megakernels (BVH or over 512 primitives)")
+        raise ValueError("scene can't use the gradient kernels; use make_recovery_step")
 
     def render_fn(params, _scene, _camera, seed, frame_idx, y0, rows):
         img, _segs = img_fn(params, seed, frame_idx, y0, rows)

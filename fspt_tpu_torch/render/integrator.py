@@ -89,7 +89,8 @@ def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,
     """
     if cfg.edge_eps > 0.0:
         raise NotImplementedError(
-            "edge reparameterization comes with the gradient slice of the port")
+            "edge reparameterization comes with the vertex-recovery slice of the port "
+            "(ops/diff_intersect.py); use edge_eps=0")
     table = scene.materials
     tex = scene.textures
     dev = start.device

@@ -69,7 +69,8 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
             "vertex-recovery slice of the port")
     if cfg.edge_eps > 0.0:
         raise NotImplementedError(
-            "edge reparameterization comes with the gradient slice of the port")
+            "edge reparameterization comes with the vertex-recovery slice of the port "
+            "(ops/diff_intersect.py); use edge_eps=0")
     if warm is not None and (cfg.effective_depth < 2 or cfg.fast_render):
         raise ValueError("warm start needs effective_depth >= 2 and no fast render")
     if rows is None:

@@ -1,8 +1,8 @@
-"""The gradient front doors of the port (kernels 7 and 8, plain versions on
-the CPU) against the reference's planar differentiable path
-(ops/diff_path.py) under ``jax.value_and_grad``, which the reference's own
-tests pin to its kernels 7-8 (tests/test_pallas_grad.py:128-252), and
-against central differences.
+"""The gradient front doors of the port (kernels 7, 8 in its affine and
+whole-chain constructions, and 9-10: plain versions on the CPU) against the
+reference's planar differentiable path (ops/diff_path.py) under
+``jax.value_and_grad``, which the reference's own tests pin to its kernels
+7-10 (tests/test_pallas_grad.py:33-376), and against central differences.
 
 Bars, the reference's own: images at the path bar (rtol 1e-4 / atol 1e-5 on
 ≥ 99.9 % of values: a last-bit ``sin``/``cos`` difference between torch and
@@ -27,6 +27,7 @@ from fspt_tpu.scene.builder import SceneBuilder as RefBuilder
 from fspt_tpu_torch import convert
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.ops import cuda_grad
+from fspt_tpu_torch.ops.cuda_path import camera_pvec
 
 FRACTION = 0.999
 
@@ -47,7 +48,11 @@ def _leaves(ps, names=("diffuse", "emissive")):
     return {k: getattr(ps.materials, k).clone().requires_grad_() for k in names}
 
 
-def test_affine_image_and_grads_match_planar_reference():
+@pytest.fixture(scope="module")
+def specular_reference():
+    """The reference's planar image of the specular Cornell box (16×16, 2
+    spp, depth 4) and ``jax.value_and_grad`` of ``mean(img²)`` with respect
+    to diffuse, emissive and param, computed once for the module."""
     scene, cam, ps, pc, cfg = _setup(build_cornell_box(with_specular=True),
                                      width=16, height=16, spp=2, max_depth=4)
     di = make_image_fn(scene, RefConfig(**vars(cfg)), z_far=float(np.asarray(cam.z_far)))
@@ -56,9 +61,13 @@ def test_affine_image_and_grads_match_planar_reference():
         img, segs = di(scene.materials._replace(**p), cam, 5, 0, 0, cfg.height)
         return jnp.mean(img ** 2), (img, segs)
 
-    params = {"diffuse": scene.materials.diffuse, "emissive": scene.materials.emissive}
+    params = {k: getattr(scene.materials, k) for k in ("diffuse", "emissive", "param")}
     (vd, (img_d, seg_d)), gd = jax.value_and_grad(loss_d, has_aux=True)(params)
+    return ps, pc, cfg, float(vd), np.asarray(img_d), int(seg_d), _np_tree(gd)
 
+
+def test_affine_image_and_grads_match_planar_reference(specular_reference):
+    ps, pc, cfg, vd, img_d, seg_d, gd = specular_reference
     gi = cuda_grad.make_affine_grad_image_fn(ps, pc, cfg)
     leaves = _leaves(ps)
     img, segs = gi(leaves, 5, 0, 0, cfg.height)
@@ -145,12 +154,13 @@ def test_fused_loss_matches_lane_level_planar_reference():
                                    atol=1e-8, err_msg=k)
 
 
-@pytest.mark.parametrize("front_door", ["affine_image", "fused_loss"])
+@pytest.mark.parametrize("front_door", ["affine_image", "fused_loss", "grad_image"])
 def test_band_split_gradients_sum_to_full_frame(front_door):
     _, _, ps, pc, cfg = _setup(build_cornell_box(), width=16, height=8, spp=1,
                                max_depth=3)
-    if front_door == "affine_image":
-        gi = cuda_grad.make_affine_grad_image_fn(ps, pc, cfg)
+    if front_door in ("affine_image", "grad_image"):
+        gi = (cuda_grad.make_affine_grad_image_fn(ps, pc, cfg) if front_door == "affine_image"
+              else cuda_grad.make_grad_image_fn(ps, pc, cfg))
 
         def band_grads(y0, rows):
             leaves = _leaves(ps)
@@ -181,10 +191,21 @@ def test_band_split_gradients_sum_to_full_frame(front_door):
     dict(fields=("diffuse", "camera")), dict(affine=False), dict(remat=True),
 ])
 def test_fused_loss_refuses_path_adjoint_requests(kwargs):
-    _, _, ps, pc, cfg = _setup(build_cornell_box(), width=8, height=8, spp=1,
-                               max_depth=2)
-    with pytest.raises(NotImplementedError, match="path-body-adjoint"):
-        cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, **kwargs)
+    """The requests the affine construction cannot serve (refused until the
+    path-body adjoint was ported) take the whole chain, and give finite
+    gradients of every requested field."""
+    _, _, ps, pc, cfg = _setup(build_cornell_box(with_specular=True), width=8, height=8,
+                               spp=1, max_depth=2)
+    fn = cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, **kwargs)
+    fields = kwargs.get("fields", ("diffuse", "emissive"))
+    params = {f: camera_pvec(pc) if f == "camera" else getattr(ps.materials, f)
+              for f in fields}
+    target = torch.full((cfg.height, cfg.width, 3), 0.3)
+    loss, grads, segs = fn(params, target, 5, 1, 0, cfg.height)
+    assert bool(torch.isfinite(loss)) and int(segs) > 0
+    assert set(grads) == set(fields)
+    for f, g in grads.items():
+        assert g.shape == params[f].shape and bool(torch.isfinite(g).all()), f
 
 
 def test_pack_params_round_trip():
@@ -215,3 +236,160 @@ def test_fused_loss_takes_fields_in_any_order():
     assert float(la) == float(lb)
     for k in params:
         assert torch.equal(ga[k], gb[k]), k
+
+
+def test_grad_image_matches_planar_reference(specular_reference):
+    """Kernels 9-10 (their plain version: autograd of the body with the
+    parameters as table tensors) against the reference's planar path
+    (tests/test_pallas_grad.py:33-57)."""
+    ps, pc, cfg, vd, img_d, seg_d, gd = specular_reference
+    fields = ("diffuse", "emissive", "param")
+    gi = cuda_grad.make_grad_image_fn(ps, pc, cfg, fields=fields)
+    leaves = _leaves(ps, fields)
+    img, segs = gi(leaves, 5, 0, 0, cfg.height)
+    loss = (img ** 2).mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert int(segs) == int(seg_d)
+    np.testing.assert_allclose(img.detach().numpy(), np.asarray(img_d), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(loss.detach()), float(vd), rtol=1e-5)
+    for name, g in zip(leaves, grads):
+        assert np.abs(np.asarray(gd[name])).max() > 0, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(gd[name]), rtol=1e-3,
+                                   atol=1e-7, err_msg=name)
+
+
+def test_grad_tracer_glow_field_and_pack_round_trip():
+    """tests/test_pallas_grad.py:82-112: the pack of ``diffuse`` and ``glow``
+    round-trips, and the glow sphere's column carries gradient."""
+    b = build_cornell_box()
+    glow = b.add_material(RM.MaterialSpec(RM.GLOW, diffuse=(0.4, 0.3, 0.2), param=0.5,
+                                          glow=(1.5, 0.5, 0.25)))
+    b.add_sphere((0.0, -20.0, -10.0), 8.0, glow)
+    _, _, ps, pc, cfg = _setup(b, width=12, height=12, spp=1, max_depth=3)
+    tracer = cuda_grad.make_grad_path_tracer(ps, pc, cfg, fields=("diffuse", "glow"))
+    params = {"diffuse": ps.materials.diffuse, "glow": ps.materials.glow}
+    pvec = cuda_grad.pack_params(params, tracer.fields)
+    assert pvec.shape == (tracer.n_params,)
+    back = cuda_grad.unpack_params(pvec, tracer.mats, tracer.fields)
+    for k in params:
+        assert torch.equal(back[k], params[k]), k
+    leaf = pvec.clone().requires_grad_()
+    (g,) = torch.autograd.grad((tracer(leaf, 3, 0).radiance ** 2).mean(), [leaf])
+    gd = cuda_grad.unpack_params(g, tracer.mats, tracer.fields)
+    assert bool(torch.isfinite(g).all())
+    assert float(gd["glow"].abs().max()) > 0
+
+
+def test_grad_tracer_declines_textured_scenes():
+    _, _, ps, pc, cfg = _setup(_textured_floor(), width=8, height=8, spp=1, max_depth=2)
+    assert cuda_grad.make_grad_path_tracer(ps, pc, cfg) is None
+    assert cuda_grad.make_grad_image_fn(ps, pc, cfg) is None
+
+
+def test_fused_loss_backward_modes_agree():
+    """tests/test_pallas_grad.py:255-283: affine, remat and whole chain give
+    the same loss, gradients (up to float re-association) and segments."""
+    _, _, ps, pc, cfg = _setup(build_cornell_box(with_specular=True), width=16, height=12,
+                               spp=2, max_depth=3)
+    params = {k: getattr(ps.materials, k) for k in ("diffuse", "emissive")}
+    target = torch.from_numpy(np.random.default_rng(1).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32))
+    runs = {name: cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, **kw)(
+        params, target, 9, 2, 0, cfg.height) for name, kw in (
+            ("chain", dict(affine=False)), ("affine", dict(affine=True)),
+            ("remat", dict(affine=False, remat=True)))}
+    l_un, g_un, s_un = runs["chain"]
+    for name in ("affine", "remat"):
+        loss, grads, segs = runs[name]
+        np.testing.assert_allclose(float(loss), float(l_un), rtol=1e-5, err_msg=name)
+        assert int(segs) == int(s_un), name
+        for k in grads:
+            assert float(g_un[k].abs().max()) > 0, k
+            np.testing.assert_allclose(grads[k].numpy(), g_un[k].numpy(), rtol=1e-4,
+                                       atol=1e-8, err_msg=f"{name}:{k}")
+
+
+@pytest.fixture(scope="module")
+def camera_reference():
+    """The reference's planar path (ops/diff_path.py) under
+    ``jax.value_and_grad`` of the lane-level dual-buffer loss with respect to
+    the camera 9-vector, with the reference test's thin-lens camera
+    (tests/test_pallas_grad.py:299-346), 16×12, 2 spp, depth 3; computed once
+    for the module."""
+    b = build_cornell_box(with_specular=True)
+    scene = b.compile()
+    cam = RefCamera.create(origin=(3.0, -2.0, -140.0), target=(1.0, 0.5, 0.0),
+                           aperture_size=1.5, focal_depth=120.0)
+    cfg = RenderConfig(width=16, height=12, spp=2, max_depth=3)
+    target = np.random.default_rng(2).random((cfg.height, cfg.width, 3), dtype=np.float32)
+    tgt_lane = np.repeat(target.reshape(-1, 3), cfg.spp, axis=0)
+    planar = make_diff_path(scene, RefConfig(**vars(cfg)), z_far=float(np.asarray(cam.z_far)))
+
+    def ref_loss(cv):
+        c = cam._replace(origin=cv[0:3], target=cv[3:6], fov_y=cv[6], aperture_size=cv[7],
+                         focal_depth=cv[8])
+        a = planar(scene.materials, c, 5, 3 * cfg.spp)
+        bb = planar(scene.materials, c, 5, (3 + 10007) * cfg.spp)
+        loss = jnp.mean((a.radiance - tgt_lane) * (bb.radiance - tgt_lane))
+        return loss, a.segments + bb.segments
+
+    cvec = jnp.concatenate([cam.origin, cam.target, jnp.stack([
+        cam.fov_y, cam.aperture_size, cam.focal_depth])])
+    (ref_v, ref_segs), ref_g = jax.value_and_grad(ref_loss, has_aux=True)(cvec)
+    ps = convert.scene_from_numpy(_np_tree(scene), device="cpu")
+    pc = convert.camera_from_numpy(_np_tree(cam), device="cpu")
+    return ps, pc, cfg, target, float(ref_v), int(ref_segs), np.asarray(ref_g)
+
+
+def test_fused_loss_camera_gradient_matches_diff_path(camera_reference):
+    """Kernel 8's whole chain with ``"camera"`` (its plain version: the
+    traced raygen, build_traced_raygen, and the body under autograd) against
+    the reference's planar path under ``jax.value_and_grad`` of the same
+    lane-level loss, at the reference test's bar (rtol 2e-3,
+    tests/test_pallas_grad.py:345), with remat off and on."""
+    ps, pc, cfg, target, ref_v, ref_segs, ref_g = camera_reference
+    assert np.abs(ref_g).min() > 0  # every camera scalar moves the loss
+    for remat in (False, True):
+        fused = cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, fields=("camera",),
+                                                  remat=remat)
+        loss, grads, segs = fused.plain({"camera": camera_pvec(pc)}, torch.from_numpy(target),
+                                        5, 3, 0, cfg.height)
+        np.testing.assert_allclose(float(loss), ref_v, rtol=1e-5, err_msg=f"remat={remat}")
+        assert int(segs) == ref_segs, remat
+        np.testing.assert_allclose(grads["camera"].numpy(), ref_g, rtol=2e-3, atol=1e-10,
+                                   err_msg=f"remat={remat}")
+
+
+def test_fused_loss_joint_material_camera_fields():
+    """tests/test_pallas_grad.py:349-376: material columns and the camera
+    9-vector through one call; the material entries equal the camera-free
+    whole chain's."""
+    _, _, ps, pc, cfg = _setup(build_cornell_box(with_specular=True), width=16, height=8,
+                               spp=1, max_depth=2)
+    target = torch.from_numpy(np.random.default_rng(3).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32))
+    params = {"diffuse": ps.materials.diffuse, "emissive": ps.materials.emissive,
+              "camera": camera_pvec(pc)}
+    joint = cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg,
+                                              fields=("diffuse", "emissive", "camera"))
+    l1, g1, s1 = joint(params, target, 9, 2, 0, cfg.height)
+    assert set(g1) == {"diffuse", "emissive", "camera"}
+    assert bool(torch.isfinite(g1["camera"]).all())
+    base = cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, affine=False)
+    l2, g2, s2 = base({k: params[k] for k in ("diffuse", "emissive")}, target, 9, 2, 0,
+                      cfg.height)
+    np.testing.assert_allclose(float(l1), float(l2), rtol=1e-6)
+    assert int(s1) == int(s2)
+    for k in g2:
+        np.testing.assert_allclose(g1[k].numpy(), g2[k].numpy(), rtol=1e-4, atol=1e-8,
+                                   err_msg=k)
+
+
+def test_fused_loss_affine_rejects_scalar_fields():
+    _, _, ps, pc, cfg = _setup(build_cornell_box(), width=16, height=8, spp=1, max_depth=2)
+    with pytest.raises(ValueError):
+        cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, fields=("diffuse", "param"),
+                                          affine=True)
+    # Auto mode takes the whole chain for scalar fields.
+    assert cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg,
+                                             fields=("diffuse", "param")) is not None

@@ -85,6 +85,41 @@ def test_fused_loss_kernel_matches_plain(cuda):
                                   seed=8, frame_idx=3)
 
 
+ADJOINT_FIELDS = ("diffuse", "emissive", "glow", "param", "ior", "reflectivity", "frost")
+
+
+def test_grad_path_kernels_match_plain(cuda):
+    """Kernel 9 against its plain version and kernel 10 against autograd of
+    it, on all nine families through a thin-lens camera."""
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families", device=cuda, aperture=1.5, focal_depth=120.0)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    kernel_check.check_grad_path_tracer(b.compile(device=cuda), b.cameras[0], cfg,
+                                        ADJOINT_FIELDS, seed=3, sample0=1)
+
+
+@pytest.mark.parametrize("scene_name,fields", [
+    ("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
+    ("flagship", ("diffuse", "emissive", "param", "camera")),
+])
+def test_fused_loss_chain_kernel_matches_plain(cuda, scene_name, fields):
+    """Kernel 8's whole chain (and remat, the same kernel) against its plain
+    version, material fields and the camera."""
+    import numpy as np
+
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build(scene_name, device=cuda, aperture=1.5, focal_depth=120.0)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    target = torch.from_numpy(np.random.default_rng(1).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
+    kernel_check.check_fused_loss_chain(b.compile(device=cuda), b.cameras[0], cfg, target,
+                                        fields, seed=4, frame_idx=2)
+
+
 @pytest.fixture
 def heightfield(cuda):
     from fspt_tpu_torch.scene import samples
