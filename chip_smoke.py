@@ -74,7 +74,26 @@ Phases, each announced by one line:
    lanes, kernels 10 and 8 (whose plain versions run under autograd) on a
    band of rows mid-frame; then their timings there beside their bounds,
    and both adjoint recovery routes end to end;
-22. one JSON line of per-kernel numbers; then the card line; the last line
+22. vertex recovery at full width (the reference's ``mesh_grad_100k``
+   bench row, bench.py:224-279): ``make_bvh_vertex_recovery_step`` on the
+   heightfield (99,458 triangles) at 512×512, 2 spp, depth 2, edge_eps
+   0.05, Adam over all vertices: one warm-up step, then 3 timed steps with
+   the launches of kernels 1, 5 and 6 (phase 1, the record); then each
+   step's phase 1 again on the params that step received, alone (timed)
+   and with its rays kept (same winners), which gives the step's segments;
+   ms per step and the record / replay + backward + Adam split, fwd+bwd
+   segments/s (both buffers), peak memory, the loss;
+23. the BVH vertex example (``examples/recover_vertices_bvh``) at its
+   defaults; it must pass its own check;
+24. on the segments the first timed step's phase 1 gave at depths 0 and 1
+   (1,048,576 rays each): kernels 1, 5 and 6 against their plain versions
+   on all of them, as the record fed them; kernels 11 (bvh_walk, the
+   scene's fine BVH) and 12 (treelet_walk, a tree of 128-triangle leaves
+   over the same triangles), seeded as kernel 6 is, against their plain
+   versions on a 65,536-ray strided sample, against kernel 6's recorded
+   winners on every live ray, and timed at the full count beside their
+   bounds (from the nodes and triangles each ray tested);
+25. one JSON line of per-kernel numbers; then the card line; the last line
    is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
@@ -140,6 +159,8 @@ KERNELS = {
     "grad_forward": ("grad_forward_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "grad_backward": ("grad_backward_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "fused_loss_chain": ("fused_loss_chain_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
+    "bvh_walk": ("bvh_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
+    "treelet_walk": ("treelet_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
 }
 PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce", "adjoint_reduce"]
 
@@ -151,6 +172,9 @@ PAIR_FIELDS = ("diffuse", "emissive", "param")
 #: Rows of the mid-frame band on which kernels 10 and 8's whole chain are held
 #: against their plain versions (under autograd) at the full-width shape.
 BAND_ROWS = 4
+#: Rays of the strided sample on which kernels 11 and 12 are held against
+#: their plain versions (per-iteration torch walks) at the full-width shape.
+WALK_SAMPLE = 65536
 
 
 def ptxas_report(log):
@@ -449,6 +473,207 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     return report, timings, path_launches
 
 
+def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, example_argv):
+    """Phases 22-24: vertex recovery at ``cfg_v`` on the heightfield (the
+    mesh intersector ``inter`` serves phase 1), the BVH vertex example with
+    ``example_argv``, and kernels 11 and 12 on the recorded segments.
+    Returns ``(report, timings, launches)`` entries of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fspt_tpu_torch.examples import recover_vertices_bvh
+    from fspt_tpu_torch.ops import bvh, cuda_bvh, kernel_check
+    from fspt_tpu_torch.ops.diff_intersect import (flat_normals, make_diff_mesh_intersector,
+                                                   tris_from_scene)
+    from fspt_tpu_torch.parallel import train
+    from fspt_tpu_torch.render import integrator
+
+    # 22. the vertex-recovery step at full width
+    cfg2 = dataclasses.replace(cfg_v, spp=2 * cfg_v.spp)
+    H, W = cfg_v.height, cfg_v.width
+    tris = tris_from_scene(hf_scene)
+    n_tris = tris["v0"].shape[0]
+    phase(f"vertex recovery: make_bvh_vertex_recovery_step, heightfield ({n_tris} "
+          f"triangles) {W}x{H}x{cfg_v.spp}, depth {cfg_v.max_depth}, edge_eps "
+          f"{cfg_v.edge_eps}, Adam over {3 * n_tris * 3} vertex coordinates")
+    diff = make_diff_mesh_intersector(hf_scene)
+    with torch.no_grad():
+        target = train.render_image_rows(hf_scene, hf_cam, cfg_v, 5, 0, 0, H, intersector=diff)
+    shift = torch.tensor([0.0, 0.5, 0.0], device=dev)
+    params = {k: tris[k] + shift for k in train.VERTICES}
+    seed, frame0 = 11, 1
+
+    def side_record(ps, it):
+        """Phase 1 of the step that receives ``ps`` at frame ``it``, run
+        again with its intersector's inputs kept: the segments, and per
+        depth ``(o, d, alive, winner ids)``."""
+        rec = []
+        tr = dict(tris, **{k: ps[k].detach() for k in train.VERTICES})
+        tr["n0"] = tr["n1"] = tr["n2"] = flat_normals(tr["v0"], tr["v1"], tr["v2"])
+        inner = diff.bind(tr)
+
+        def recorder(o, d, alive=None):
+            h = inner(o, d, alive)
+            rec.append((o, d, alive, h.prim_id))
+            return h
+
+        recorder.accepts_alive = True
+        with torch.no_grad():
+            out = integrator.render_wavefront(hf_scene, hf_cam, cfg2, seed, it * cfg2.spp,
+                                              intersector=recorder)
+        return int(out.segments), rec
+
+    step = train.make_bvh_vertex_recovery_step(None, cfg_v, hf_scene, pool=1,
+                                               optimizer=lambda ps: torch.optim.Adam(ps, lr=0.05))
+    state = step.init(params)
+    params, state, loss = step(params, state, hf_scene, hf_cam, target, seed, 0)  # warm-up
+    torch.cuda.synchronize()
+    steps, times, losses, peak, received = 3, [], [], 0, []
+    launches = {k: 0 for k in counters}
+    for it in range(frame0, frame0 + steps):
+        received.append({k: params[k].clone() for k in train.VERTICES})
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, hf_scene, hf_cam, target, seed, it)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        for k, c in counters.items():
+            launches[k] += c.launches
+        losses.append(float(loss))
+        print(f"vertex step {it}: loss {losses[-1]:.6g} ({times[-1]:.1f} ms)", flush=True)
+    # Each timed step's phase 1 again, on the params it received: alone
+    # (timed), and with its rays kept, which must give the same winners.
+    # Kernels 11 and 12 run on the first step's rays.
+    record_ms, segs = [], 0
+    for it, ps in zip(range(frame0, frame0 + steps), received):
+        segs_it, rec = side_record(ps, it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, _ = step.record(ps, hf_scene, hf_cam, seed, it, 0, H)
+        torch.cuda.synchronize()
+        record_ms.append((time.perf_counter() - t0) * 1e3)
+        assert ids.shape[1] == len(rec) and all(
+            torch.equal(ids[:, k], rec[k][3]) for k in range(len(rec))), "records differ"
+        print(f"vertex step {it}: its phase 1 alone {record_ms[-1]:.1f} ms, {segs_it} "
+              f"segments", flush=True)
+        if it == frame0:
+            recorded = rec
+        segs += segs_it
+    check_launches(launches, {k: 2 * steps for k in ("intersect", "treelet_cull",
+                                                     "treelet_sweep")}, "vertex recovery")
+    assert all(np.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(v).all()) for v in params.values())
+    segs /= steps
+    ms_step, ms_rec = sum(times) / steps, sum(record_ms) / steps
+    print(f"vertex recovery step: {ms_step:.2f} ms/step (mean of {steps}, host clock); phase 1 "
+          f"record {ms_rec:.2f} ms (timed alone on each step's frame and params), replay + "
+          f"backward + Adam {ms_step - ms_rec:.2f} ms (the difference); {segs:.1f} segments a "
+          f"step (mean of the steps' own phase 1, both "
+          f"buffers), fwd+bwd {segs / (ms_step * 1e-3):.4g} segments/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches per step: intersect "
+          f"{launches['intersect'] / steps:g}, treelet_cull {launches['treelet_cull'] / steps:g}, "
+          f"treelet_sweep {launches['treelet_sweep'] / steps:g}; losses {losses}", flush=True)
+    profile_window(lambda: step(params, state, hf_scene, hf_cam, target, seed, frame0 + steps),
+                   "vertex_step", counters, top=12)
+
+    # 23. the BVH vertex example at its defaults
+    phase(f"BVH vertex example: recover_vertices_bvh {' '.join(example_argv)}")
+    reset_counts()
+    args = recover_vertices_bvh.parse_args(example_argv)
+    assert recover_vertices_bvh.main(example_argv) == 0, "the example failed its check"
+    launches = {k: c.launches for k, c in counters.items()}
+    # Two mesh-intersector calls (depth 2) per render: 4 target frames, one
+    # record per step.
+    check_launches(launches, {k: 2 * (4 + args.iters) for k in (
+        "intersect", "treelet_cull", "treelet_sweep")}, "BVH vertex example")
+
+    # 24. kernels 1, 5 and 6 against their plain versions, and kernels 11 and
+    # 12, on the recorded segments
+    report = {k: {"max_abs_err": 0.0} for k in ("intersect", "treelet_cull", "treelet_sweep",
+                                                "bvh_walk", "treelet_walk")}
+    k11 = cuda_bvh.make_bvh_traverser(hf_scene.bvh, bvh.MAX_LEAF_TRIS)
+    coarse = bvh.build_bvh(*(tris[k].cpu().numpy() for k in train.VERTICES),
+                           max_leaf=cuda_bvh.TREELET, device=dev)
+    k12 = cuda_bvh.make_treelet_traverser(coarse)
+    wt = k12.walk_tables
+    print(f"kernel 11 tree: {hf_scene.bvh.n_nodes} nodes, max leaf "
+          f"{int(hf_scene.bvh.count.max())}; kernel 12 tree: {coarse.n_nodes} nodes, "
+          f"{wt.tables.n_leaves} leaves of at most {cuda_bvh.TREELET}", flush=True)
+    fine_bytes = hf_scene.bvh.n_nodes * 36 + n_tris * 44
+    coarse_bytes = coarse.n_nodes * 36 + wt.tables.weights.numel() * 4
+    timings, path_launches = {}, {}
+    for depth in (0, 1):
+        o, d, alive, ids = recorded[depth]
+        start, seg, t_init, perm = inter.sweep_inputs(o, d, alive)
+        n = start.shape[0]
+        live = t_init > 0
+        phase(f"kernels 1, 5, 6 vs plain and kernels 11 (bvh_walk) and 12 (treelet_walk): the "
+              f"depth-{depth} segments of phase 1, {n} rays ({int(live.sum())} live)")
+        # Kernels 1, 5 and 6 at the full count, on the inputs the record gave
+        # them: kernel 1 the raw segments, kernels 5 and 6 the sorted, seeded
+        # rays with the record's alive mask.
+        for keys, rep in ((("intersect",), kernel_check.check_intersect(hf_scene.geometry, o, d)),
+                          (("treelet_cull", "treelet_sweep"), kernel_check.check_treelet_kernels(
+                              inter.traverser, start, seg, t_init))):
+            print(f"{'/'.join(keys)} vs plain, all {n} rays: {json.dumps(rep)}", flush=True)
+            for key in keys:
+                report[key]["max_abs_err"] = max(report[key]["max_abs_err"], rep["max_abs_err"])
+        idx = torch.arange(0, n, max(1, n // WALK_SAMPLE), device=dev)[:WALK_SAMPLE]
+        sample = (start[idx], seg[idx], t_init[idx])
+        for key, check, trav in (("bvh_walk", kernel_check.check_bvh_walk, k11),
+                                 ("treelet_walk", kernel_check.check_treelet_walk, k12)):
+            rep = check(trav, *sample)
+            print(f"{key} vs plain, {idx.numel()}-ray sample: {json.dumps(rep)}", flush=True)
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], rep["max_abs_err"])
+        # Kernel 6's winners (the recorded ids, in the sorted order).
+        k6_ids = ids[perm]
+        reset_counts()
+        _, id11, _, _, vis11, tst11 = k11.walk(start, seg, t_init)
+        t_raw, best, vis12, tst12 = k12.walk(start, seg, t_init)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        check_launches(launches, {"bvh_walk": 1, "treelet_walk": 1}, f"walks at depth {depth}")
+        id12 = cuda_bvh.post(wt.tables, start, seg, torch.where(best[:n] >= 0, t_raw[:n], t_init),
+                             best[:n])[1]
+        for key, got in (("bvh_walk", id11), ("treelet_walk", id12)):
+            agree = int((got[live] == k6_ids[live]).sum()) / max(1, int(live.sum()))
+            print(f"{key}: ids equal to kernel 6's recorded winners on {agree:.6f} of "
+                  f"{int(live.sum())} live rays", flush=True)
+            assert agree >= 0.999, (key, depth, agree)
+            path_launches[key] = path_launches.get(key, 0) + launches[key]
+        ms11 = cuda_time_ms(lambda: k11.walk(start, seg, t_init), iters=5)
+        F = cuda_bvh.ray_features(start, seg, t_init)
+        ms12 = cuda_time_ms(lambda: cuda_bvh.launch_treelet_walk(F, wt), iters=5)
+        p11 = cuda_time_ms(lambda: bvh.walk_bvh(hf_scene.bvh, *sample, bvh.MAX_LEAF_TRIS),
+                           iters=1, warmup=0)
+        p12 = cuda_time_ms(lambda: cuda_bvh.plain_treelet_walk(
+            cuda_bvh.ray_features(*sample), wt), iters=1, warmup=0)
+        b11, by11 = bound_ms(int(vis11.long().sum()) * cuda_bvh.OPS_PER_NODE
+                             + int(tst11.long().sum()) * cuda_bvh.OPS_PER_MT_TRIANGLE,
+                             n * (12 + 12 + 4 + 6 * 4) + fine_bytes)
+        b12, by12 = bound_ms(int(vis12.long().sum()) * cuda_bvh.OPS_PER_NODE
+                             + int(tst12.long().sum()) * cuda_bvh.OPS_PER_TRIANGLE,
+                             F.numel() * 4 + F.shape[0] * 16 + coarse_bytes)
+        print(f"depth {depth}: bvh_walk {ms11:.4f} ms ({n} rays; nodes/ray "
+              f"{vis11.float().mean().item():.1f}, triangles/ray "
+              f"{tst11.float().mean().item():.1f}; bound {b11:.4f} ms {by11}; plain "
+              f"{p11:.1f} ms on the {idx.numel()}-ray sample); treelet_walk {ms12:.4f} ms "
+              f"(nodes/ray {vis12.float().mean().item():.1f}, triangles/ray "
+              f"{tst12.float().mean().item():.1f}; bound {b12:.4f} ms {by12}; plain {p12:.1f} "
+              f"ms on the sample)", flush=True)
+        if depth == 0:  # the full count: the kernels line
+            timings["bvh_walk"] = dict(ms=ms11, plain_ms=p11, bound_ms=b11, bound_by=by11,
+                                       max_abs_err=0.0, plain_shape=f"{idx.numel()}-ray sample")
+            timings["treelet_walk"] = dict(ms=ms12, plain_ms=p12, bound_ms=b12, bound_by=by12,
+                                           max_abs_err=0.0,
+                                           plain_shape=f"{idx.numel()}-ray sample")
+    return report, timings, path_launches
+
+
 def main():
     import torch
 
@@ -480,7 +705,9 @@ def main():
                 "treelet_sweep": cuda_bvh.TREELET_SWEEP,
                 "grad_forward": cuda_grad.GRAD_FORWARD,
                 "grad_backward": cuda_grad.GRAD_BACKWARD,
-                "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN}
+                "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN,
+                "bvh_walk": cuda_bvh.BVH_WALK,
+                "treelet_walk": cuda_bvh.TREELET_WALK}
 
     def reset_counts():
         for c in counters.values():
@@ -1091,7 +1318,17 @@ def main():
     timings.update(t_adj)
     path_launches.update(launches_adj)
 
-    # 22. the kernels line, the card line, the result
+    # 22-24. vertex recovery and kernels 11 and 12
+    rep_v, t_v, launches_v = vertex_phases(
+        dev, counters, reset_counts, hf_scene, hf_cam, inter,
+        RenderConfig(width=512, height=512, spp=2, max_depth=2, edge_eps=0.05), [])
+    for key, rep in rep_v.items():
+        report[key] = {"max_abs_err": max(report.get(key, rep)["max_abs_err"],
+                                          rep["max_abs_err"])}
+    timings.update(t_v)
+    path_launches.update(launches_v)
+
+    # 25. the kernels line, the card line, the result
     phase("kernels")
     kernels = []
     for key, c in counters.items():

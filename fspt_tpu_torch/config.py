@@ -39,8 +39,9 @@ class RenderConfig:
     light_clamp: float = 10.0
     # Number of uniforms drawn per bounce from the per-sample RNG stream.
     bounce_slots: int = 4
-    # Edge-reparameterization bandwidth (silhouette gradients).  The port
-    # supports only 0 (off) until its vertex-recovery slice.
+    # Edge-reparameterization bandwidth (silhouette gradients): > 0 smooths
+    # triangle coverage over this world distance from an edge in the torch
+    # integrator and the queue (render/integrator.edge_reparameterize).
     edge_eps: float = 0.0
 
     @property

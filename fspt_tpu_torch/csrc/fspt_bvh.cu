@@ -1,13 +1,17 @@
-// Kernels 5 and 6 of the port: the treelet cull and the treelet sweep of the
-// BVH mesh path (ops/cuda_bvh.py holds their plain versions and wrappers).
-// Plain C launchers, loaded with ctypes by ops/_build.py; each returns
-// cudaGetLastError().
+// Kernels 5, 6, 11 and 12 of the port: the treelet cull and the treelet sweep
+// of the BVH mesh path, and the two tree walks (ops/cuda_bvh.py holds their
+// plain versions and wrappers).  Plain C launchers, loaded with ctypes by
+// ops/_build.py; each returns cudaGetLastError().
 //
 //   fspt_treelet_cull   treelet_cull_kernel   replaces pallas_bvh.py
 //                                              make_culled_traverser.pallas_cull
 //   fspt_treelet_sweep  treelet_sweep_kernel  replaces pallas_bvh.py
 //                                              make_culled_traverser.sweep
 //                                              (parity and ring bodies)
+//   fspt_bvh_walk       bvh_walk_kernel       replaces pallas_bvh.py
+//                                              make_bvh_traverser
+//   fspt_treelet_walk   treelet_walk_kernel   replaces pallas_bvh.py
+//                                              make_treelet_traverser
 //
 // Rays come in blocks of kRays = 64 consecutive rows of the feature matrix
 // F [n_pad, 16] = [d, o×d, o, 1, t0, 0...]; the caller has sorted them by
@@ -32,9 +36,28 @@
 // per-ray loop over shared memory is the simple form; wgmma and TMA are
 // later work.
 //
-// Both kernels equal their plain versions bit for bit: the same terms are
-// added in the same order, built with -fmad=false, and fminf/fmaxf match
-// torch.fmin/fmax.
+// Kernels 11 and 12, one thread per ray (128 a CTA), walk a miss-link BVH
+// without a stack, in the order of ops/bvh.traverse_bvh: node + 1 on a
+// descend, miss[node] after a leaf or a missed box; a node is pruned when its
+// slab entry t exceeds the ray's best t.  The TPU kernels walked a block of
+// rays in lockstep behind an interval frustum and read node records with
+// one-hot lane reductions, because Mosaic has no per-lane gather; Hopper
+// gathers, so each ray walks alone and reads the node and triangle rows
+// ([M,3] / [T,3] as the FlatBVH holds them) through the read-only path.
+// Kernel 11 tests each leaf triangle with the cross-product Möller–Trumbore
+// of traverse_bvh, term for term.  Kernel 12 walks a tree of 128-triangle
+// leaves and tests a leaf with kernel 6's sign-folded 19-weight form (the
+// same device function, reading the leaf's weights from global memory),
+// keeping the quantized packed key; ops/cuda_bvh.post recovers exact t, u,
+// v.  Both write per ray the nodes and the triangles it tested (kernel 12:
+// the real triangles of the leaves it swept, not their pad columns), from
+// which the bound is counted.  Bound by operations: ~30 per
+// node test, ~58 per cross-form triangle test, ~51 per weight-form one;
+// divergence between the rays of a warp is the cost of this simple form.
+//
+// All four kernels equal their plain versions bit for bit: the same terms
+// are added in the same order, built with -fmad=false, and fminf/fmaxf
+// match torch.fmin/fmax (and torch.minimum/maximum on finite values).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,12 +69,65 @@ constexpr int kFeat = 16;          // floats per ray feature row
 constexpr int kTreelet = 128;      // triangles per leaf
 constexpr int kRows = 20;          // floats per triangle
 constexpr int kCullThreads = 256;
+constexpr int kWalkThreads = 128;
 constexpr float kBig = 3.0e38f;
 constexpr int kNoHit = 0x7FFFFFFF;
 
 __device__ __forceinline__ float guarded_rcp(float d) {
   const float g = fabsf(d) < 1e-30f ? (d >= 0.0f ? 1e-30f : -1e-30f) : d;
   return 1.0f / g;
+}
+
+// One ray's features for the weight form: d, c = o×d and o.
+struct RayF {
+  float d0, d1, d2, c0, c1, c2, o0, o1, o2;
+};
+
+__device__ __forceinline__ RayF load_ray(const float* f) {
+  return RayF{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
+}
+
+// One ray against the 128 triangles of a leaf (w: 20 floats a triangle, in
+// shared or global memory), the sign-folded Möller–Trumbore of
+// cuda_bvh._leaf_test term for term: the packed key (bits(t) & ~127) |
+// column of the nearest triangle closer than tb, kNoHit where none.
+__device__ __forceinline__ int leaf_min_key(const float* __restrict__ w, const RayF& r,
+                                            float tb) {
+  int kmin = kNoHit;
+#pragma unroll 2
+  for (int j = 0; j < kTreelet; ++j) {
+    const float* wj = w + j * kRows;
+    const float det = r.d0 * wj[0] + r.d1 * wj[1] + r.d2 * wj[2];
+    const float u_num = r.d0 * wj[3] + r.d1 * wj[4] + r.d2 * wj[5] + r.c0 * wj[6] +
+                        r.c1 * wj[7] + r.c2 * wj[8];
+    const float v_num = r.d0 * wj[9] + r.d1 * wj[10] + r.d2 * wj[11] + r.c0 * wj[12] +
+                        r.c1 * wj[13] + r.c2 * wj[14];
+    const float t_num = r.o0 * wj[15] + r.o1 * wj[16] + r.o2 * wj[17] + wj[18];
+    const float ad = fabsf(det);
+    const float sm = det < 0.0f ? -1.0f : 1.0f;
+    const float un = u_num * sm, vn = v_num * sm, tn = t_num * sm;
+    const float min4 = fminf(fminf(un, vn), fminf(ad - (un + vn), tn));
+    if (min4 >= 0.0f && tn < tb * ad && ad >= wj[19]) {
+      const float tc = tn / ad;
+      kmin = min(kmin, (__float_as_int(tc) & ~(kTreelet - 1)) | j);
+    }
+  }
+  return kmin;
+}
+
+// Slab test of the ray (origin o, guarded reciprocal direction r) against
+// node box [lo, hi] (ops/bvh._slab_entry): hit, and the entry t clamped at 0.
+__device__ __forceinline__ bool slab_entry(const float* __restrict__ lo,
+                                           const float* __restrict__ hi, float o0, float o1,
+                                           float o2, float r0, float r1, float r2,
+                                           float& entry) {
+  const float t0x = (__ldg(lo) - o0) * r0, t1x = (__ldg(hi) - o0) * r0;
+  const float t0y = (__ldg(lo + 1) - o1) * r1, t1y = (__ldg(hi + 1) - o1) * r1;
+  const float t0z = (__ldg(lo + 2) - o2) * r2, t1z = (__ldg(hi + 2) - o2) * r2;
+  const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  entry = fmaxf(tnear, 0.0f);
+  return tnear <= tfar && tfar >= 0.0f && tnear <= 1.0f;
 }
 
 __global__ void __launch_bounds__(kCullThreads)
@@ -110,9 +186,7 @@ treelet_sweep_kernel(const int* __restrict__ counts, const int* __restrict__ ord
   const int tid = threadIdx.x;
   const size_t i = (size_t)b * kRays + tid;
   const float* f = F + i * kFeat;
-  const float d0 = f[0], d1 = f[1], d2 = f[2];
-  const float c0 = f[3], c1 = f[4], c2 = f[5];
-  const float o0 = f[6], o1 = f[7], o2 = f[8];
+  const RayF ray = load_ray(f);
   float tb = f[10];
   int best = -1;
   const int count = counts[b];
@@ -130,25 +204,7 @@ treelet_sweep_kernel(const int* __restrict__ counts, const int* __restrict__ ord
       __syncthreads();  // the previous leaf's readers are done
       for (int q = tid; q < kTreelet * kRows / 4; q += kRays) s_w[q] = __ldg(src + q);
       __syncthreads();
-      int kmin = kNoHit;
-#pragma unroll 2
-      for (int j = 0; j < kTreelet; ++j) {
-        const float* wj = w + j * kRows;
-        const float det = d0 * wj[0] + d1 * wj[1] + d2 * wj[2];
-        const float u_num = d0 * wj[3] + d1 * wj[4] + d2 * wj[5] + c0 * wj[6] +
-                            c1 * wj[7] + c2 * wj[8];
-        const float v_num = d0 * wj[9] + d1 * wj[10] + d2 * wj[11] + c0 * wj[12] +
-                            c1 * wj[13] + c2 * wj[14];
-        const float t_num = o0 * wj[15] + o1 * wj[16] + o2 * wj[17] + wj[18];
-        const float ad = fabsf(det);
-        const float sm = det < 0.0f ? -1.0f : 1.0f;
-        const float un = u_num * sm, vn = v_num * sm, tn = t_num * sm;
-        const float min4 = fminf(fminf(un, vn), fminf(ad - (un + vn), tn));
-        if (min4 >= 0.0f && tn < tb * ad && ad >= wj[19]) {
-          const float tc = tn / ad;
-          kmin = min(kmin, (__float_as_int(tc) & ~(kTreelet - 1)) | j);
-        }
-      }
+      const int kmin = leaf_min_key(w, ray, tb);
       if (kmin != kNoHit) {
         best = leaf * kTreelet + (kmin & (kTreelet - 1));
         tb = __int_as_float(kmin & ~(kTreelet - 1));
@@ -167,6 +223,118 @@ treelet_sweep_kernel(const int* __restrict__ counts, const int* __restrict__ ord
   t_out[i] = tb;
   best_out[i] = best;
   if (tid == 0) visits[b] = swept;
+}
+
+__global__ void __launch_bounds__(kWalkThreads)
+bvh_walk_kernel(const float* __restrict__ start, const float* __restrict__ seg,
+                const float* __restrict__ t_init, int n, const float* __restrict__ bmin,
+                const float* __restrict__ bmax, const int* __restrict__ first,
+                const int* __restrict__ count, const int* __restrict__ miss, int n_nodes,
+                const float* __restrict__ v0, const float* __restrict__ e1,
+                const float* __restrict__ e2, const float* __restrict__ area2,
+                const int* __restrict__ tri_id, float* __restrict__ t_out,
+                int* __restrict__ id_out, float* __restrict__ u_out,
+                float* __restrict__ v_out, int* __restrict__ visits,
+                int* __restrict__ tested) {
+  const int i = blockIdx.x * kWalkThreads + threadIdx.x;
+  if (i >= n) return;
+  const float sx = start[3 * i], sy = start[3 * i + 1], sz = start[3 * i + 2];
+  const float dx = seg[3 * i], dy = seg[3 * i + 1], dz = seg[3 * i + 2];
+  const float rx = guarded_rcp(dx), ry = guarded_rcp(dy), rz = guarded_rcp(dz);
+  float tb = t_init[i];
+  int best = -1, n_visit = 0, n_test = 0;
+  float bu = 0.0f, bv = 0.0f;
+  int node = tb > 0.0f ? 0 : n_nodes;  // a dead lane walks nothing
+  while (node < n_nodes) {
+    ++n_visit;
+    float entry;
+    const bool box =
+        slab_entry(bmin + 3 * node, bmax + 3 * node, sx, sy, sz, rx, ry, rz, entry) &&
+        entry <= tb;
+    const int cnt = __ldg(count + node);
+    if (box && cnt > 0) {
+      n_test += cnt;
+      const int f = __ldg(first + node);
+      for (int k = 0; k < cnt; ++k) {
+        const int t = f + k;
+        const float e1x = __ldg(e1 + 3 * t), e1y = __ldg(e1 + 3 * t + 1),
+                    e1z = __ldg(e1 + 3 * t + 2);
+        const float e2x = __ldg(e2 + 3 * t), e2y = __ldg(e2 + 3 * t + 1),
+                    e2z = __ldg(e2 + 3 * t + 2);
+        const float pvx = dy * e2z - dz * e2y;
+        const float pvy = dz * e2x - dx * e2z;
+        const float pvz = dx * e2y - dy * e2x;
+        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+        const bool np = fabsf(det) >= 1e-5f * __ldg(area2 + t);
+        const float inv = 1.0f / (np ? det : 1.0f);
+        const float tx = sx - __ldg(v0 + 3 * t), ty = sy - __ldg(v0 + 3 * t + 1),
+                    tz = sz - __ldg(v0 + 3 * t + 2);
+        const float u = (tx * pvx + ty * pvy + tz * pvz) * inv;
+        const float qvx = ty * e1z - tz * e1y;
+        const float qvy = tz * e1x - tx * e1z;
+        const float qvz = tx * e1y - ty * e1x;
+        const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
+        const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+        if (np && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tt >= 0.0f && tt <= 1.0f &&
+            tt < tb) {
+          tb = tt;
+          best = __ldg(tri_id + t);
+          bu = u;
+          bv = v;
+        }
+      }
+      node = __ldg(miss + node);
+    } else {
+      node = (box && cnt == 0) ? node + 1 : __ldg(miss + node);
+    }
+  }
+  t_out[i] = tb;
+  id_out[i] = best;
+  u_out[i] = bu;
+  v_out[i] = bv;
+  visits[i] = n_visit;
+  tested[i] = n_test;
+}
+
+__global__ void __launch_bounds__(kWalkThreads)
+treelet_walk_kernel(const float* __restrict__ F, int n_pad, const float* __restrict__ bmin,
+                    const float* __restrict__ bmax, const int* __restrict__ count,
+                    const int* __restrict__ leaf_of, const int* __restrict__ miss,
+                    int n_nodes, const float* __restrict__ W, float* __restrict__ t_out,
+                    int* __restrict__ best_out, int* __restrict__ visits,
+                    int* __restrict__ tested) {
+  const int i = blockIdx.x * kWalkThreads + threadIdx.x;
+  if (i >= n_pad) return;
+  const float* f = F + (size_t)i * kFeat;
+  const RayF ray = load_ray(f);
+  const float rx = guarded_rcp(ray.d0), ry = guarded_rcp(ray.d1), rz = guarded_rcp(ray.d2);
+  float tb = f[10];
+  int best = -1, n_visit = 0, n_test = 0;
+  int node = tb > 0.0f ? 0 : n_nodes;  // dead and pad rows walk nothing
+  while (node < n_nodes) {
+    ++n_visit;
+    float entry;
+    const bool box = slab_entry(bmin + 3 * node, bmax + 3 * node, ray.o0, ray.o1, ray.o2,
+                                rx, ry, rz, entry) &&
+                     entry <= tb;
+    const int cnt = __ldg(count + node);
+    if (box && cnt > 0) {
+      n_test += cnt;
+      const int leaf = __ldg(leaf_of + node);
+      const int kmin = leaf_min_key(W + (size_t)leaf * kTreelet * kRows, ray, tb);
+      if (kmin != kNoHit) {
+        best = leaf * kTreelet + (kmin & (kTreelet - 1));
+        tb = __int_as_float(kmin & ~(kTreelet - 1));
+      }
+      node = __ldg(miss + node);
+    } else {
+      node = (box && cnt == 0) ? node + 1 : __ldg(miss + node);
+    }
+  }
+  t_out[i] = tb;
+  best_out[i] = best;
+  visits[i] = n_visit;
+  tested[i] = n_test;
 }
 
 }  // namespace fspt_bvh
@@ -191,6 +359,34 @@ int fspt_treelet_sweep(const int* counts, const int* order, const float* tlo,
   if (n_blocks > 0) {
     treelet_sweep_kernel<<<n_blocks, kRays, 0, (cudaStream_t)stream>>>(
         counts, order, tlo, n_leaves, group, F, W, t, best, visits);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fspt_bvh_walk(const float* start, const float* seg, const float* t_init, int n,
+                  const float* bmin, const float* bmax, const int* first, const int* count,
+                  const int* miss, int n_nodes, const float* v0, const float* e1,
+                  const float* e2, const float* area2, const int* tri_id, float* t, int* id,
+                  float* u, float* v, int* visits, int* tested, void* stream) {
+  using namespace fspt_bvh;
+  if (n > 0) {
+    bvh_walk_kernel<<<(n + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
+                      (cudaStream_t)stream>>>(start, seg, t_init, n, bmin, bmax, first, count,
+                                              miss, n_nodes, v0, e1, e2, area2, tri_id, t, id,
+                                              u, v, visits, tested);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fspt_treelet_walk(const float* F, int n_pad, const float* bmin, const float* bmax,
+                      const int* count, const int* leaf_of, const int* miss, int n_nodes,
+                      const float* W, float* t, int* best, int* visits, int* tested,
+                      void* stream) {
+  using namespace fspt_bvh;
+  if (n_pad > 0) {
+    treelet_walk_kernel<<<(n_pad + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
+                          (cudaStream_t)stream>>>(F, n_pad, bmin, bmax, count, leaf_of, miss,
+                                                  n_nodes, W, t, best, visits, tested);
   }
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,7 @@ LIBRARIES = {
     "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3
     "fspt_deferred": CSRC / "fspt_deferred.cu",  # kernels 4 and 7
     "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
-    "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5 and 6
+    "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5, 6, 11 and 12
     "fspt_adjoint": CSRC / "fspt_adjoint.cu",    # kernels 9, 10, 8 whole chain
 }
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
@@ -150,6 +150,13 @@ _SIGNATURES = {
         # counts, order, tlo, n_leaves, group, F, weights, n_blocks, t, best,
         # visits, stream
         "fspt_treelet_sweep": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+        # start, seg, t_init, n, bmin, bmax, first, count, miss, n_nodes, v0,
+        # e1, e2, area2, tri_id, t, id, u, v, visits, tested, stream
+        "fspt_bvh_walk": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P],
+        # F, n_pad, bmin, bmax, count, leaf_of, miss, n_nodes, weights, t,
+        # best, visits, leaves, stream
+        "fspt_treelet_walk": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     },
     "fspt_adjoint": {
         # prims, meta, mats, mat_meta, PathParams, CamParams, pvec, cells,

@@ -12,8 +12,9 @@ with no stack:
 :func:`_build_bvh_numpy` / :func:`_build_bvh_preorder` are the plain NumPy
 builder with the same output, which the tests hold the native one against.
 :func:`traverse_bvh` is the miss-link walk in torch, a ``while`` loop over
-lanes with one host sync per iteration: the port's plain BVH intersector
-and the reference that the treelet path (ops/cuda_bvh.py) is held against.
+lanes with one host sync per iteration: the port's plain BVH intersector,
+the plain version of kernel 11 (ops/cuda_bvh.make_bvh_traverser) and the
+reference that the treelet paths (ops/cuda_bvh.py) are held against.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from fspt_tpu_torch.scene.geometry import INVALID_PARAM
 from fspt_tpu_torch.utils import vecmath as vm
 
 MAX_LEAF_TRIS = 4
+_FAR = 3.0e38  # above every valid t: the masked slots of a leaf
 
 
 class FlatBVH(NamedTuple):
@@ -139,23 +141,40 @@ def _slab_entry(bmin, bmax, start, seg):
     return hit, torch.clamp(tnear, min=0.0)
 
 
-def traverse_bvh(bvh: FlatBVH, start, seg, t_init=None):
+def traverse_bvh(bvh: FlatBVH, start, seg, t_init=None, max_leaf: int = MAX_LEAF_TRIS):
     """Closest triangle hit for every lane: ``(t [N], tri_id [N], u [N],
     v [N])`` with tri_id −1 on a miss.  ``t_init`` seeds each lane's best t
-    (INVALID_PARAM by default)."""
+    (INVALID_PARAM by default); a lane with ``t_init ≤ 0`` is dead and walks
+    nothing.  ``max_leaf`` must be at least the tree's largest leaf (the
+    ``max_leaf`` it was built with)."""
+    return walk_bvh(bvh, start, seg, t_init, max_leaf)[:4]
+
+
+def walk_bvh(bvh: FlatBVH, start, seg, t_init=None, max_leaf: int = MAX_LEAF_TRIS):
+    """:func:`traverse_bvh` plus, per lane, the nodes it tested and the
+    triangles it tested (int32): the plain version of kernel 11
+    (ops/cuda_bvh.make_bvh_traverser), operation for operation."""
     n = start.shape[0]
     dev = start.device
     m = bvh.n_nodes
     n_tris = bvh.tri_v0.shape[0]
+    if int(bvh.count.max()) > max_leaf:
+        raise ValueError(f"a leaf holds {int(bvh.count.max())} triangles, more than "
+                         f"max_leaf={max_leaf}")
     t_best = (torch.full((n,), INVALID_PARAM, dtype=torch.float32, device=dev)
               if t_init is None else t_init.to(torch.float32).clone())
-    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    node = torch.where(t_best > 0.0, 0, m).to(torch.int64)
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    tested = torch.zeros((n,), dtype=torch.int32, device=dev)
     count_all = bvh.count.long()
     first_all = bvh.first.long()
     miss_all = bvh.miss.long()
+    sx, sy, sz = start[:, 0:1], start[:, 1:2], start[:, 2:3]
+    dx, dy, dz = seg[:, 0:1], seg[:, 1:2], seg[:, 2:3]
+    slots = torch.arange(max_leaf, device=dev)
 
     while bool((node < m).any()):
         nidx = torch.clamp(node, max=m - 1)
@@ -165,29 +184,42 @@ def traverse_bvh(bvh: FlatBVH, start, seg, t_init=None):
         count = count_all[nidx]
         first = first_all[nidx]
         is_leaf = count > 0
-
+        visits += active.to(torch.int32)
         leaf_work = box_hit & is_leaf
-        for k in range(MAX_LEAF_TRIS):
-            tid = torch.clamp(first + k, 0, n_tris - 1)
-            valid_k = leaf_work & (k < count)
-            v0, e1, e2 = bvh.tri_v0[tid], bvh.tri_e1[tid], bvh.tri_e2[tid]
-            pvec = vm.cross(seg, e2)
-            det = vm.dot(e1, pvec)
-            np_ = torch.abs(det) >= vm.EPSILON * bvh.tri_area2[tid]
-            inv = 1.0 / torch.where(np_, det, 1.0)
-            tvec = start - v0
-            u = vm.dot(tvec, pvec) * inv
-            qvec = vm.cross(tvec, e1)
-            v = vm.dot(seg, qvec) * inv
-            t = vm.dot(e2, qvec) * inv
-            ok = (valid_k & np_ & (u >= 0) & (v >= 0) & (u + v <= 1)
-                  & (t >= 0) & (t <= 1) & (t < t_best))
-            t_best = torch.where(ok, t, t_best)
-            best_tri = torch.where(ok, bvh.tri_id[tid], best_tri)
-            best_u = torch.where(ok, u, best_u)
-            best_v = torch.where(ok, v, best_v)
+        tested += torch.where(leaf_work, count, 0).to(torch.int32)
+
+        # Möller–Trumbore of a leaf's slots at once ([N, max_leaf]), the
+        # cross-product form term by term (kernel 11 adds the same terms in
+        # the same order).  The first slot of the smallest t wins, as a
+        # strict < in slot order does.
+        tid = torch.clamp(first[:, None] + slots, 0, n_tris - 1)
+        v0, e1, e2 = bvh.tri_v0[tid], bvh.tri_e1[tid], bvh.tri_e2[tid]
+        e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
+        e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
+        pvx = dy * e2z - dz * e2y
+        pvy = dz * e2x - dx * e2z
+        pvz = dx * e2y - dy * e2x
+        det = e1x * pvx + e1y * pvy + e1z * pvz
+        np_ = torch.abs(det) >= vm.EPSILON * bvh.tri_area2[tid]
+        inv = 1.0 / torch.where(np_, det, 1.0)
+        tx, ty, tz = sx - v0[..., 0], sy - v0[..., 1], sz - v0[..., 2]
+        u = (tx * pvx + ty * pvy + tz * pvz) * inv
+        qvx = ty * e1z - tz * e1y
+        qvy = tz * e1x - tx * e1z
+        qvz = tx * e1y - ty * e1x
+        v = (dx * qvx + dy * qvy + dz * qvz) * inv
+        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+        ok = ((leaf_work[:, None] & (slots < count[:, None])) & np_ & (u >= 0) & (v >= 0)
+              & (u + v <= 1) & (t >= 0) & (t <= 1) & (t < t_best[:, None]))
+        t_min, j = torch.where(ok, t, _FAR).min(dim=1)
+        hit = ok.any(dim=1)
+        pick = lambda x: x.gather(1, j[:, None])[:, 0]  # noqa: E731
+        t_best = torch.where(hit, t_min, t_best)
+        best_tri = torch.where(hit, bvh.tri_id[pick(tid)], best_tri)
+        best_u = torch.where(hit, pick(u), best_u)
+        best_v = torch.where(hit, pick(v), best_v)
 
         descend = box_hit & ~is_leaf
         nxt = torch.where(descend, nidx + 1, miss_all[nidx])
         node = torch.where(active, nxt, node)
-    return t_best, best_tri, best_u, best_v
+    return t_best, best_tri, best_u, best_v, visits, tested

@@ -1,4 +1,4 @@
-"""Treelet traversal of BVH meshes: kernels 5 (cull) and 6 (sweep).
+"""BVH traversal of meshes: kernels 5 (cull), 6 (sweep), 11 and 12 (walks).
 
 Counterpart of fspt_tpu/ops/pallas_bvh.py's culled treelet path
 (``build_treelet_chunks``, ``treelet_tables``, ``morton_keys``,
@@ -38,9 +38,24 @@ same non-zero terms in the same order (the kernels build with
 only on its block: which 64 rays share a block (the Morton sort, kept
 stable as ``jnp.argsort`` is) decides near-tie winners.
 
-The plain versions (:func:`plain_cull`, :func:`plain_sweep`) take the same
-inputs and give the same outputs; a wrapper uses them only for tensors on
-the CPU.  On a CUDA tensor it launches its kernel or raises.
+Two tree walks, one thread per ray in csrc/fspt_bvh.cu, replace the
+reference's other two Pallas traversers (its callers are tests only; the
+port's are chip_smoke.py and the tests):
+
+* kernel 11, ``bvh_walk_kernel`` (:func:`make_bvh_traverser`), replaces
+  ``pallas_bvh.make_bvh_traverser``: the miss-link walk of
+  ``ops/bvh.traverse_bvh`` over a tree with ``max_leaf``-triangle leaves,
+  cross-product Möller–Trumbore, whose plain version is
+  :func:`ops.bvh.walk_bvh`;
+* kernel 12, ``treelet_walk_kernel`` (:func:`make_treelet_traverser`),
+  replaces ``pallas_bvh.make_treelet_traverser``: the same walk over a tree
+  of 128-triangle leaves, each leaf tested with kernel 6's weight form
+  (plain version :func:`plain_treelet_walk`, per ray :func:`_leaf_test`).
+
+The plain versions (:func:`plain_cull`, :func:`plain_sweep`,
+:func:`ops.bvh.walk_bvh`, :func:`plain_treelet_walk`) take the same inputs
+and give the same outputs; a wrapper uses them only for tensors on the CPU.
+On a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -51,7 +66,7 @@ import numpy as np
 import torch
 
 from fspt_tpu_torch.ops import _build
-from fspt_tpu_torch.ops.bvh import FlatBVH
+from fspt_tpu_torch.ops.bvh import FlatBVH, _slab_entry, walk_bvh
 from fspt_tpu_torch.scene.geometry import INVALID_PARAM
 from fspt_tpu_torch.utils import vecmath as vm
 
@@ -69,6 +84,12 @@ NO_HIT = 0x7FFFFFFF
 # 9, the packed key 5): the counts behind chip_smoke.py's bounds.
 OPS_PER_SLAB = 30
 OPS_PER_TRIANGLE = 51
+# Float operations of the cross-product Möller–Trumbore of kernel 11 (two
+# crosses 18, three dots and the scale 17, the origin offset 3, the
+# parallel test 3, the reciprocal 2, the range tests 9, rounded up) and of a
+# node's slab test in the walks (as the cull's).
+OPS_PER_MT_TRIANGLE = 58
+OPS_PER_NODE = OPS_PER_SLAB
 
 TREELET_CULL = _build.KernelCounter(
     "treelet_cull", "fspt_bvh", "fspt_treelet_cull",
@@ -77,6 +98,12 @@ TREELET_SWEEP = _build.KernelCounter(
     "treelet_sweep", "fspt_bvh", "fspt_treelet_sweep",
     "fspt_tpu/ops/pallas_bvh.py:1460 make_culled_traverser.sweep (bodies kernel :1056, "
     "ring_kernel :1232)")
+BVH_WALK = _build.KernelCounter(
+    "bvh_walk", "fspt_bvh", "fspt_bvh_walk",
+    "fspt_tpu/ops/pallas_bvh.py:251 make_bvh_traverser (body kernel :94)")
+TREELET_WALK = _build.KernelCounter(
+    "treelet_walk", "fspt_bvh", "fspt_treelet_walk",
+    "fspt_tpu/ops/pallas_bvh.py:676 make_treelet_traverser (body kernel :538)")
 
 
 # ---------------------------------------------------------------------------
@@ -560,3 +587,200 @@ def make_mesh_intersector(scene_pack, plain: bool = False):
     intersect.traverser = trav
     intersect.sweep_inputs = sweep_inputs
     return intersect
+
+
+# ---------------------------------------------------------------------------
+# Kernel 11: the walk of a fine BVH
+
+
+def launch_bvh_walk(bvh: FlatBVH, start, seg, t_init):
+    """Launch kernel 11 on CUDA tensors; same contract as
+    :func:`ops.bvh.walk_bvh` with every leaf of ``bvh`` tested whole."""
+    dev = start.device
+    n, m, T = start.shape[0], bvh.n_nodes, bvh.tri_v0.shape[0]
+    for name, t, dtype, shape in (
+            ("start", start, torch.float32, (n, 3)), ("seg", seg, torch.float32, (n, 3)),
+            ("t_init", t_init, torch.float32, (n,)),
+            ("bmin", bvh.bmin, torch.float32, (m, 3)), ("bmax", bvh.bmax, torch.float32, (m, 3)),
+            ("first", bvh.first, torch.int32, (m,)), ("count", bvh.count, torch.int32, (m,)),
+            ("miss", bvh.miss, torch.int32, (m,)), ("tri_v0", bvh.tri_v0, torch.float32, (T, 3)),
+            ("tri_e1", bvh.tri_e1, torch.float32, (T, 3)),
+            ("tri_e2", bvh.tri_e2, torch.float32, (T, 3)),
+            ("tri_area2", bvh.tri_area2, torch.float32, (T,)),
+            ("tri_id", bvh.tri_id, torch.int32, (T,))):
+        _build.check_cuda_tensor(name, t, dtype, shape, dev)
+    f32 = lambda: torch.empty((n,), dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda: torch.empty((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    t, ids, u, v, visits, tested = f32(), i32(), f32(), f32(), i32(), i32()
+    _build.launch(BVH_WALK, start.data_ptr(), seg.data_ptr(), t_init.data_ptr(), n,
+                  bvh.bmin.data_ptr(), bvh.bmax.data_ptr(), bvh.first.data_ptr(),
+                  bvh.count.data_ptr(), bvh.miss.data_ptr(), m, bvh.tri_v0.data_ptr(),
+                  bvh.tri_e1.data_ptr(), bvh.tri_e2.data_ptr(), bvh.tri_area2.data_ptr(),
+                  bvh.tri_id.data_ptr(), t.data_ptr(), ids.data_ptr(), u.data_ptr(),
+                  v.data_ptr(), visits.data_ptr(), tested.data_ptr(),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    return t, ids, u, v, visits, tested
+
+
+def make_bvh_traverser(bvh: FlatBVH, max_leaf: int, device=None, plain: bool = False):
+    """``fn(start[N,3], seg[N,3], t_init[N]=None) → (t, tri_id, u, v)``:
+    the closest triangle hit of each segment in ``bvh`` (leaves of at most
+    ``max_leaf`` triangles), tri_id −1 on a miss, where ``t`` is the seed
+    (``INVALID_PARAM`` by default).  Kernel 11 on CUDA rays,
+    :func:`ops.bvh.walk_bvh` on CPU ones or with ``plain=True``.
+    ``fn.walk`` gives also the nodes and triangles each ray tested."""
+    if device is not None:
+        bvh = FlatBVH(*(t.to(device) for t in bvh))
+    if int(bvh.count.max()) > max_leaf:
+        raise ValueError(f"a leaf of the tree holds {int(bvh.count.max())} triangles, "
+                         f"more than max_leaf={max_leaf}")
+
+    def walk(start, seg, t_init=None):
+        if t_init is None:
+            t_init = torch.full((start.shape[0],), INVALID_PARAM, dtype=torch.float32,
+                                device=start.device)
+        if plain or start.device.type == "cpu":
+            return walk_bvh(bvh, start, seg, t_init, max_leaf)
+        if start.device.type != "cuda":
+            raise ValueError(f"unsupported device {start.device}")
+        return launch_bvh_walk(bvh, start.contiguous(), seg.contiguous(),
+                               t_init.to(torch.float32).contiguous())
+
+    def traverse(start, seg, t_init=None):
+        return walk(start, seg, t_init)[:4]
+
+    traverse.walk = walk
+    traverse.bvh = bvh
+    return traverse
+
+
+# ---------------------------------------------------------------------------
+# Kernel 12: the walk of a tree of 128-triangle leaves
+
+
+class TreeletWalkTables(NamedTuple):
+    """The node table of a tree with leaves of at most 128 triangles, each
+    leaf's ordinal in :class:`TreeletTables` (node order; −1 on internal
+    nodes), and the leaf tables."""
+
+    bmin: torch.Tensor  # [M,3]
+    bmax: torch.Tensor  # [M,3]
+    count: torch.Tensor  # [M] int32
+    leaf_of: torch.Tensor  # [M] int32
+    miss: torch.Tensor  # [M] int32
+    tables: TreeletTables
+
+    @property
+    def n_nodes(self) -> int:
+        return self.bmin.shape[0]
+
+
+def treelet_walk_tables(bvh: FlatBVH, device=None) -> TreeletWalkTables:
+    dev = bvh.tri_v0.device if device is None else device
+    leaf = bvh.count > 0
+    leaf_of = torch.where(leaf, torch.cumsum(leaf.to(torch.int32), 0) - 1, -1)
+    return TreeletWalkTables(bmin=bvh.bmin.to(dev), bmax=bvh.bmax.to(dev),
+                             count=bvh.count.to(dev), leaf_of=leaf_of.to(torch.int32).to(dev),
+                             miss=bvh.miss.to(dev), tables=treelet_tables(bvh, device=dev))
+
+
+#: Rays per batch of the plain walk's leaf tests (bounds its [rays, 128, 20]
+#: weight gathers).
+PLAIN_LEAF_BATCH = 8192
+
+
+def plain_treelet_walk(F, wt: TreeletWalkTables):
+    """Plain version of kernel 12: ``F [n_pad,16] → (t [n_pad] f32, best
+    [n_pad] i32, visits [n_pad] i32, tested [n_pad] i32)``.
+
+    Each ray walks the tree as :func:`ops.bvh.walk_bvh` does (rays with
+    ``t0 ≤ 0`` are dead); at each leaf whose box it enters before its best
+    t, :func:`_leaf_test` against the leaf's 128 triangles; it keeps the
+    quantized t of the packed key and ``best = leaf·128 + column`` (−1:
+    none).  ``visits`` counts the nodes each ray tested, ``tested`` the
+    triangles of the leaves it swept (their real counts, not the pad
+    columns of the 128-wide test).
+    """
+    n, dev, m = F.shape[0], F.device, wt.n_nodes
+    o, d = F[:, 6:9], F[:, 0:3]
+    t_best = F[:, 10].clone()
+    best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    node = torch.where(t_best > 0.0, 0, m).to(torch.int64)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    tested = torch.zeros((n,), dtype=torch.int32, device=dev)
+    count, leaf_of, miss = wt.count.long(), wt.leaf_of.long(), wt.miss.long()
+    weights = wt.tables.weights
+    while bool((node < m).any()):
+        active = node < m
+        nidx = torch.clamp(node, max=m - 1)
+        box_hit, entry = _slab_entry(wt.bmin[nidx], wt.bmax[nidx], o, d)
+        box_hit = box_hit & (entry <= t_best) & active
+        is_leaf = count[nidx] > 0
+        work = box_hit & is_leaf
+        visits += active.to(torch.int32)
+        tested += torch.where(work, count[nidx], 0).to(torch.int32)
+        for lanes in torch.nonzero(work)[:, 0].split(PLAIN_LEAF_BATCH):
+            leaf = leaf_of[nidx[lanes]]
+            kmin = _leaf_test(F[lanes][:, None, :], weights[leaf], t_best[lanes][:, None])[:, 0]
+            hit = kmin < NO_HIT
+            best[lanes] = torch.where(hit, (leaf * TREELET).to(torch.int32)
+                                      + (kmin & (TREELET - 1)), best[lanes])
+            t_best[lanes] = torch.where(hit, (kmin & ~(TREELET - 1)).view(torch.float32),
+                                        t_best[lanes])
+        node = torch.where(active, torch.where(box_hit & ~is_leaf, nidx + 1, miss[nidx]), node)
+    return t_best, best, visits, tested
+
+
+def launch_treelet_walk(F, wt: TreeletWalkTables):
+    """Launch kernel 12 on CUDA tensors; same contract as
+    :func:`plain_treelet_walk`."""
+    dev = F.device
+    n_pad, m, L = F.shape[0], wt.n_nodes, wt.tables.n_leaves
+    for name, t, dtype, shape in (
+            ("F", F, torch.float32, (n_pad, N_FEATURES)),
+            ("bmin", wt.bmin, torch.float32, (m, 3)), ("bmax", wt.bmax, torch.float32, (m, 3)),
+            ("count", wt.count, torch.int32, (m,)), ("leaf_of", wt.leaf_of, torch.int32, (m,)),
+            ("miss", wt.miss, torch.int32, (m,)),
+            ("weights", wt.tables.weights, torch.float32, (L, TREELET, W_ROWS))):
+        _build.check_cuda_tensor(name, t, dtype, shape, dev)
+    t = torch.empty((n_pad,), dtype=torch.float32, device=dev)
+    best, visits, tested = (torch.empty((n_pad,), dtype=torch.int32, device=dev)
+                            for _ in range(3))
+    _build.launch(TREELET_WALK, F.data_ptr(), n_pad, wt.bmin.data_ptr(), wt.bmax.data_ptr(),
+                  wt.count.data_ptr(), wt.leaf_of.data_ptr(), wt.miss.data_ptr(), m,
+                  wt.tables.weights.data_ptr(), t.data_ptr(), best.data_ptr(),
+                  visits.data_ptr(), tested.data_ptr(),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    return t, best, visits, tested
+
+
+def make_treelet_traverser(bvh: FlatBVH, device=None, plain: bool = False):
+    """``fn(start[N,3], seg[N,3], t_init[N]=None) → (t, tri_id, u, v)`` over
+    a tree with leaves of at most 128 triangles (``build_bvh(...,
+    max_leaf=TREELET)``; internal nodes are walked, unlike
+    :func:`make_culled_traverser`'s leaf list): kernel 12 on CUDA rays,
+    :func:`plain_treelet_walk` on CPU ones or with ``plain=True``, then
+    :func:`post` for the exact t, u, v and original id.  A miss returns the
+    seed t.  ``fn.walk(start, seg, t_init)`` gives the raw ``(t, best,
+    visits, tested)`` over the padded feature rows."""
+    wt = treelet_walk_tables(bvh, device=device)
+
+    def walk(start, seg, t_init=None):
+        F = ray_features(start, seg, t_init)
+        if plain or F.device.type == "cpu":
+            return plain_treelet_walk(F, wt)
+        if F.device.type != "cuda":
+            raise ValueError(f"unsupported device {F.device}")
+        return launch_treelet_walk(F, wt)
+
+    def traverse(start, seg, t_init=None):
+        n = start.shape[0]
+        t, best, _, _ = walk(start, seg, t_init)
+        t0 = (torch.full((n,), INVALID_PARAM, dtype=torch.float32, device=start.device)
+              if t_init is None else t_init.to(torch.float32))
+        best = best[:n]
+        return post(wt.tables, start, seg, torch.where(best >= 0, t[:n], t0), best)
+
+    traverse.walk = walk
+    traverse.walk_tables = wt
+    return traverse

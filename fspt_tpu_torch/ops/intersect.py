@@ -31,6 +31,13 @@ class Hit(NamedTuple):
     mat: torch.Tensor  # [N] int32 material row
     prim_kind: torch.Tensor  # [N] int32 (0..5) winning primitive type
     hit: torch.Tensor  # [N] bool
+    # World distance from the hit to the winning triangle's nearest edge
+    # (3e38 for other primitives); differentiable w.r.t. the vertices, it
+    # drives the integrator's edge reparameterization.
+    edge_dist: torch.Tensor | None = None
+    # Original index of the winning triangle (−1 for analytic primitives and
+    # misses), set by the BVH paths: ops/diff_intersect.py replays it.
+    prim_id: torch.Tensor | None = None
 
 
 def _best(t_candidates, valid):
@@ -64,10 +71,15 @@ def intersect_spheres(g: GeometryPack, start, seg):
     rr = (g.sph_radius * g.sph_radius)[None, :]
     c = oc2 - rr
     d = b * b - 4.0 * a * c
-    sq = torch.sqrt(torch.where(d >= 0.0, d, 1.0))
+    # A zero segment (a lane that stopped on a light keeps one) meets no
+    # sphere; guarding it as the missing rays are keeps its masked values
+    # finite, so their zero cotangents stay zero (the reference divides by
+    # 2a = 0, and its vertex gradient turns NaN from depth 3 on).
+    ok = (d >= 0.0) & (a > 0.0)
+    sq = torch.sqrt(torch.where(ok, d, 1.0))
     inside = oc2 <= rr
-    t = torch.where(inside, -b + sq, -b - sq) / (2.0 * a)
-    valid = (d >= 0.0) & (t >= 0.0) & (t <= 1.0) & g.sph_valid[None, :]
+    t = torch.where(inside, -b + sq, -b - sq) / torch.where(a > 0.0, 2.0 * a, 1.0)
+    valid = ok & (t >= 0.0) & (t <= 1.0) & g.sph_valid[None, :]
     t_best, idx = _best(t, valid)
     center = g.sph_center[idx]
     point = start + seg * t_best[:, None]
@@ -150,7 +162,20 @@ def intersect_triangles(g: GeometryPack, start, seg):
     normal = n0 + (n1 - n0) * u_best + (n2 - n0) * v_best
     t0, t1, t2 = g.tri_t0[idx], g.tri_t1[idx], g.tri_t2[idx]
     texcoords = t0 + (t1 - t0) * u_best + (t2 - t0) * v_best
-    return t_best, dict(normal=normal, mat=g.tri_mat[idx], texcoords=texcoords)
+    return t_best, dict(normal=normal, mat=g.tri_mat[idx], texcoords=texcoords,
+                        edge_dist=edge_distance(g.tri_e1[idx], g.tri_e2[idx],
+                                                g.tri_area2[idx], u_best[:, 0],
+                                                v_best[:, 0]))
+
+
+def edge_distance(e1, e2, area2, u, v):
+    """World distance from the hit at barycentrics ``(u, v)`` to the
+    triangle's nearest edge: each barycentric times the height over its
+    edge (2·area / edge length)."""
+    d_u = u * area2 / torch.clamp(vm.length(e2), min=1e-30)
+    d_v = v * area2 / torch.clamp(vm.length(e1), min=1e-30)
+    d_w = (1.0 - u - v) * area2 / torch.clamp(vm.length(e2 - e1), min=1e-30)
+    return torch.minimum(torch.minimum(d_u, d_v), d_w)
 
 
 def intersect_scene(g: GeometryPack, start, seg) -> Hit:
@@ -181,5 +206,6 @@ def intersect_scene(g: GeometryPack, start, seg) -> Hit:
     texcoords = torch.where((kind == KIND_TRIANGLE)[:, None],
                             results[5][1]["texcoords"], texcoords)
 
+    edge_dist = torch.where(kind == KIND_TRIANGLE, results[5][1]["edge_dist"], 3.0e38)
     return Hit(t=t_best, point=point, normal=normal, texcoords=texcoords,
-               mat=mat.to(torch.int32), prim_kind=kind, hit=hit)
+               mat=mat.to(torch.int32), prim_kind=kind, hit=hit, edge_dist=edge_dist)

@@ -47,6 +47,13 @@ the packed winner, its t and the leaf visits (kernel 6).  Both sides add
 the same terms in the same order, so anything less is a fault.  The mesh
 frame on the kernel path (kernels 1, 5, 6) against the plain path: the
 path bar above, with equal segment counts.
+
+Tree walks (11, 12), at the reference's bars (tests/test_pallas_bvh.py:
+37-63): kernel 11's t within rtol 1e-5 / atol 1e-7 and its ids equal on
+every hit; kernel 12's t within rtol 1e-4 / atol 1e-6, ids equal on
+≥ 99.9 % of hits, u within rtol 1e-3 / atol 1e-4.  Both add the same terms
+in the same order as their plain versions, so the reports also give the
+bit-equal shares (and the equal node and triangle counts), expected 1.0.
 """
 
 from __future__ import annotations
@@ -73,7 +80,8 @@ def random_segments(n: int, seed: int, device, box: float = 48.0):
 
 
 def _frac_close(a, b, rtol, atol):
-    return torch.isclose(a, b, rtol=rtol, atol=atol).float().mean().item()
+    """Share of values of ``a`` close to ``b``, from an integer count."""
+    return _frac_equal(torch.isclose(a, b, rtol=rtol, atol=atol), True)
 
 
 def _frac_equal(a, b):
@@ -472,4 +480,60 @@ def check_mesh_frame(scene_pack, camera, cfg, seed: int, sample0: int = 0,
     torch.cuda.synchronize()
     rep = compare_paths(*outs)
     assert rep["segments"] == rep["plain_segments"], rep
+    return rep
+
+
+def _walk_report(k, p, names) -> dict:
+    """Bit-equal share of each output of a walk, kernel against plain."""
+    return {f"{name}_equal": _frac_equal(a, b) for name, a, b in zip(names, k, p)}
+
+
+def check_bvh_walk(traverser, start, seg, t_init) -> dict:
+    """Kernel 11 against :func:`ops.bvh.walk_bvh` on the same CUDA rays
+    (``traverser`` from ``cuda_bvh.make_bvh_traverser``)."""
+    from fspt_tpu_torch.ops.bvh import walk_bvh
+
+    bvh = traverser.bvh
+    max_leaf = int(bvh.count.max())
+    k = cuda_bvh.launch_bvh_walk(bvh, start, seg, t_init)
+    p = walk_bvh(bvh, start, seg, t_init, max_leaf)
+    torch.cuda.synchronize()
+    hit = p[1] >= 0
+    rep = dict(rays=start.shape[0], live_fraction=(t_init > 0).float().mean().item(),
+               hit_fraction=hit.float().mean().item(),
+               t_close=_frac_close(k[0], p[0], 1e-5, 1e-7),
+               ids_equal_on_hits=_frac_equal(k[1][hit], p[1][hit]),
+               mean_visits=p[4].float().mean().item(), max_visits=int(p[4].max()),
+               mean_tested=p[5].float().mean().item(),
+               max_abs_err=_max_abs(k[0], p[0]))
+    rep.update(_walk_report(k, p, ("t", "ids", "u", "v", "visits", "tested")))
+    assert rep["t_close"] == 1.0 and rep["ids_equal_on_hits"] == 1.0, rep
+    return rep
+
+
+def check_treelet_walk(traverser, start, seg, t_init) -> dict:
+    """Kernel 12 against :func:`cuda_bvh.plain_treelet_walk` on the same
+    CUDA rays (``traverser`` from ``cuda_bvh.make_treelet_traverser``): the
+    raw walk outputs, and ``(t, tri_id, u)`` after :func:`cuda_bvh.post`."""
+    wt = traverser.walk_tables
+    n = start.shape[0]
+    F = cuda_bvh.ray_features(start, seg, t_init)
+    k = cuda_bvh.launch_treelet_walk(F, wt)
+    p = cuda_bvh.plain_treelet_walk(F, wt)
+    torch.cuda.synchronize()
+    post_k, post_p = (cuda_bvh.post(wt.tables, start, seg,
+                                    torch.where(w[1][:n] >= 0, w[0][:n], t_init), w[1][:n])
+                      for w in (k, p))
+    hit = post_p[1] >= 0
+    rep = dict(rays=n, live_fraction=(t_init > 0).float().mean().item(),
+               hit_fraction=hit.float().mean().item(),
+               t_close=_frac_close(post_k[0], post_p[0], 1e-4, 1e-6),
+               ids_equal_on_hits=_frac_equal(post_k[1][hit], post_p[1][hit]),
+               u_close_on_hits=_frac_close(post_k[2][hit], post_p[2][hit], 1e-3, 1e-4),
+               mean_visits=p[2].float().mean().item(), max_visits=int(p[2].max()),
+               mean_tested=p[3].float().mean().item(),
+               max_abs_err=_max_abs(post_k[0], post_p[0]))
+    rep.update(_walk_report(k, p, ("t", "best", "visits", "tested")))
+    assert (rep["t_close"] == 1.0 and rep["ids_equal_on_hits"] >= FRACTION
+            and rep["u_close_on_hits"] == 1.0), rep
     return rep

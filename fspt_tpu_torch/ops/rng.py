@@ -13,7 +13,9 @@ Stream layout (shared with the reference and its oracle):
 * camera draws use counters ``CTR_CAMERA + slot`` (jitter_x, jitter_y,
   lens_angle, lens_radius);
 * bounce ``d`` draws use ``CTR_BOUNCE + d * bounce_slots + slot`` with slots
-  ``(choice, dir_a, dir_b, aux)``.
+  ``(choice, dir_a, dir_b, aux)``;
+* the edge-reparameterization draw of bounce ``d`` uses ``CTR_EDGE + d``,
+  far from the bounce range, so drawing it never shifts a material stream.
 
 Functions accept Python ints or integer tensors and return the hash as an
 ``int64`` tensor (or int) holding the ``uint32`` value.
@@ -26,6 +28,7 @@ import torch
 
 CTR_CAMERA = 0
 CTR_BOUNCE = 16
+CTR_EDGE = 4096
 
 _M32 = 0xFFFFFFFF
 _SEED_XOR = 0x9E3779B9
@@ -93,3 +96,9 @@ def bounce_uniforms(seed, pixel, sample, depth, bounce_slots=4):
     base = CTR_BOUNCE + depth * bounce_slots
     return torch.stack([counter_uniform(hs, base + s) for s in range(4)],
                        dim=-1)
+
+
+def edge_uniform(seed, pixel, sample, depth):
+    """The per-bounce edge-reparameterization uniform (its own counter
+    namespace); ``depth`` may be an int or a per-lane tensor."""
+    return stream_uniform(seed, pixel, sample, CTR_EDGE + depth)

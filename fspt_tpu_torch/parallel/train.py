@@ -1,8 +1,9 @@
 """Differentiable recovery on one device: gradient steps on scene parameters.
 
 Port of fspt_tpu/parallel/train.py for one device: optimize material albedo,
-emission, glow or texels so the rendered image matches a target (the
-reference's BASELINE configs 4-5).  The reference shards rays over a device
+emission, glow, texels, the scalar fields, the camera or triangle vertices
+so the rendered image matches a target (the reference's BASELINE configs
+4-5).  The reference shards rays over a device
 mesh and ``pmean``-reduces the gradients; this slice takes ``mesh=None``
 only, and the sharded form comes with the port's parallel slice.
 
@@ -11,7 +12,9 @@ ops/cuda_grad.py — kernel 8 (the fused dual-buffer loss, affine or whole
 chain), kernels 9-10 (the path tracer with run-time parameters and its
 adjoint) and kernel 7 (the affine slot planes, folded under torch autograd) —
 and, by default, torch autograd of the whole wavefront renderer
-(:func:`render_image_rows`).
+(:func:`render_image_rows`); vertex recovery differentiates the wavefront
+renderer through the brute-force intersector or, on BVH scenes, through the
+hit-id replay of ops/diff_intersect.py.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.render import integrator
+from fspt_tpu_torch.utils import vecmath as vm
 
 DISTRIBUTED_SLICE = ("a device mesh comes with the parallel slice of the port "
                      "(torch.distributed); pass mesh=None")
@@ -41,6 +45,21 @@ def _apply_params(scene, params):
     """Swap the optimizable columns into the scene's material table."""
     table = scene.materials._replace(**params)
     return scene._replace(materials=table)
+
+
+def apply_vertices(scene, params):
+    """Swap optimizable vertices ``{v0, v1, v2}`` into the geometry,
+    rebuilding the derived fields (edges, geometric and flat shading
+    normals, 2·area) so the brute-force intersector stays differentiable in
+    them."""
+    v0, v1, v2 = params["v0"], params["v1"], params["v2"]
+    e1, e2 = v1 - v0, v2 - v0
+    cr = vm.cross(e1, e2)
+    area2 = torch.linalg.vector_norm(cr, dim=-1)
+    ng = cr / torch.clamp(area2, min=1e-30)[:, None]
+    g = scene.geometry._replace(tri_v0=v0, tri_e1=e1, tri_e2=e2, tri_ng=ng,
+                                tri_area2=area2, tri_n0=ng, tri_n1=ng, tri_n2=ng)
+    return scene._replace(geometry=g)
 
 
 def render_image_rows(scene, camera, cfg: RenderConfig, seed, frame_idx, y0, rows,
@@ -69,8 +88,9 @@ class RecoveryState(NamedTuple):
 
 def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissive"),
                        lr: float = 0.5, optimizer=None, constraints=None,
-                       apply_fn=_apply_params, pool: int = 8, render_fn=None,
-                       loss_fn=None, loss_and_grad_fn=None):
+                       apply_fn=_apply_params, pool: int = 8, intersector_bind=None,
+                       render_fn=None, pair_render_fn=None, loss_fn=None,
+                       loss_and_grad_fn=None):
     """A gradient step on the named parameters (material-table columns or
     ``texels``), on one device.
 
@@ -88,9 +108,12 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
     The loss: two independently sampled buffers (``frame_idx`` and
     ``frame_idx + 10007``) are rendered, by default with
     :func:`render_image_rows` of ``apply_fn(scene, params)`` (torch
-    autograd of the whole renderer), or by ``render_fn(params, scene,
-    camera, seed, frame_idx, y0, rows) → [rows,W,3]``; their residuals are
-    pooled over ``pool``×``pool`` patches and
+    autograd of the whole renderer; ``intersector_bind(params)`` gives its
+    intersector), or by ``render_fn(params, scene, camera, seed, frame_idx,
+    y0, rows) → [rows,W,3]``, or both at once by ``pair_render_fn(params,
+    scene, camera, seed, frame_idx, y0, rows) → (img_a, img_b)`` (renderers
+    that share work between the buffers, as the two-phase BVH replay does);
+    their residuals are pooled over ``pool``×``pool`` patches and
     multiplied (the dual-buffer product: unbiased where plain MSE against a
     Monte Carlo render is not).  ``loss_fn(img_a, img_b, target)`` replaces
     that objective; torch autograd gives the gradient.
@@ -99,9 +122,7 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
     ops/cuda_grad.make_fused_loss_grad_fn).
 
     ``mesh`` must be None: the reference's sharded form comes with the
-    parallel slice and raises ``NotImplementedError``.  Its
-    ``pair_render_fn`` and ``intersector_bind`` hooks (whose callers are the
-    vertex recoveries) come with the vertex slice.
+    parallel slice and raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError(DISTRIBUTED_SLICE)
@@ -114,13 +135,18 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
             return loss, grads
         leaves = {k: params[k].detach().clone().requires_grad_() for k in param_names}
         live = {**params, **leaves}
-        if render_fn is not None:
+        if pair_render_fn is not None:
+            img_a, img_b = pair_render_fn(live, scene, camera, seed, frame_idx, 0, rows)
+        elif render_fn is not None:
             img_a = render_fn(live, scene, camera, seed, frame_idx, 0, rows)
             img_b = render_fn(live, scene, camera, seed, frame_idx + 10007, 0, rows)
         else:
             scene = apply_fn(scene, live)
-            img_a = render_image_rows(scene, camera, cfg, seed, frame_idx, 0, rows)
-            img_b = render_image_rows(scene, camera, cfg, seed, frame_idx + 10007, 0, rows)
+            inter = None if intersector_bind is None else intersector_bind(live)
+            img_a = render_image_rows(scene, camera, cfg, seed, frame_idx, 0, rows,
+                                      intersector=inter)
+            img_b = render_image_rows(scene, camera, cfg, seed, frame_idx + 10007, 0, rows,
+                                      intersector=inter)
         if loss_fn is not None:
             loss = loss_fn(img_a, img_b, target)
         else:
@@ -224,3 +250,114 @@ def make_fused_recovery_step(mesh, scene, camera, cfg: RenderConfig,
     return make_recovery_step(None, cfg, param_names=fields, lr=lr, optimizer=optimizer,
                               constraints=constraints, pool=pool, render_fn=render_fn,
                               loss_fn=loss_fn)
+
+
+VERTICES = ("v0", "v1", "v2")
+
+
+def make_vertex_recovery_step(mesh, cfg: RenderConfig, lr: float = 0.05, optimizer=None,
+                              pool: int = 1):
+    """Vertex recovery on a scene without a BVH (BASELINE config 5):
+    ``params`` is ``{"v0", "v1", "v2": [T,3]}``, the geometry is rebuilt
+    from them (:func:`apply_vertices`) and torch autograd runs through the
+    brute-force intersector.  ``cfg.edge_eps`` should be > 0, so that
+    silhouette motion is differentiable; no constraints.  ``mesh`` must be
+    None."""
+    return make_recovery_step(mesh, cfg, param_names=VERTICES, lr=lr, optimizer=optimizer,
+                              constraints={}, apply_fn=apply_vertices, pool=pool)
+
+
+def make_bvh_vertex_recovery_step(mesh, cfg: RenderConfig, scene, lr: float = 0.05,
+                                  optimizer=None, pool: int = 1, shade_normals="flat",
+                                  queue: int | None = None, use_queue: bool = False,
+                                  replay: str = "wavefront"):
+    """Vertex recovery on a BVH scene (100 k triangles and more) by
+    two-phase hit-id replay (reference parallel/train.py:294-426):
+
+    1. **record**, without gradients: both sample buffers go through one
+       render at ``2·spp`` (samples ``[0, spp)`` are buffer A, ``[spp,
+       2·spp)`` buffer B) with the replay intersector of
+       ops/diff_intersect.py over the fast mesh intersector (kernels 1, 5
+       and 6), keeping each segment's winner id and hit flag: the unrolled
+       wavefront (default) or, with ``use_queue``, the regenerating queue's
+       ``record_hits``;
+    2. **replay**, differentiable: the wavefront renders the same paths
+       again through :func:`ops.diff_intersect.make_recorded_replay`, one
+       Möller–Trumbore of the recorded winner per segment reading the
+       vertex tensors; torch autograd sees no traversal.
+
+    ``params`` is ``{"v0", "v1", "v2": [T,3]}`` in original triangle order
+    (start from ``diff_intersect.tris_from_scene``).  The BVH stays that of
+    the scene's build-time vertices: hits stay exact while moved triangles
+    stay inside their treelet boxes.  ``shade_normals="flat"`` re-derives
+    the shading normals from the vertices, ``"fixed"`` keeps the baked ones.
+    ``replay`` is ``"wavefront"`` or ``"auto"`` (the same); the reference's
+    ``"planar"`` replay is in ROADMAP.md's "Not ported" list and raises
+    ``ValueError``.  The returned step carries ``record(params, scene,
+    camera, seed, frame_idx, y0, rows) → (ids, hitm)``, phase 1 alone.
+    ``mesh`` must be None.
+    """
+    import dataclasses
+
+    from fspt_tpu_torch.ops.diff_intersect import (flat_normals, make_diff_mesh_intersector,
+                                                   make_recorded_replay, tris_from_scene)
+    from fspt_tpu_torch.render.queue import DEFAULT_QUEUE, render_queued
+
+    if mesh is not None:
+        raise NotImplementedError(DISTRIBUTED_SLICE)
+    if replay == "planar":
+        raise ValueError("the planar replay (make_planar_recorded_replay) is in ROADMAP.md's "
+                         "'Not ported' list; use replay='wavefront'")
+    if replay not in ("wavefront", "auto"):
+        raise ValueError(f"unknown replay {replay!r}")
+    if shade_normals not in ("flat", "fixed"):
+        raise ValueError(f"unknown shade_normals {shade_normals!r}")
+    diff = make_diff_mesh_intersector(scene)
+    if diff is None:
+        raise ValueError("scene has no BVH; use make_vertex_recovery_step")
+    baked = tris_from_scene(scene)
+    replay_bind = make_recorded_replay(scene)
+    cfg2 = dataclasses.replace(cfg, spp=2 * cfg.spp)
+    q = queue or DEFAULT_QUEUE
+
+    def bind_tris(params):
+        tr = dict(baked, **{k: params[k] for k in VERTICES})
+        if shade_normals == "flat":
+            tr["n0"] = tr["n1"] = tr["n2"] = flat_normals(tr["v0"], tr["v1"], tr["v2"])
+        return tr
+
+    @torch.no_grad()
+    def record(params, scene_in, camera, seed, frame_idx, y0, rows):
+        """Phase 1: the winner ids and hit flags ``[N, D]`` of both buffers."""
+        inner = diff.bind(bind_tris({k: params[k].detach() for k in VERTICES}))
+        if use_queue:
+            _, (ids, hitm) = render_queued(scene_in, camera, cfg2, seed, frame_idx * cfg2.spp,
+                                           y0=y0, rows=rows, intersector=inner, queue=q,
+                                           record_hits=True)
+            return ids, hitm
+        rec = []
+
+        def recorder(start, seg, alive=None):
+            h = inner(start, seg, alive)
+            rec.append((h.prim_id, h.hit))
+            return h
+
+        recorder.accepts_alive = True
+        integrator.render_wavefront(scene_in, camera, cfg2, seed, frame_idx * cfg2.spp,
+                                    y0=y0, rows=rows, intersector=recorder)
+        return (torch.stack([i for i, _ in rec], dim=1),
+                torch.stack([h for _, h in rec], dim=1))
+
+    def pair_render(params, scene_in, camera, seed, frame_idx, y0, rows):
+        ids, hitm = record(params, scene_in, camera, seed, frame_idx, y0, rows)
+        out = integrator.render_wavefront(scene_in, camera, cfg2, seed, frame_idx * cfg2.spp,
+                                          y0=y0, rows=rows,
+                                          intersector=replay_bind(bind_tris(params), ids, hitm))
+        rad = out.radiance.reshape(rows, cfg.width, 2, cfg.spp, 3)
+        return rad[:, :, 0].mean(dim=2), rad[:, :, 1].mean(dim=2)
+
+    step = make_recovery_step(None, cfg, param_names=VERTICES, lr=lr, optimizer=optimizer,
+                              constraints={}, apply_fn=lambda s, p: s, pool=pool,
+                              pair_render_fn=pair_render)
+    step.record = record
+    return step

@@ -58,6 +58,7 @@ def merge_triangle_hit(ts, base: Hit, start, seg, t_tri, tri_id, u, v, tri_hit_w
         mat=torch.where(w, ts.mat[tid], base.mat),
         prim_kind=torch.where(w, KIND_TRIANGLE, base.prim_kind),
         hit=base.hit | (tri_id >= 0),
+        prim_id=torch.where(w, tri_id, -1).to(torch.int32),
     )
 
 
@@ -67,6 +68,34 @@ def intersect_full(scene: ScenePack, start, seg) -> Hit:
     if scene.bvh is not None:
         return _intersect_with_bvh(scene, start, seg)
     return intersect_scene(scene.geometry, start, seg)
+
+
+def edge_reparameterize(cfg: RenderConfig, edge_dist, active, seg, sh, ue, throughput):
+    """Silhouette gradients (reference integrator.py:171-201).
+
+    Near a triangle edge the expected image is ``alpha·L_surface + (1 −
+    alpha)·L_background`` with ``alpha`` the coverage smoothed over
+    ``cfg.edge_eps``.  The blend is sampled (pass through the surface with
+    probability ``1 − alpha``, uniform ``ue``) and the throughput carries
+    ``alpha / detach(alpha)`` (or its pass-through twin): 1 in value, the
+    boundary term ``∂alpha / alpha`` in derivative.  Returns the throughput
+    and the shade record with the pass-through lanes continuing straight on.
+    """
+    alpha = torch.clamp(edge_dist / cfg.edge_eps, 0.0, 1.0)
+    pass_thru = active & (ue >= alpha)
+    keep = active & ~pass_thru
+    ratio = torch.where(
+        pass_thru, (1.0 - alpha) / torch.clamp((1.0 - alpha).detach(), min=1e-6),
+        torch.where(keep, alpha / torch.clamp(alpha.detach(), min=1e-6), 1.0))
+    p3 = pass_thru[:, None]
+    sh = sh._replace(
+        direction=torch.where(p3, vm.normalize(seg), sh.direction),
+        bias=torch.where(p3, 0.0, sh.bias),
+        coef=torch.where(p3, 1.0, sh.coef),
+        will_indirect=sh.will_indirect | pass_thru,
+        is_light=sh.is_light & ~pass_thru,
+        is_fog=sh.is_fog & ~pass_thru)
+    return throughput * ratio[:, None], sh
 
 
 class TraceOutput(NamedTuple):
@@ -85,12 +114,10 @@ def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,
     ``intersector(start, seg) → Hit`` overrides :func:`intersect_full`
     (e.g. the CUDA intersector of ops/cuda_trace.py); one with
     ``accepts_alive`` (the mesh intersector of ops/cuda_bvh.py) also gets
-    the lanes' liveness and skips the dead ones.
+    the lanes' liveness and skips the dead ones.  With ``cfg.edge_eps > 0``
+    and an intersector that gives ``Hit.edge_dist`` (brute force, the replay
+    of ops/diff_intersect.py), silhouettes are edge-reparameterized.
     """
-    if cfg.edge_eps > 0.0:
-        raise NotImplementedError(
-            "edge reparameterization comes with the vertex-recovery slice of the port "
-            "(ops/diff_intersect.py); use edge_eps=0")
     table = scene.materials
     tex = scene.textures
     dev = start.device
@@ -154,6 +181,11 @@ def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,
                                        cfg.bounce_slots)
         sh = mat_mod.shade(table, tex, hit.mat, view, normal, hit.texcoords,
                            uniforms)
+        if cfg.edge_eps > 0.0 and hit.edge_dist is not None:
+            throughput, sh = edge_reparameterize(cfg, hit.edge_dist, active, seg, sh,
+                                                 rng.edge_uniform(seed, pixel_idx,
+                                                                  sample_idx, depth),
+                                                 throughput)
 
         if depth == 0:
             aov_normal = torch.where(hit.hit[:, None], normal, view_dir)

@@ -19,8 +19,10 @@ schedule, and each output row is owned by one lane lineage.  The two agree
 to float rounding (tests/test_torch_queue.py).
 
 ``warm`` (from :func:`warm_frame`) resolves depth 0 outside the queue: the
-first-hit cache.  ``record_hits`` (winner ids for vertex recovery) comes
-with the vertex-recovery slice and raises.
+first-hit cache.  ``cfg.edge_eps > 0`` (edge reparameterization) rides
+per-lane masks like every other quirk, and ``record_hits`` scatters each
+traced segment's winner id into an ``[N, D]`` record: what the two-phase
+vertex recovery (parallel/train.make_bvh_vertex_recovery_step) replays.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from fspt_tpu_torch.camera import Camera, rays_for_lanes
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.ops import rng
 from fspt_tpu_torch.ops.intersect import Hit
-from fspt_tpu_torch.render.integrator import TraceOutput
+from fspt_tpu_torch.render.integrator import TraceOutput, edge_reparameterize
 from fspt_tpu_torch.scene.builder import ScenePack
 from fspt_tpu_torch.utils import vecmath as vm
 
@@ -60,19 +62,20 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
     ``warm`` (from :func:`warm_frame`, same ``cam_sample0``) resolves depth
     0 outside the queue: misses and light hits land in pre-filled output
     rows and only possibly-alive lanes enqueue, at depth 1.  It needs
-    ``cfg.effective_depth >= 2`` and no fast render.  The returned
-    ``segments`` then include the ``n`` cache-served depth-0 segments.
+    ``cfg.effective_depth >= 2``, no fast render, ``edge_eps == 0`` and no
+    ``record_hits``.  The returned ``segments`` then include the ``n``
+    cache-served depth-0 segments.
+
+    With ``record_hits=True`` the intersector must give ``Hit.prim_id``, and
+    the result is ``(TraceOutput, (ids [N, D] int32, hit [N, D] bool))``:
+    row ``(lane, d)`` holds the winner id and hit flag of the lane's
+    depth-``d`` segment (−1 / False where none was traced), ``D =
+    cfg.effective_depth``.
     """
-    if record_hits:
-        raise NotImplementedError(
-            "record_hits (winner ids for vertex recovery) comes with the "
-            "vertex-recovery slice of the port")
-    if cfg.edge_eps > 0.0:
-        raise NotImplementedError(
-            "edge reparameterization comes with the vertex-recovery slice of the port "
-            "(ops/diff_intersect.py); use edge_eps=0")
-    if warm is not None and (cfg.effective_depth < 2 or cfg.fast_render):
-        raise ValueError("warm start needs effective_depth >= 2 and no fast render")
+    if warm is not None and (cfg.effective_depth < 2 or cfg.fast_render
+                             or cfg.edge_eps != 0.0 or record_hits):
+        raise ValueError("warm start needs effective_depth >= 2, no fast render, "
+                         "edge_eps == 0 and no record_hits")
     if rows is None:
         rows = cfg.height
     if cam_sample0 is None:
@@ -86,10 +89,10 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
     limit = n if warm is None else warm["n_live"]
     iota = torch.arange(q, dtype=torch.int64, device=dev)
 
-    def scatter(buf, mask, idx, val):
+    def scatter(buf, mask, idx, val, pad_base=n):
         """Rows ``idx`` of the masked lanes get ``val``; every other lane
-        writes its own pad row ``n + lane``."""
-        tgt = torch.where(mask & (idx >= 0), idx.to(torch.int64), n + iota)
+        writes its own pad row ``pad_base + lane``."""
+        tgt = torch.where(mask & (idx >= 0), idx.to(torch.int64), pad_base + iota)
         buf[tgt] = val
         return buf
 
@@ -112,6 +115,10 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
     else:
         rad_buf, aov_n = pad(warm["radiance_init"]), pad(warm["aov_normal"])
         aov_d, aov_m = pad(warm["aov_depth"]), pad(warm["aov_mat"].to(torch.int32))
+    if record_hits:
+        # q pad rows past the n·D record rows, one per queue slot.
+        rec_ids = torch.full((n * eff_depth + q,), -1, dtype=torch.int32, device=dev)
+        rec_hit = torch.zeros((n * eff_depth + q,), dtype=torch.bool, device=dev)
 
     def refill(st):
         """Fresh primary rays into dead slots, in lane-id order."""
@@ -168,6 +175,10 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
         hit = _intersect(intersector, o, d, alive)
 
         lane_id = st["lane_id"]
+        if record_hits:
+            ridx = lane_id * eff_depth + depth
+            scatter(rec_ids, alive, ridx, hit.prim_id.to(torch.int32), n * eff_depth)
+            scatter(rec_hit, alive, ridx, hit.hit, n * eff_depth)
         pix = ((torch.div(lane_id, cfg.width * cfg.spp, rounding_mode="floor") + y0)
                * cfg.width + torch.remainder(
                    torch.div(lane_id, cfg.spp, rounding_mode="floor"), cfg.width))
@@ -195,6 +206,10 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
         view = vm.normalize(hit.point - o)
         uniforms = rng.bounce_uniforms(seed, pix, smp, depth, cfg.bounce_slots)
         sh = mat_mod.shade(table, tex, hit.mat, view, normal, hit.texcoords, uniforms)
+        if cfg.edge_eps > 0.0 and hit.edge_dist is not None:
+            throughput, sh = edge_reparameterize(cfg, hit.edge_dist, active, d, sh,
+                                                 rng.edge_uniform(seed, pix, smp, depth),
+                                                 throughput)
 
         at0 = depth == 0
         scatter(aov_n, at0, lane_id, torch.where(hit.hit[:, None], normal, view_dir))
@@ -235,8 +250,12 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
                   plh=plh)
 
     segments = st["segments"] + (n if warm is not None else 0)
-    return TraceOutput(radiance=rad_buf[:n], aov_normal=aov_n[:n], aov_depth=aov_d[:n],
-                       aov_mat=aov_m[:n], segments=segments)
+    out = TraceOutput(radiance=rad_buf[:n], aov_normal=aov_n[:n], aov_depth=aov_d[:n],
+                      aov_mat=aov_m[:n], segments=segments)
+    if record_hits:
+        return out, (rec_ids[:n * eff_depth].reshape(n, eff_depth),
+                     rec_hit[:n * eff_depth].reshape(n, eff_depth))
+    return out
 
 
 def compute_first_hits(scene: ScenePack, camera: Camera, cfg: RenderConfig,
@@ -256,7 +275,7 @@ def compute_first_hits(scene: ScenePack, camera: Camera, cfg: RenderConfig,
                                     cam_sample0, lanes, y0=y0)
         parts.append(_intersect(intersector, o, d,
                                 torch.ones(lanes.shape, dtype=torch.bool, device=dev)))
-    return Hit(*(torch.cat(f) for f in zip(*parts)))
+    return Hit(*(None if f[0] is None else torch.cat(f) for f in zip(*parts)))
 
 
 class WarmPose(NamedTuple):

@@ -12,6 +12,12 @@
   (tests/test_pallas_bvh.py:66-98): t at rtol 1e-4 / atol 1e-6, ids equal on
   ≥ 99.9 % of hits (near-tie winners depend on blocking), u at rtol 1e-3 /
   atol 1e-4; dead lanes win nothing;
+* the plain versions of kernels 11 (``make_bvh_traverser``, the fine tree)
+  and 12 (``make_treelet_traverser``, 128-triangle leaves) against the
+  reference's ``traverse_bvh`` at tests/test_pallas_bvh.py:37-63's bars (t
+  rtol 1e-5 / atol 1e-7 and ids equal on hits; t rtol 1e-4 / atol 1e-6, ids
+  on ≥ 99.9 % of hits, u rtol 1e-3 / atol 1e-4), dead lanes included; a
+  ``max_leaf=8`` tree against brute force;
 * whole renders of the heightfield sample: the port's BVH
   ``render_wavefront`` (its torch BVH walk, and the mesh intersector) against
   the reference's, at the path bar of tests/test_pallas_bvh.py:142-158
@@ -205,6 +211,84 @@ def test_torch_traverse_bvh_matches_reference():
     h = t_ref < 2.0
     np.testing.assert_allclose(u[h], u_ref[h], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(v[h], v_ref[h], rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def walk_case():
+    """3000 triangles, 1500 rays, and the reference's ``traverse_bvh`` of
+    them (tests/test_pallas_bvh.py:50-63's sizes)."""
+    v0, v1, v2 = _tris(3000, seed=4)
+    start, seg = _rays(1500, seed=5)
+    ref = tuple(np.asarray(a) for a in ref_bvh.traverse_bvh(ref_bvh.build_bvh(v0, v1, v2),
+                                                            start, seg))
+    return (v0, v1, v2), start, seg, ref
+
+
+@pytest.mark.parametrize("dead", [False, True])
+def test_walk_traversers_plain_match_xla(walk_case, dead):
+    """tests/test_pallas_bvh.py:37-63 with the plain versions of kernels 11
+    (fine tree) and 12 (tree of 128-triangle leaves) in place of the Pallas
+    kernels, at its bars; with ``dead``, every third lane has ``t_init =
+    0`` and must win nothing while the others keep their hits
+    (tests/test_pallas_bvh.py:82-98)."""
+    tris, start, seg, (t_ref, id_ref, u_ref, _) = walk_case
+    n = start.shape[0]
+    alive = np.ones(n, bool)
+    if dead:
+        alive[::3] = False
+    t0 = torch.from_numpy(np.where(alive, 2.0, 0.0).astype(np.float32)) if dead else None
+    s, d = torch.from_numpy(start), torch.from_numpy(seg)
+    k11 = cuda_bvh.make_bvh_traverser(bvh.build_bvh(*tris, device=CPU), bvh.MAX_LEAF_TRIS)
+    k12 = cuda_bvh.make_treelet_traverser(bvh.build_bvh(*tris, max_leaf=cuda_bvh.TREELET,
+                                                        device=CPU))
+    (t11, id11, _, _), (t12, id12, u12, _) = (tuple(a.numpy() for a in k(s, d, t0))
+                                              for k in (k11, k12))
+    h = alive & (t_ref < 2.0)
+    assert h.mean() > 0.2
+    np.testing.assert_allclose(t11[alive], t_ref[alive], rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(id11[h], id_ref[h])
+    np.testing.assert_allclose(t12[alive], t_ref[alive], rtol=1e-4, atol=1e-6)
+    assert (id12[h] == id_ref[h]).mean() > 0.999
+    np.testing.assert_allclose(u12[h], u_ref[h], rtol=1e-3, atol=1e-4)
+    if dead:
+        assert (id11[~alive] == -1).all() and (id12[~alive] == -1).all()
+        assert (t11[~alive] == 0.0).all() and (t12[~alive] == 0.0).all()
+
+
+def test_walk_counts_and_max_leaf_8_against_brute_force():
+    """A tree of 8-triangle leaves walked with ``max_leaf=8`` finds the
+    brute-force closest hit (with the default 4 it refuses instead of
+    dropping triangles); the walks count their work, dead lanes none."""
+    from fspt_tpu_torch.ops.intersect import intersect_triangles
+    from fspt_tpu_torch.scene.builder import SceneBuilder
+    from fspt_tpu_torch import materials as M
+    from fspt_tpu_torch.materials import MaterialSpec
+
+    v0, v1, v2 = _tris(600, seed=6)
+    start, seg = (torch.from_numpy(a) for a in _rays(800, seed=7))
+    tree = bvh.build_bvh(v0, v1, v2, max_leaf=8, device=CPU)
+    assert int(tree.count.max()) > bvh.MAX_LEAF_TRIS
+    with pytest.raises(ValueError, match="max_leaf"):
+        bvh.traverse_bvh(tree, start, seg)
+    with pytest.raises(ValueError, match="max_leaf"):
+        cuda_bvh.make_bvh_traverser(tree, bvh.MAX_LEAF_TRIS)
+    t, ids, _, _ = bvh.traverse_bvh(tree, start, seg, max_leaf=8)
+    b = SceneBuilder()
+    b.add_triangles(v0, v1, v2, b.add_material(MaterialSpec(M.DIFFUSE)))
+    geometry = b.compile(bvh_threshold=10 ** 9, device=CPU).geometry
+    t_bf, attrs = intersect_triangles(geometry, start, seg)
+    assert (t_bf < 2.0).float().mean() > 0.1
+    np.testing.assert_allclose(t.numpy(), t_bf.numpy(), rtol=1e-5, atol=1e-7)
+    t_init = torch.where(torch.arange(800) % 4 == 0, 0.0, 2.0)
+    *_, visits, tested = bvh.walk_bvh(tree, start, seg, t_init, max_leaf=8)
+    dead = t_init == 0
+    assert int(visits[dead].max()) == 0 and int(tested[dead].max()) == 0
+    assert int(visits[~dead].min()) >= 1 and int(tested.sum()) > 0
+    _, _, visits12, tested12 = cuda_bvh.make_treelet_traverser(
+        bvh.build_bvh(v0, v1, v2, max_leaf=cuda_bvh.TREELET, device=CPU)).walk(start, seg, t_init)
+    # Kernel 12 counts the real triangles of the leaves it sweeps.
+    assert int(visits12[:800][dead].max()) == 0 and int(tested12[:800][dead].max()) == 0
+    assert int(tested12.sum()) > 0 and int(tested12.max()) <= 600
 
 
 def _heightfield_pair(grid=10):

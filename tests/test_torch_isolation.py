@@ -16,7 +16,8 @@ MODULES = [
     "fspt_tpu_torch.ops._build", "fspt_tpu_torch.ops.bvh", "fspt_tpu_torch.ops.cuda_bvh",
     "fspt_tpu_torch.ops.cuda_grad",
     "fspt_tpu_torch.ops.cuda_path",
-    "fspt_tpu_torch.ops.cuda_trace", "fspt_tpu_torch.ops.diff_path",
+    "fspt_tpu_torch.ops.cuda_trace", "fspt_tpu_torch.ops.diff_intersect",
+    "fspt_tpu_torch.ops.diff_path",
     "fspt_tpu_torch.ops.intersect",
     "fspt_tpu_torch.ops.kernel_check", "fspt_tpu_torch.ops.rng",
     "fspt_tpu_torch.render.dispatch", "fspt_tpu_torch.render.framebuffer",
@@ -28,7 +29,8 @@ MODULES = [
     "fspt_tpu_torch.utils.native", "fspt_tpu_torch.utils.vecmath", "fspt_tpu_torch.parallel",
     "fspt_tpu_torch.parallel.train", "fspt_tpu_torch.examples",
     "fspt_tpu_torch.examples.recover_albedo", "fspt_tpu_torch.examples.recover_camera",
-    "fspt_tpu_torch.examples.recover_texture",
+    "fspt_tpu_torch.examples.recover_texture", "fspt_tpu_torch.examples.recover_vertices",
+    "fspt_tpu_torch.examples.recover_vertices_bvh",
     "chip_smoke",
 ]
 
@@ -70,11 +72,13 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--file", scene, "--width", "8", "--height", "8", "--frames", "1"])
     from fspt_tpu_torch import convert
-    from fspt_tpu_torch.examples import recover_albedo, recover_camera, recover_texture
+    from fspt_tpu_torch.examples import (recover_albedo, recover_camera, recover_texture,
+                                         recover_vertices, recover_vertices_bvh)
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_numpy({"diffuse": [[0.5, 0.5, 0.5]]})
-    for example in (recover_albedo, recover_texture, recover_camera):
+    for example in (recover_albedo, recover_texture, recover_camera, recover_vertices,
+                    recover_vertices_bvh):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.main(["--iters", "1"])
     # The mesh path: a BVH scene through the CLI (both estimators), the

@@ -158,3 +158,88 @@ def test_mesh_frame_matches_plain(cuda, heightfield):
     scene, cam = heightfield
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
     kernel_check.check_mesh_frame(scene, cam, cfg, seed=5, queue=1024)
+
+
+def test_walk_kernels_match_plain(cuda, heightfield):
+    """Kernels 11 (the scene's fine BVH) and 12 (a tree of 128-triangle
+    leaves over the same triangles) on the rays the mesh intersector's
+    sweep sees (sorted, seeded, dead lanes included) of a queue iteration's
+    bounces, and on primaries."""
+    from fspt_tpu_torch.camera import generate_rays
+    from fspt_tpu_torch.ops import bvh, cuda_bvh, kernel_check
+    from fspt_tpu_torch.ops.diff_intersect import tris_from_scene
+    from fspt_tpu_torch.render.queue import render_queued
+
+    scene, cam = heightfield
+    inter = cuda_bvh.make_mesh_intersector(scene)
+    calls = []
+
+    def recording(o, d, alive):
+        calls.append((o, d, alive))
+        return inter(o, d, alive)
+
+    recording.accepts_alive = True
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    render_queued(scene, cam, cfg, 3, 0, intersector=recording, queue=2048)
+    tr = tris_from_scene(scene)
+    k11 = cuda_bvh.make_bvh_traverser(scene.bvh, bvh.MAX_LEAF_TRIS)
+    k12 = cuda_bvh.make_treelet_traverser(bvh.build_bvh(
+        tr["v0"].cpu().numpy(), tr["v1"].cpu().numpy(), tr["v2"].cpu().numpy(),
+        max_leaf=cuda_bvh.TREELET, device=cuda))
+    start, seg, _, _ = generate_rays(cam, 64, 48, 2, 3, 0)
+    for o, d, alive in ((start, seg, None), calls[1]):
+        s, g, t_init, _ = inter.sweep_inputs(o, d, alive)
+        kernel_check.check_bvh_walk(k11, s, g, t_init)
+        kernel_check.check_treelet_walk(k12, s, g, t_init)
+
+
+def test_vertex_gather_rules(cuda, monkeypatch):
+    """The replay's stand-in rows (lanes without a triangle) spread over the
+    triangles, as ``diff_intersect._gather_rows`` does, against all on row
+    0 (the reference's ``max(tid, 0)``): the same gradient on a full-width
+    vertex step (heightfield, 99,458 triangles, 512²×2 spp, depth 2,
+    edge_eps 0.05), and each rule's ms a step printed (host clock, mean of
+    two steps after a warm-up; ``-s`` shows it).  On row 0 the gathers'
+    backward adds about a million lanes to one row in turn."""
+    import time
+
+    from fspt_tpu_torch.ops import diff_intersect
+    from fspt_tpu_torch.parallel import train
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("heightfield", device=cuda)
+    scene, cam = b.compile(device=cuda), b.cameras[0]
+    cfg = RenderConfig(width=512, height=512, spp=2, max_depth=2, edge_eps=0.05)
+    tris = diff_intersect.tris_from_scene(scene)
+    shift = torch.tensor([0.0, 0.5, 0.0], device=cuda)
+    params = {k: tris[k] + shift for k in train.VERTICES}
+    target = torch.zeros((cfg.height, cfg.width, 3), device=cuda)
+
+    class KeepGradients:  # an optimizer that keeps the gradient and moves nothing
+        def __init__(self, ps):
+            self.ps, self.grads = ps, None
+
+        def step(self):
+            self.grads = [p.grad.clone() for p in self.ps]
+
+    step = train.make_bvh_vertex_recovery_step(None, cfg, scene, optimizer=KeepGradients)
+    rules = {"spread": diff_intersect._gather_rows,
+             "row 0": lambda tid_raw, n_rows: torch.clamp(tid_raw, min=0).long()}
+    grads, ms = {}, {}
+    for name, rule in rules.items():
+        monkeypatch.setattr(diff_intersect, "_gather_rows", rule)
+        state = step.init(params)
+        step(params, state, scene, cam, target, 11, 1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(params, state, scene, cam, target, 11, 1)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / 2 * 1e3
+        grads[name] = state.optimizer.grads
+    print(f"vertex step 512x512x2, depth 2: stand-in rows spread {ms['spread']:.1f} ms, "
+          f"row 0 {ms['row 0']:.1f} ms a step")
+    for spread, row0 in zip(grads["spread"], grads["row 0"]):
+        assert bool(torch.isfinite(spread).all()) and float(spread.abs().max()) > 0.0
+        torch.testing.assert_close(row0, spread, rtol=1e-5,
+                                   atol=1e-6 * float(spread.abs().max()))

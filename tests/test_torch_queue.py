@@ -10,6 +10,9 @@
 * The warm-start first-hit cache equals the uncached render of the same
   frozen-jitter estimator (``cam_sample0 = 0``) at the same bar, as in
   tests/test_queue.py.
+* With ``edge_eps`` the queue equals the wavefront (hit-id replay
+  intersector), and the winners it records (``record_hits``), replayed
+  through the wavefront, reproduce its render (tests/test_queue.py:120-160).
 * The CLI renders a ``write_heightfield_scene`` output on the CPU with and
   without ``--first-hit-cache``, the two close to the reference's queued
   mesh render of the same frames; it refuses to resume a checkpoint made
@@ -113,8 +116,53 @@ def test_dispatch_takes_the_queued_mesh_path(mesh):
                        cache_fn(scene, cam, 3))
     assert int(segs) > 0 and int(segs2) > 0
     assert torch.isfinite(fb.mean).all() and torch.isfinite(fb2.mean).all()
-    with pytest.raises(NotImplementedError, match="vertex-recovery"):
-        render_queued(scene, cam, cfg, 3, 0, intersector=inter, record_hits=True)
+    # The winner record of the vertex recovery: one row per lane and depth.
+    out, (ids, hitm) = render_queued(scene, cam, cfg, 3, 0, intersector=inter,
+                                     record_hits=True, queue=20)
+    assert ids.shape == hitm.shape == (6 * 8, 3) and ids.dtype == torch.int32
+    assert int((ids >= 0).sum()) > 0 and bool(hitm[:, 0].any())
+    ref = render_queued(scene, cam, cfg, 3, 0, intersector=inter, queue=20)
+    assert torch.equal(out.radiance, ref.radiance)
+
+
+@pytest.fixture(scope="module")
+def diff_mesh(mesh):
+    from fspt_tpu_torch.ops.diff_intersect import make_diff_mesh_intersector
+
+    scene, cam, _ = mesh
+    return scene, cam, make_diff_mesh_intersector(scene)
+
+
+def test_queue_edge_eps_matches_wavefront(diff_mesh):
+    """Edge reparameterization rides the queue's per-lane masks: the same
+    pass-through decisions and ratios as the unrolled loop
+    (tests/test_queue.py:120 at its bar)."""
+    scene, cam, diff = diff_mesh
+    cfg = RenderConfig(width=16, height=12, spp=2, max_depth=3, edge_eps=0.05)
+    ref = integrator.render_wavefront(scene, cam, cfg, 11, 3, intersector=diff)
+    out = render_queued(scene, cam, cfg, 11, 3, intersector=diff, queue=100)
+    _close(ref, out)
+    plain = integrator.render_wavefront(scene, cam, RenderConfig(width=16, height=12, spp=2,
+                                                                 max_depth=3), 11, 3,
+                                        intersector=diff)
+    assert not torch.equal(plain.radiance, ref.radiance)  # the edge block ran
+
+
+def test_recorded_replay_matches_queue(diff_mesh):
+    """Winner ids recorded by the queue, replayed through the unrolled loop,
+    reproduce the queued render (tests/test_queue.py:140)."""
+    from fspt_tpu_torch.ops.diff_intersect import make_recorded_replay, tris_from_scene
+
+    scene, cam, diff = diff_mesh
+    cfg = RenderConfig(width=16, height=12, spp=2, max_depth=3, edge_eps=0.05)
+    out, (ids, hitm) = render_queued(scene, cam, cfg, 7, 5, intersector=diff, queue=256,
+                                     record_hits=True)
+    assert ids.shape == (16 * 12 * 2, 3) and hitm.shape == ids.shape
+    assert int((ids >= 0).sum()) > 0
+    rep = integrator.render_wavefront(
+        scene, cam, cfg, 7, 5,
+        intersector=make_recorded_replay(scene)(tris_from_scene(scene), ids, hitm))
+    _close(out, rep)
 
 
 def _reference_queued(scene_file, w, h, spp, depth, frames, seed, cached):

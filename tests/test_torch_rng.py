@@ -49,6 +49,20 @@ def test_uniforms_exact(seed):
             ref.bounce_uniforms(seed, pix, smp, depth))
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_edge_uniform_exact(seed):
+    pix, smp, _ = _coords(seed)
+    for depth in (0, 1, 7):
+        np.testing.assert_array_equal(
+            port.edge_uniform(seed, _t64(pix), _t64(smp), depth).numpy(),
+            ref.edge_uniform(seed, pix, smp, depth))
+    # A per-lane depth tensor (the queue's) draws each lane's own counter.
+    depths = np.arange(len(pix)) % 5
+    np.testing.assert_array_equal(
+        port.edge_uniform(seed, _t64(pix), _t64(smp), _t64(depths)).numpy(),
+        ref.edge_uniform(seed, pix, smp, depths.astype(np.uint32)))
+
+
 def test_seed_hash_matches_pcg_of_seed():
     for seed in SEEDS:
         want = int(ref.pcg_hash(np.uint32(seed & 0xFFFFFFFF) ^ np.uint32(0x9E3779B9)))

@@ -24,7 +24,8 @@ from fspt_tpu.parallel.train import make_recovery_step as ref_make_recovery_step
 from fspt_tpu.parallel.train import render_image_rows as ref_render_image_rows
 from fspt_tpu_torch import convert
 from fspt_tpu_torch.config import RenderConfig
-from fspt_tpu_torch.examples import recover_albedo, recover_camera, recover_texture
+from fspt_tpu_torch.examples import (recover_albedo, recover_camera, recover_texture,
+                                     recover_vertices, recover_vertices_bvh)
 from fspt_tpu_torch.ops import cuda_grad
 from fspt_tpu_torch.parallel import train
 
@@ -207,20 +208,25 @@ def test_recover_camera_loss_falls_on_the_cpu(tmp_path):
     assert res["origin_err_end"] < res["origin_err_start"], res
 
 
-# Sample counts of the camera example's stages, cut to a CPU run's size.
+# Sample counts of the camera example's stages, cut to a CPU run's size; the
+# BVH vertex example at its smallest grid, without its convergence check
+# (two iterations cannot converge).
 TINY_ARGS = {recover_camera: ["--coarse-spp", "4", "--fine-spp", "2", "--target-frames", "2",
-                              "--grad-frames", "1"]}
+                              "--grad-frames", "1"],
+             recover_vertices_bvh: ["--grid", "7", "--no-check"]}
 
 
 @pytest.mark.parametrize("example,outputs", [
     (recover_albedo, ("target.png", "recovered.png")),
     (recover_texture, ("_render.png", "_target.png")),
     (recover_camera, ("target.png", "recovered.png")),
+    (recover_vertices, ("target.png", "recovered.png")),
+    (recover_vertices_bvh, ()),
 ])
 def test_examples_run_on_the_cpu(example, outputs, tmp_path, capsys):
     out = str(tmp_path / "out")
-    rc = example.main(["--device", "cpu", "--width", "16", "--height", "12",
-                       "--iters", "2", "--out", out] + TINY_ARGS.get(example, []))
+    rc = example.main(["--device", "cpu", "--width", "16", "--height", "12", "--iters", "2"]
+                      + (["--out", out] if outputs else []) + TINY_ARGS.get(example, []))
     assert rc == 0
     printed = capsys.readouterr().out
     assert printed.count("iter ") == 2
