@@ -52,17 +52,23 @@ Phases, each announced by one line:
    (written by ``samples.write_heightfield_scene``) at 1024×1024, 4 spp,
    depth 4, 3 frames, then again with ``--first-hit-cache``; kernels 1, 5
    and 6 launch once per queue iteration, and the image must be lit;
-17. mesh timings: the frame step (ms/frame, segments/s), kernels 5 and 6
-   per launch on one full queue iteration (262,144 rays) of primaries and
-   of bounce rays and per frame, the key sort, the post-pass, the queue's
-   torch work, beside the plain versions and the bounds; a profiler window;
-18. kernels 9 (grad_forward), 10 (grad_backward) and kernel 8's whole
-   chain (fused_loss_chain, and remat: the same kernel) against their plain
-   versions (the body with run-time table tensors, under autograd) at
-   128×128, 2 spp, depth 4, thin-lens cameras: all families with the seven
-   material fields, the flagship with diffuse/emissive/param and with the
-   camera (alone and joint); then the plain versions' and the kernels'
-   times at that size;
+17. mesh timings: the frame step (ms/frame, segments/s) through
+   ``make_scene_step(queue=)`` at the reference's mesh_100k queue (1 << 17,
+   bench.py:155; profiled) and at the port's default (1 << 18), kernels 5
+   and 6 per launch on one full default-queue iteration (262,144 rays) of
+   primaries and of bounce rays and per frame, the key sort, the post-pass,
+   the queue's torch work, beside the plain versions and the bounds;
+18. kernels 9 (grad_forward), 10 (grad_backward, reverse mode) and kernel
+   8's whole chain (fused_loss_chain, reverse mode, and remat: the same
+   kernel) against their plain versions (the body with run-time table
+   tensors, under autograd) at 128×128, 2 spp, depth 4, thin-lens cameras:
+   all families with the seven material fields, the flagship with
+   diffuse/emissive/param and with the camera (alone and joint); kernels 10
+   and 8 against their forward-mode witnesses (grad_backward_fwdmode,
+   fused_loss_chain_fwdmode: no user path launches them) on the same inputs
+   (all families, P = 169; the flagship camera), two reverse launches bit
+   for bit; then the plain versions', the kernels' and the witnesses' times
+   at that size;
 19. training path at full width on the path-body adjoint: 4 steps at pool 1
    with diffuse, emissive, param and the camera (kernel 8 whole chain, one
    launch per step) and 4 at pool 8 with diffuse, emissive, param (kernels
@@ -72,8 +78,10 @@ Phases, each announced by one line:
 21. kernels 9, 10 and 8's whole chain against their plain versions at the
    full-width shape from the training start: kernel 9 over all 8,294,400
    lanes, kernels 10 and 8 (whose plain versions run under autograd) on a
-   band of rows mid-frame; then their timings there beside their bounds,
-   and both adjoint recovery routes end to end;
+   band of rows mid-frame, and against their forward-mode witnesses over all
+   8,294,400 lanes; then their timings there (the reverse kernels before
+   and after the witnesses, in one call) beside their bounds, and both
+   adjoint recovery routes end to end;
 22. vertex recovery at full width (the reference's ``mesh_grad_100k``
    bench row, bench.py:224-279): ``make_bvh_vertex_recovery_step`` on the
    heightfield (99,458 triangles) at 512×512, 2 spp, depth 2, edge_eps
@@ -93,8 +101,9 @@ Phases, each announced by one line:
    versions on a 65,536-ray strided sample, against kernel 6's recorded
    winners on every live ray, and timed at the full count beside their
    bounds (from the nodes and triangles each ray tested);
-25. one JSON line of per-kernel numbers; then the card line; the last line
-   is ``{"ok": true, "device": {...}}``.
+25. one JSON line of per-kernel numbers (the two witnesses last, their
+   launches those of the full-width witness check); then the card line; the
+   last line is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
@@ -161,7 +170,14 @@ KERNELS = {
     "fused_loss_chain": ("fused_loss_chain_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "bvh_walk": ("bvh_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
     "treelet_walk": ("treelet_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
+    "grad_backward_fwdmode": ("grad_backward_fwdmode_kernel",
+                              "fspt_tpu_torch/csrc/fspt_fwdmode.cu"),
+    "fused_loss_chain_fwdmode": ("fused_loss_chain_fwdmode_kernel",
+                                 "fspt_tpu_torch/csrc/fspt_fwdmode.cu"),
 }
+#: The forward-mode witnesses: no user path launches them (their launches
+#: in the kernels line are those of the full-width witness check).
+WITNESSES = ("grad_backward_fwdmode", "fused_loss_chain_fwdmode")
 PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce", "adjoint_reduce"]
 
 #: Fields of the adjoint phases: every material column (kernel checks on
@@ -172,6 +188,9 @@ PAIR_FIELDS = ("diffuse", "emissive", "param")
 #: Rows of the mid-frame band on which kernels 10 and 8's whole chain are held
 #: against their plain versions (under autograd) at the full-width shape.
 BAND_ROWS = 4
+#: The ray queue of the mesh frame-step timing: the reference's mesh_100k
+#: row (bench.py:155).
+MESH_QUEUE = 1 << 17
 #: Rays of the strided sample on which kernels 11 and 12 are held against
 #: their plain versions (per-iteration torch walks) at the full-width shape.
 WALK_SAMPLE = 65536
@@ -179,23 +198,30 @@ WALK_SAMPLE = 65536
 
 def ptxas_report(log):
     """CUDA function → registers, (spill stores, spill loads) and stack
-    frame bytes, from ``-Xptxas -v``."""
+    frame bytes, from ``-Xptxas -v``; a template instantiation also under
+    ``name<args>`` (its integer arguments)."""
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            current = next((k for k in PTXAS_NAMES if k in m.group(1)), None)
+            mangled = m.group(1)
+            current = next((k for k in PTXAS_NAMES if k in mangled), None)
+            if current is not None:
+                args = re.match(r"I((?:Li\d+E)+)E", mangled.split(current, 1)[1])
+                if args:
+                    current += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
             continue
         if current is None:
             continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            out.setdefault(current, {})["stack"] = int(m.group(1))
-            out.setdefault(current, {})["spill"] = (int(m.group(2)), int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(current, {})["registers"] = int(m.group(1))
+        for key in {current, current.split("<")[0]}:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                out.setdefault(key, {})["stack"] = int(m.group(1))
+                out.setdefault(key, {})["spill"] = (int(m.group(2)), int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(key, {})["registers"] = int(m.group(1))
     return out
 
 
@@ -255,10 +281,12 @@ def check_launches(launches, want, label):
 def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, train_cam,
                    target_t, start, seg_ops, camera_argv):
     """Phases 18-21: the path-body adjoint (kernels 9, 10 and kernel 8's
-    whole chain) — checks at ``cfg_chk``, the two recovery routes at
-    ``cfg_t`` on ``train_scene`` from the perturbed ``start`` (diffuse,
-    emissive), the camera example with ``camera_argv``, and timings.
-    Returns ``(report, timings, launches)`` entries of the kernels line."""
+    whole chain; 10 and 8 in reverse mode, beside their forward-mode
+    witnesses) — checks at ``cfg_chk``, the two recovery routes at ``cfg_t``
+    on ``train_scene`` from the perturbed ``start`` (diffuse, emissive), the
+    camera example with ``camera_argv``, the full-width witness checks and
+    timings.  Returns ``(report, timings, launches)`` entries of the kernels
+    line."""
     import numpy as np
     import torch
 
@@ -268,11 +296,16 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     from fspt_tpu_torch.scene import samples
 
     report = {k: {"max_abs_err": 0.0} for k in ("grad_forward", "grad_backward",
-                                                 "fused_loss_chain")}
+                                                 "fused_loss_chain", *WITNESSES)}
+
+    def worst(key, err):
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+
     timings, path_launches = {}, {}
     K = cuda_grad.TANGENT_K
 
-    # 18. kernels 9, 10 and 8's whole chain against their plain versions
+    # 18. kernels 9, 10 and 8's whole chain against their plain versions,
+    # and 10 and 8 against their forward-mode witnesses
     H, W, spp = cfg_chk.height, cfg_chk.width, cfg_chk.spp
     size = f"{W}x{H}x{spp}, depth {cfg_chk.max_depth}"
     n_c = H * W * spp
@@ -283,30 +316,26 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
         b = samples.build(name, device=dev, aperture=1.5, focal_depth=120.0)
         scenes[name] = (b.compile(device=dev), b.cameras[0])
     for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", PAIR_FIELDS)):
-        phase(f"kernels 9 (grad_forward) and 10 (grad_backward) vs plain: {name} + DoF, "
-              f"{size}, fields {fields}")
+        phase(f"kernels 9 (grad_forward) and 10 (grad_backward, reverse mode) vs plain: "
+              f"{name} + DoF, {size}, fields {fields}")
         rep = kernel_check.check_grad_path_tracer(*scenes[name], cfg_chk, fields, seed=3,
                                                   sample0=1)
         print(json.dumps(rep), flush=True)
         print(f"lanes with a zeroed non-finite contribution (kernel 10): "
               f"{rep['nonfinite_lanes']}")
-        for key, err in (("grad_forward", rep["max_abs_err"]),
-                         ("grad_backward", rep["grad_max_abs_err"])):
-            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+        worst("grad_forward", rep["max_abs_err"])
+        worst("grad_backward", rep["grad_max_abs_err"])
     for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
                          ("flagship", CHAIN_FIELDS)):
-        phase(f"kernel 8 whole chain (fused_loss_chain) and remat vs plain: {name} + DoF, "
-              f"{size}, fields {fields}")
+        phase(f"kernel 8 whole chain (fused_loss_chain, reverse mode) and remat vs plain: "
+              f"{name} + DoF, {size}, fields {fields}")
         rep = kernel_check.check_fused_loss_chain(*scenes[name], cfg_chk, target_c, fields,
                                                   seed=4, frame_idx=2)
         print(json.dumps(rep), flush=True)
         print(f"lanes with a zeroed non-finite contribution (kernel 8 whole chain): "
               f"{rep['nonfinite_lanes']}")
-        report["fused_loss_chain"]["max_abs_err"] = max(
-            report["fused_loss_chain"]["max_abs_err"], rep["max_abs_err"])
+        worst("fused_loss_chain", rep["max_abs_err"])
 
-    phase(f"plain versions and kernels 9, 10, 8 whole chain: all families, {size}, "
-          f"{len(ADJOINT_FIELDS)} fields")
     fam_scene, fam_cam = scenes["all_families"]
     params_c = {f: getattr(fam_scene.materials, f) for f in ADJOINT_FIELDS}
     tracer_c = cuda_grad.make_grad_path_tracer(fam_scene, fam_cam, cfg_chk,
@@ -316,17 +345,40 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
         np.float32)).to(dev)
     chain_c = cuda_grad.make_fused_loss_grad_fn(fam_scene, fam_cam, cfg_chk,
                                                 fields=ADJOINT_FIELDS)
+    phase(f"reverse mode vs forward-mode witness: all families + DoF, {size}, P = "
+          f"{tracer_c.n_params} (kernel 10) and {tracer_c.n_params} (kernel 8); flagship "
+          f"camera (kernel 8)")
+    rep = kernel_check.check_grad_backward_witness(tracer_c, pv_c, cot_c, 3, 1, 0, n_c)
+    print(f"grad_backward vs witness: {json.dumps(rep)}", flush=True)
+    worst("grad_backward_fwdmode", rep["max_abs_err"])
+    for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
+                         ("flagship", CHAIN_FIELDS)):
+        sc, cm = scenes[name]
+        fn = cuda_grad.make_fused_loss_grad_fn(sc, cm, cfg_chk, fields=fields, affine=False)
+        ps = {f: (cuda_path.camera_pvec(cm) if f == cuda_grad.CAMERA_FIELD
+                  else getattr(sc.materials, f)) for f in fields}
+        rep = kernel_check.check_chain_witness(fn, ps, target_c, 4, 2, 0, H)
+        print(f"fused_loss_chain vs witness, {name} {fields}: {json.dumps(rep)}", flush=True)
+        worst("fused_loss_chain_fwdmode", rep["max_abs_err"])
+
+    phase(f"plain versions, kernels 9, 10, 8 whole chain and the witnesses: all families, "
+          f"{size}, {len(ADJOINT_FIELDS)} fields")
     small = {
         "grad_forward": (lambda: tracer_c.kernel_forward(pv_c, 3, 1, 0, n_c),
                          lambda: tracer_c.plain(pv_c, 3, 1, 0, n_c)),
         "grad_backward": (lambda: tracer_c.kernel_backward(pv_c, cot_c, 3, 1, 0, n_c),
                           lambda: tracer_c.plain_grad(pv_c, cot_c, 3, 1, 0, n_c)),
+        "grad_backward_fwdmode": (
+            lambda: tracer_c.kernel_backward_fwdmode(pv_c, cot_c, 3, 1, 0, n_c), None),
         "fused_loss_chain": (lambda: chain_c(params_c, target_c, 4, 2, 0, H),
                              lambda: chain_c.plain(params_c, target_c, 4, 2, 0, H)),
+        "fused_loss_chain_fwdmode": (
+            lambda: chain_c.launch_fwdmode(params_c, target_c, 4, 2, 0, H), None),
     }
     for key, (kern, plain) in small.items():
-        timings[key] = dict(check_ms=cuda_time_ms(kern, iters=3),
-                            plain_ms=cuda_time_ms(plain, iters=1),
+        plain_ms = (cuda_time_ms(plain, iters=1) if plain is not None
+                    else timings[key.replace("_fwdmode", "")]["plain_ms"])
+        timings[key] = dict(check_ms=cuda_time_ms(kern, iters=3), plain_ms=plain_ms,
                             plain_shape=f"all_families {size}, P={tracer_c.n_params}")
         print(f"{key} at {size}: kernel {timings[key]['check_ms']:.3f} ms, plain "
               f"{timings[key]['plain_ms']:.1f} ms", flush=True)
@@ -335,7 +387,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     Ht, Wt = cfg_t.height, cfg_t.width
     n_t = Ht * Wt * cfg_t.spp
     phase(f"training path: make_fused_recovery_step, flagship {Wt}x{Ht}x{cfg_t.spp}, depth "
-          f"{cfg_t.max_depth}: whole chain (pool 1) and kernels 9-10 (pool 8)")
+          f"{cfg_t.max_depth}: whole chain (pool 1) and kernels 9-10 (pool 8), reverse mode")
     offset = torch.tensor([1.0, -0.5, -2.0] + [0.0] * 6, device=dev)
     params0 = dict(start, param=train_scene.materials.param * 0.6,
                    camera=cuda_path.camera_pvec(train_cam).to(dev) + offset)
@@ -364,6 +416,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
             assert np.isfinite(losses[-1]) and all(
                 bool(torch.isfinite(v).all()) for v in params.values()), (label, it)
         launches = {k: c.launches for k, c in counters.items()}
+        # Every other count, the witnesses' among them, must be 0.
         check_launches(launches, {k: v * steps for k, v in per_step.items()},
                        f"{label} pool={pool}")
         assert losses[-1] < losses[0], (label, losses)
@@ -392,8 +445,9 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
 
     # 21. the kernels against their plain versions at the main path's shape
     # (kernel 9 over the whole frame; kernels 10 and 8's whole chain, whose
-    # plain versions run under autograd, on a band of rows mid-frame), from
-    # the training start; then their timings
+    # plain versions run under autograd, on a band of rows mid-frame, and
+    # against their forward-mode witnesses over the whole frame), from the
+    # training start; then their timings
     y0, rows = Ht // 2, BAND_ROWS
     phase(f"kernels 9, 10 and 8 whole chain vs plain at the main path's shape: flagship "
           f"{Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}; kernel 9 on all {n_t} lanes, "
@@ -402,63 +456,92 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     pv_t = cuda_grad.pack_params({f: params0[f] for f in PAIR_FIELDS}, pair.fields)
     rep = kernel_check.check_grad_forward(pair, pv_t, 9, 0, 0, n_t)
     print(f"grad_forward, whole frame: {json.dumps(rep)}", flush=True)
-    report["grad_forward"]["max_abs_err"] = max(report["grad_forward"]["max_abs_err"],
-                                                rep["max_abs_err"])
+    worst("grad_forward", rep["max_abs_err"])
     rep = kernel_check.check_grad_path_tracer(
         train_scene, train_cam, cfg_t, PAIR_FIELDS, seed=9, sample0=cfg_t.spp,
         params={f: params0[f] for f in PAIR_FIELDS}, y0=y0, rows=rows)
     print(f"grad_forward and grad_backward, band: {json.dumps(rep)}", flush=True)
-    for key, err in (("grad_forward", rep["max_abs_err"]),
-                     ("grad_backward", rep["grad_max_abs_err"])):
-        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+    worst("grad_forward", rep["max_abs_err"])
+    worst("grad_backward", rep["grad_max_abs_err"])
     rep = kernel_check.check_fused_loss_chain(
         train_scene, train_cam, cfg_t, target_t[y0:y0 + rows], CHAIN_FIELDS, seed=9,
         frame_idx=1, params={f: params0[f] for f in CHAIN_FIELDS}, y0=y0, rows=rows)
     print(f"fused_loss_chain and remat, band: {json.dumps(rep)}", flush=True)
-    report["fused_loss_chain"]["max_abs_err"] = max(report["fused_loss_chain"]["max_abs_err"],
-                                                    rep["max_abs_err"])
+    worst("fused_loss_chain", rep["max_abs_err"])
 
-    phase(f"timing: kernels 9, 10 and 8 whole chain, flagship {Wt}x{Ht}x{cfg_t.spp}, "
-          f"depth {cfg_t.max_depth}")
-    _, segcnt = pair.kernel_forward(pv_t, 9, 0, 0, n_t)
-    seg9 = int(segcnt.sum())
+    phase(f"reverse mode vs forward-mode witness on all {n_t} lanes: kernel 10 (P = "
+          f"{pair.n_params}) and kernel 8 whole chain with the camera")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cot_t = torch.randn((3, n_t), generator=gen, device=dev)
+    chain_t = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t,
+                                                fields=CHAIN_FIELDS)
+    params_t = {f: params0[f] for f in CHAIN_FIELDS}
+    reset_counts()
+    rep = kernel_check.check_grad_backward_witness(pair, pv_t, cot_t, 9, 0, 0, n_t)
+    print(f"grad_backward vs witness, whole frame: {json.dumps(rep)}", flush=True)
+    worst("grad_backward_fwdmode", rep["max_abs_err"])
+    rep = kernel_check.check_chain_witness(chain_t, params_t, target_t, 7, 1, 0, Ht)
+    print(f"fused_loss_chain vs witness, whole frame: {json.dumps(rep)}", flush=True)
+    worst("fused_loss_chain_fwdmode", rep["max_abs_err"])
+    launches = {k: c.launches for k, c in counters.items()}
+    check_launches(launches, {"grad_backward": 2, "grad_backward_fwdmode": 1,
+                              "fused_loss_chain": 2, "fused_loss_chain_fwdmode": 1},
+                   "full-width witness checks")
+    path_launches.update({k: launches[k] for k in WITNESSES})
+
+    phase(f"timing: kernels 9, 10 and 8 whole chain (reverse mode) and the witnesses, "
+          f"flagship {Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}")
+    _, segcnt = pair.kernel_forward(pv_t, 9, 0, 0, n_t)
+    seg9 = int(segcnt.sum())
     g10 = pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)
     assert bool(torch.isfinite(g10).all())
     print(f"kernel 10 at full width: lanes with a zeroed non-finite contribution "
           f"{int(pair.nonfinite)} of {n_t}")
-    ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
-    ms10 = cuda_time_ms(lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t), iters=2)
-    chain_t = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t,
-                                                fields=CHAIN_FIELDS)
-    params_t = {f: params0[f] for f in CHAIN_FIELDS}
     loss8, g8, seg8 = chain_t(params_t, target_t, 7, 1, 0, Ht)
     seg8 = int(seg8)
     assert bool(torch.isfinite(loss8)) and all(bool(torch.isfinite(g).all())
                                                for g in g8.values())
     print(f"kernel 8 whole chain at full width: lanes with a zeroed non-finite contribution "
           f"{int(chain_t.nonfinite)} of {n_t}")
-    ms8 = cuda_time_ms(lambda: chain_t(params_t, target_t, 7, 1, 0, Ht), iters=2)
+    ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
+    # Reverse mode, the witness, reverse mode again (the spread within the call).
+    t10 = {"reverse": None, "fwdmode": None, "reverse again": None}
+    t8 = dict(t10)
+    for key in t10:
+        if key == "fwdmode":
+            f10 = lambda: pair.kernel_backward_fwdmode(pv_t, cot_t, 9, 0, 0, n_t)  # noqa: E731
+            f8 = lambda: chain_t.launch_fwdmode(params_t, target_t, 7, 1, 0, Ht)  # noqa: E731
+        else:
+            f10 = lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)  # noqa: E731
+            f8 = lambda: chain_t(params_t, target_t, 7, 1, 0, Ht)  # noqa: E731
+        t10[key] = cuda_time_ms(f10, iters=2)
+        t8[key] = cuda_time_ms(f8, iters=2)
+    print(f"grad_backward ms: {json.dumps(t10)}", flush=True)
+    print(f"fused_loss_chain ms: {json.dumps(t8)}", flush=True)
+    ms10, ms8 = t10["reverse"], t8["reverse"]
     mats_t = cuda_path.HostMaterials(train_scene.materials)
     P_pair = cuda_grad.param_count(mats_t, PAIR_FIELDS)
     P_chain = cuda_grad.param_count(mats_t, CHAIN_FIELDS)
     # Kernel 9 is kernel 2's work; an adjoint costs at least ~4x the forward
     # operations of its traces (the cheap-gradient bound of reverse mode).
+    b9 = bound_ms(seg9 * seg_ops, n_t * 16 + P_pair * 4)
+    b10 = bound_ms(4 * seg9 * seg_ops, n_t * 12 + P_pair * 8)
+    b8 = bound_ms(4 * seg8 * seg_ops, target_t.numel() * 4 + P_chain * 8)
     full = {
-        "grad_forward": (ms9, bound_ms(seg9 * seg_ops, n_t * 16 + P_pair * 4), seg9, P_pair),
-        "grad_backward": (ms10, bound_ms(4 * seg9 * seg_ops, n_t * 12 + P_pair * 8), seg9,
-                          P_pair),
-        "fused_loss_chain": (ms8, bound_ms(4 * seg8 * seg_ops,
-                                           target_t.numel() * 4 + P_chain * 8), seg8, P_chain),
+        "grad_forward": (ms9, b9, seg9, P_pair, "float, 1 trace"),
+        "grad_backward": (ms10, b10, seg9, P_pair, "reverse, 1 forward + 1 sweep"),
+        "grad_backward_fwdmode": (t10["fwdmode"], b10, seg9, P_pair,
+                                  f"forward mode, {-(-P_pair // K)} passes of K={K}"),
+        "fused_loss_chain": (ms8, b8, seg8, P_chain, "reverse, 1 forward + 1 sweep a buffer"),
+        "fused_loss_chain_fwdmode": (t8["fwdmode"], b8, seg8, P_chain,
+                                     f"forward mode, {-(-P_chain // K)} passes of K={K}"),
     }
-    for key, (ms, (b, by), segs, P) in full.items():
-        passes = 1 if key == "grad_forward" else -(-P // K)
-        timings[key].update(ms=ms, bound_ms=b, bound_by=by, max_abs_err=0.0, tangent_k=K,
-                            passes=passes, params=P)
-        print(f"{key}: {ms:.3f} ms/launch, {segs} segments, P={P}, {passes} pass(es) of "
-              f"K={K}; {segs / (ms * 1e-3):.4g} segments/s; bound {b:.4f} ms ({by}); "
+    for key, (ms, (b, by), segs, P, passes) in full.items():
+        timings[key].update(ms=ms, bound_ms=b, bound_by=by, max_abs_err=0.0, params=P,
+                            passes=passes)
+        print(f"{key}: {ms:.3f} ms/launch, {segs} segments, P={P}, {passes}; "
+              f"{segs / (ms * 1e-3):.4g} segments/s; bound {b:.4f} ms ({by}); "
               f"plain {timings[key]['plain_ms']:.1f} ms at the check size", flush=True)
     for label, segs_step, kernel_ms in (("chain", seg8, ms8), ("pair", 2 * seg9,
                                                                2 * (ms9 + ms10))):
@@ -707,7 +790,9 @@ def main():
                 "grad_backward": cuda_grad.GRAD_BACKWARD,
                 "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN,
                 "bvh_walk": cuda_bvh.BVH_WALK,
-                "treelet_walk": cuda_bvh.TREELET_WALK}
+                "treelet_walk": cuda_bvh.TREELET_WALK,
+                "grad_backward_fwdmode": cuda_grad.GRAD_BACKWARD_FWDMODE,
+                "fused_loss_chain_fwdmode": cuda_grad.FUSED_LOSS_CHAIN_FWDMODE}
 
     def reset_counts():
         for c in counters.values():
@@ -1212,28 +1297,33 @@ def main():
                   f"{uncached_mean:.5f}")
             assert abs(fb.mean.mean().item() - uncached_mean) <= 0.05 * uncached_mean
 
-    # 17. mesh timings
-    phase("timing: mesh frame step and kernels 5, 6 (heightfield 1024x1024x4, depth 4)")
+    # 17. mesh timings: the frame step at the reference's mesh_100k queue
+    # (bench.py:155), and at the port's default queue for comparison
+    phase(f"timing: mesh frame step (heightfield 1024x1024x4, depth 4) at queue {MESH_QUEUE} "
+          f"and {DEFAULT_QUEUE}, and kernels 5, 6")
     cfg_hf = RenderConfig(width=1024, height=1024, spp=4, max_depth=4)
-    name_m, mesh_step = make_scene_step(hf_scene, cfg_hf)
-    assert name_m.startswith("queued wavefront + cuda treelet BVH"), name_m
     mstate = {"fb": fb_mod.create(1024, 1024, device=dev), "frame": 0, "segs": 0}
+    for q in (MESH_QUEUE, DEFAULT_QUEUE):
+        name_m, mesh_step = make_scene_step(hf_scene, cfg_hf, queue=q)
+        assert name_m.startswith("queued wavefront + cuda treelet BVH"), name_m
 
-    def mesh_frame():
-        mstate["fb"], segs = mesh_step(hf_scene, hf_cam, mstate["fb"], 0, mstate["frame"])
-        mstate["frame"] += 1
-        mstate["segs"] = segs
+        def mesh_frame(step=mesh_step):
+            mstate["fb"], segs = step(hf_scene, hf_cam, mstate["fb"], 0, mstate["frame"])
+            mstate["frame"] += 1
+            mstate["segs"] = segs
 
-    mesh_ms = cuda_time_ms(mesh_frame, iters=3, warmup=1)
-    mesh_segs = int(mstate["segs"])
-    print(f"mesh frame step: {mesh_ms:.2f} ms/frame, {mesh_segs} segments/frame, "
-          f"{mesh_segs / (mesh_ms * 1e-3):.4g} segments/s end to end", flush=True)
+        mesh_ms = cuda_time_ms(mesh_frame, iters=3, warmup=1)
+        mesh_segs = int(mstate["segs"])
+        print(f"mesh frame step, queue {q}: {mesh_ms:.2f} ms/frame, {mesh_segs} "
+              f"segments/frame, {mesh_segs / (mesh_ms * 1e-3):.4g} segments/s end to end",
+              flush=True)
+    _, mesh_step = make_scene_step(hf_scene, cfg_hf, queue=MESH_QUEUE)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            mesh_frame()
+            mesh_frame(mesh_step)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -1251,7 +1341,7 @@ def main():
         "sorts": dev_ms(lambda k: "sort" in k.lower() or "radix" in k.lower()),
     }
     stage_ms["other torch (queue, post, gathers)"] = busy_us / 2 / 1e3 - sum(stage_ms.values())
-    print(f"profile of 2 mesh frames: window {window_us:.0f} us, device busy {busy_us:.0f} us "
+    print(f"profile of 2 mesh frames at queue {MESH_QUEUE}: window {window_us:.0f} us, device busy {busy_us:.0f} us "
           f"({busy_us / window_us:.1%}); device ms per frame by stage: "
           f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})}", flush=True)
     (OUT / "profile_mesh_frame.txt").write_text(
@@ -1330,13 +1420,19 @@ def main():
 
     # 25. the kernels line, the card line, the result
     phase("kernels")
+    # The ptxas lines of the reverse kernels' instantiations at the timed depth:
+    # <0> with the per-thread record, <1> with the device scratch.
+    record = int(cuda_grad.adjoint_plan(1, 1, cfg_t.effective_depth)[1] > 0)
+    variant = {"grad_backward": f"<{record}>", "fused_loss_chain": f"<{record}>"}
     kernels = []
     for key, c in counters.items():
         t = timings[key]
         fn, source = KERNELS[key]
-        reg = regs[fn]
-        extra = {k: t[k] for k in ("check_ms", "plain_shape", "tangent_k", "passes", "params")
-                 if k in t}
+        reg = regs[fn + variant.get(key, "")]
+        extra = {k: t[k] for k in ("check_ms", "plain_shape", "passes", "params") if k in t}
+        if key in WITNESSES:
+            extra.update(main_path=False, launches_from="phase 21: the full-width witness "
+                         "check (no user path launches a forward-mode witness)")
         kernels.append(dict(
             name=key, route="cuda", source=f"{source} ({fn})",
             replaces=c.replaces, launches=path_launches[key],

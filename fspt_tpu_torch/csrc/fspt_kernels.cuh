@@ -13,12 +13,14 @@
 // this header.
 //
 // The body is a template on its number type T (csrc/fspt_tangent.cuh):
-// float for kernels 1-4, 7, 8 and 9, Tangent<K> for the gradient kernels 8
-// (whole chain) and 10, which carry forward-mode derivatives with respect to
-// material cells and camera scalars.  Comparisons and branches read val(x),
-// so every instantiation traces the float body's path.  The closest hit is
-// always found in float; a Tangent body then recomputes the winner's t and
-// normal with derivatives (winner_geometry).
+// float for every kernel on a user path (1-4, 7, 8, 9, and the forward
+// trace of the reverse-mode adjoints 10 and 8's whole chain, which record
+// each bounce's state through the direct mode's sink), Tangent<K> for the
+// forward-mode witnesses of kernels 10 and 8 (csrc/fspt_fwdmode.cu).
+// Comparisons and branches read val(x), so every instantiation traces the
+// float body's path.  The closest hit is always found in float; a Tangent
+// body then recomputes the winner's t and normal with derivatives
+// (winner_geometry).
 #pragma once
 
 #include <cstdint>
@@ -416,9 +418,21 @@ __device__ __forceinline__ Slot empty_slot() {
 
 // The direct mode's sink: it receives no slots.  A deferred kernel passes
 // its own sink, whose put(depth, slot) stores the slot where that kernel
-// keeps it (planes in device memory, or a per-thread array).
+// keeps it (planes in device memory, or a per-thread array).  In the direct
+// mode the body also hands its sink what a reverse sweep needs: each live
+// bounce's segment, throughput and winner row (bounce), a depth-0 fog
+// absorption at depth 1 (fog_absorbed), and the path's end (end: alive
+// after the last bounce, radiance before the light clamp).  NoSlots keeps
+// none of it.
 struct NoSlots {
   __device__ __forceinline__ void put(int, const Slot&) {}
+  template <class T>
+  __device__ __forceinline__ void bounce(int, const T&, const T&, const T&, const T&,
+                                         const T&, const T&, const T&, const T&, const T&,
+                                         int) {}
+  __device__ __forceinline__ void fog_absorbed() {}
+  template <class T>
+  __device__ __forceinline__ void end(bool, const T&, const T&, const T&) {}
 };
 
 template <class T>
@@ -436,9 +450,10 @@ using PathOut = PathOutT<float>;
 // row) and the sky's emission.  TableMats: the table in device memory, with
 // the sky emission x3 precomputed on the host (kernels 2-4, 7, 8).
 // SmemMats: a block's own copy of the table in shared memory (kernel 9,
-// whose optimized cells come from the parameter vector).  SeededMats: the
-// same copy read as tangents, seeded where a cell is an optimized parameter
-// (kernels 10 and 8's whole chain).
+// and the reverse-mode adjoints 10 and 8's whole chain, whose optimized
+// cells come from the parameter vector).  SeededMats: the same copy read as
+// tangents, seeded where a cell is an optimized parameter (the forward-mode
+// witnesses of kernels 10 and 8).
 struct TableMats {
   const float* mats;
 
@@ -521,6 +536,7 @@ __device__ __forceinline__ PathOutT<T> trace_path_t(const float* __restrict__ pr
     }
     const Hit h = intersect_lanes<kDeferred>(prims, meta, pp.n_prims, val(sx), val(sy),
                                              val(sz), val(dx), val(dy), val(dz));
+    if constexpr (kMode == kDirect) sink.bounce(depth, sx, sy, sz, dx, dy, dz, Tx, Ty, Tz, h.prim);
     T t, hnx, hny, hnz;
     winner_geometry(prims, h, sx, sy, sz, dx, dy, dz, t, hnx, hny, hnz);
     bool hit = h.t < kInvalid;
@@ -549,6 +565,7 @@ __device__ __forceinline__ PathOutT<T> trace_path_t(const float* __restrict__ pr
             Lx = Lx + Tx * f_dx;
             Ly = Ly + Ty * f_dy;
             Lz = Lz + Tz * f_dz;
+            sink.fog_absorbed();
           }
           alive = false;
         }
@@ -825,6 +842,7 @@ __device__ __forceinline__ PathOutT<T> trace_path_t(const float* __restrict__ pr
       Lz = Lz + Tz;
     }
   }
+  if constexpr (kMode == kDirect) sink.end(alive, Lx, Ly, Lz);
   // Depth-0 light tone clamp (engine.cpp:148-151); the deferred modes
   // apply it after their fold.
   T n2 = Lx * Lx + Ly * Ly + Lz * Lz;

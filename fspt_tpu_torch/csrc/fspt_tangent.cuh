@@ -1,5 +1,5 @@
 // Number types of the path body (csrc/fspt_kernels.cuh): float, and the
-// forward-mode tangent Tangent<K> of the gradient kernels (fspt_adjoint.cu).
+// forward-mode tangent Tangent<K> of the witnesses (csrc/fspt_fwdmode.cu).
 //
 // A Tangent<K> is a value and its derivatives with respect to K parameters.
 // Every operation computes the value part exactly as the float operation

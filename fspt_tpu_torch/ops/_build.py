@@ -27,7 +27,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-HEADERS = (CSRC / "fspt_kernels.cuh", CSRC / "fspt_tangent.cuh")
+HEADERS = (CSRC / "fspt_kernels.cuh", CSRC / "fspt_tangent.cuh", CSRC / "fspt_adjoint.cuh")
 #: library name → its one source file; all share :data:`HEADERS`.
 LIBRARIES = {
     "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3
@@ -35,6 +35,7 @@ LIBRARIES = {
     "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
     "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5, 6, 11 and 12
     "fspt_adjoint": CSRC / "fspt_adjoint.cu",    # kernels 9, 10, 8 whole chain
+    "fspt_fwdmode": CSRC / "fspt_fwdmode.cu",    # forward-mode witnesses of 10 and 8
 }
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -163,16 +164,27 @@ _SIGNATURES = {
         # n_cells, h0, sample0, lane0, n, radiance, segcnt, stream
         "fspt_grad_forward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
                               _I, _I, _P, _P, _P],
-        # ... as fspt_grad_forward up to n, then cot, partial, int_partial,
-        # out, int_out, stream
+        # n_mats, rows, depth, *block, *scratch_words
+        "fspt_adjoint_plan": [_I, _I, _I, _P, _P],
+        # ... as fspt_grad_forward up to n, then cot, scratch, partial,
+        # int_partial, out, int_out, stream
         "fspt_grad_backward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
-                               _I, _I, _P, _P, _P, _P, _P, _P],
+                               _I, _I, _P, _P, _P, _P, _P, _P, _P],
         # prims, meta, mats, mat_meta, PathParams, CamParams, TracedCamParams,
         # pvec, cells, n_cells, use_camera, h0, sample0_a, sample0_b, lane0,
-        # n, target, partial, int_partial, out, int_out, stream
+        # n, target, scratch, partial, int_partial, out, int_out, stream
         "fspt_fused_loss_chain": [_P, _P, _P, _P, PathParams, CamParams, TracedCamParams,
                                   _P, _P, _I, _I, _U, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                  _P],
+                                  _P, _P],
+    },
+    "fspt_fwdmode": {
+        # as fspt_grad_backward without scratch
+        "fspt_grad_backward_fwdmode": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I,
+                                       _U, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        # as fspt_fused_loss_chain without scratch
+        "fspt_fused_loss_chain_fwdmode": [_P, _P, _P, _P, PathParams, CamParams,
+                                          TracedCamParams, _P, _P, _I, _I, _U, _I, _I, _I,
+                                          _I, _P, _P, _P, _P, _P, _P],
     },
 }
 

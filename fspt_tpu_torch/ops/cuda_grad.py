@@ -25,16 +25,21 @@ Counterpart of fspt_tpu/ops/pallas_grad.py.
   its vector-Jacobian product for a radiance cotangent, glued by a
   ``torch.autograd.Function``.
 
-The adjoint of the path body is forward mode on the card (the body on
-``Tangent<K>``, csrc/fspt_tangent.cuh); each kernel's plain version is torch
-autograd of the plain body with ``tmats`` (:func:`ops.cuda_path.
-build_path_core`), which the tests hold against the reference's
-``jax.grad``.  Parameters are mapped onto table cells by name, so ``fields``
+The adjoint of the path body is reverse mode on the card (kernels 10 and
+8's whole chain: one recorded float trace and a hand-written per-bounce
+sweep, csrc/fspt_adjoint.cu), whose cost does not grow with the number of
+parameters; each kernel's plain version is torch autograd of the plain body
+with ``tmats`` (:func:`ops.cuda_path.build_path_core`), which the tests hold
+against the reference's ``jax.grad``.  The forward-mode kernels they
+replaced (the body on ``Tangent<K>``, csrc/fspt_fwdmode.cu) stay as
+witnesses: ``kernel_backward_fwdmode`` and ``launch_fwdmode``, which no
+user path takes.  Parameters are mapped onto table cells by name, so ``fields``
 may come in any order.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -73,12 +78,10 @@ FIELD_COLUMN = {"diffuse": 0, "emissive": 3, "glow": 6, "param": 9, "ior": 10,
 GRAD_BLOCK = 128
 MAX_SLOTS = 16
 MAX_GRAD_MATS = 64
-#: Block of the adjoint kernels and the rows of their shared table
-#: (csrc/fspt_adjoint.cu).
+#: Block of the forward-mode witnesses (csrc/fspt_adjoint.cuh kAdjBlock).
 ADJOINT_BLOCK = 128
-MAX_ADJOINT_MATS = 64
-#: K, the derivatives a Tangent carries per pass of kernels 10 and 8's whole
-#: chain (csrc/fspt_adjoint.cu kTangentK).
+#: K, the derivatives a Tangent carries per pass of the forward-mode
+#: witnesses (csrc/fspt_fwdmode.cu kTangentK).
 TANGENT_K = 4
 
 AFFINE_PLANES = _build.KernelCounter(
@@ -97,6 +100,40 @@ FUSED_LOSS_CHAIN = _build.KernelCounter(
     "fused_loss_chain", "fspt_adjoint", "fspt_fused_loss_chain",
     "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn, whole chain "
     "(body :589, :700-753)")
+GRAD_BACKWARD_FWDMODE = _build.KernelCounter(
+    "grad_backward_fwdmode", "fspt_fwdmode", "fspt_grad_backward_fwdmode",
+    "fspt_tpu/ops/pallas_grad.py:227 make_grad_path_tracer bwd (body :193), "
+    "forward-mode witness")
+FUSED_LOSS_CHAIN_FWDMODE = _build.KernelCounter(
+    "fused_loss_chain_fwdmode", "fspt_fwdmode", "fspt_fused_loss_chain_fwdmode",
+    "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn, whole chain "
+    "(body :589, :700-753), forward-mode witness")
+
+
+def adjoint_plan(n_mats: int, rows: int, depth: int) -> tuple[int, int]:
+    """The reverse kernels' launch for ``n_mats`` table rows, ``rows``
+    gradient rows and ``depth`` bounces (csrc/fspt_adjoint.cu
+    fspt_adjoint_plan, which the launchers follow): the threads of a block,
+    and the floats of device scratch a lane's record takes per buffer (0
+    where the per-thread record holds it).  Loads the kernel library."""
+    block, words = ctypes.c_int(), ctypes.c_int()
+    err = _build.library("fspt_adjoint").fspt_adjoint_plan(
+        n_mats, rows, depth, ctypes.byref(block), ctypes.byref(words))
+    if err != 0:
+        raise ValueError(f"the reverse-mode adjoint cannot take {n_mats} material rows with "
+                         f"{rows} gradient rows: the table or the gradient columns pass "
+                         f"the shared memory of a block")
+    return block.value, words.value
+
+
+def _record_scratch(words, buffers, n, dev):
+    """The device scratch ``[buffers, words, n]`` of the reverse sweep's
+    records, or None where the per-thread record holds them."""
+    return torch.empty((buffers, words, n), dtype=torch.float32, device=dev) if words else None
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 def _field_size(mats, f) -> int:
@@ -221,7 +258,8 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     lane0, n)`` its ``torch.autograd.grad`` with lane sums in float64, and
     ``trace.kernel_forward(pvec, seed, sample0, lane0, n)`` and
     ``trace.kernel_backward(pvec, cot, seed, sample0, lane0, n)`` launch the
-    kernels themselves (card only), and ``trace.nonfinite`` holds the lanes
+    kernels themselves (card only), ``trace.kernel_backward_fwdmode`` (same
+    arguments) the forward-mode witness of kernel 10, and ``trace.nonfinite`` holds the lanes
     whose non-finite contribution the last kernel-10 launch zeroed.
     """
     if CAMERA_FIELD in fields:
@@ -238,9 +276,6 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     dev = _device_of(scene_pack)
     table = scene_pack.materials
     raygen = build_fused_raygen(cam, cfg)
-    if dev.type == "cuda" and mats.count > MAX_ADJOINT_MATS:
-        raise ValueError(f"kernels 9-10 take at most {MAX_ADJOINT_MATS} material rows; "
-                         f"got {mats.count}")
 
     def plain_planes(pvec, seed, sample0, lane0, n):
         h0 = rng.seed_hash(seed)
@@ -258,6 +293,7 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
         cells = torch.from_numpy(cell_map(mats, fields)).to(dev)
         pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
         cp = _cam_params(cam, cfg)
+        block, words = adjoint_plan(mats.count, P, pp.depth)
 
     def tables(pvec):
         """The launch's table pointers and its float32 parameter vector."""
@@ -278,22 +314,33 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
                       segcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         return radiance, segcnt
 
-    def kernel_backward(pvec, cot, seed, sample0, lane0, n):
-        """Kernel 10: ``Σ_lanes cotᵀ·∂radiance/∂pvec`` for ``cot [3, n]``."""
+    def backward_launch(counter, pvec, cot, seed, sample0, lane0, n, block, *extra):
         head, pv = tables(pvec)
         cot = cot.to(torch.float32).contiguous()
         _build.check_cuda_tensor("cotangent", cot, torch.float32, (3, n), dev)
-        blocks = -(-n // ADJOINT_BLOCK)
+        blocks = -(-n // block)
         partial = torch.empty((blocks, P), dtype=torch.float32, device=dev)
         int_partial = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
         out = torch.empty((P,), dtype=torch.float64, device=dev)
         int_out = torch.empty((2,), dtype=torch.int64, device=dev)
-        _build.launch(GRAD_BACKWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
+        _build.launch(counter, *head, pv.data_ptr(), cells.data_ptr(), P,
                       rng.seed_hash(seed), int(sample0), int(lane0), n, cot.data_ptr(),
-                      partial.data_ptr(), int_partial.data_ptr(), out.data_ptr(),
+                      *extra, partial.data_ptr(), int_partial.data_ptr(), out.data_ptr(),
                       int_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         trace.nonfinite = int_out[1]
         return out.to(torch.float32)
+
+    def kernel_backward(pvec, cot, seed, sample0, lane0, n):
+        """Kernel 10 (reverse mode): ``Σ_lanes cotᵀ·∂radiance/∂pvec`` for
+        ``cot [3, n]``."""
+        scratch = _record_scratch(words, 1, n, dev)
+        return backward_launch(GRAD_BACKWARD, pvec, cot, seed, sample0, lane0, n, block,
+                               _ptr(scratch))
+
+    def kernel_backward_fwdmode(pvec, cot, seed, sample0, lane0, n):
+        """Kernel 10's forward-mode witness (csrc/fspt_fwdmode.cu)."""
+        return backward_launch(GRAD_BACKWARD_FWDMODE, pvec, cot, seed, sample0, lane0, n,
+                               ADJOINT_BLOCK)
 
     def trace(pvec, seed, sample0, lane0=0, n_lanes=None):
         n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
@@ -316,6 +363,7 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     trace.plain_grad = plain_grad
     trace.kernel_forward = kernel_forward
     trace.kernel_backward = kernel_backward
+    trace.kernel_backward_fwdmode = kernel_backward_fwdmode
     trace.nonfinite = None
     return trace
 
@@ -478,11 +526,12 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
       ``"camera"`` the rays come from the traced raygen
       (:func:`ops.cuda_path.build_traced_raygen`).
     * remat (``remat=True`` where the whole chain applies): on the card the
-      same kernel as the whole chain.  The reference checkpointed the vjp at
-      bounce boundaries to bound its live set on the TPU (and that kernel
-      miscompiles there, pallas_grad.py:542-548); forward mode keeps no
-      live set, so there is nothing to checkpoint.  Its plain version
-      checkpoints each bounce of the stepper (``torch.utils.checkpoint``).
+      same kernel as the whole chain, which is itself the reference's remat
+      construction (pallas_grad.py:700-753): each bounce is re-run from its
+      recorded boundary state in the reverse sweep (and the reference's
+      kernel miscompiles on the TPU, pallas_grad.py:542-548).  Its plain
+      version checkpoints each bounce of the stepper
+      (``torch.utils.checkpoint``).
 
     Returns ``fn(params, target[rows,W,3], seed, frame_idx, y0, rows) →
     (loss, grads, segments)`` normalized by ``1/(3n)`` as the reference, or
@@ -492,7 +541,8 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     lane loss and ``torch.autograd.grad`` (the whole chain's with per-lane
     leaves summed in float64, returned in float64).  ``fn.nonfinite`` holds
     the lanes whose non-finite contribution the last whole-chain launch
-    zeroed.
+    zeroed.  On the card the whole chain's ``fn.launch_fwdmode`` (same
+    arguments) runs its forward-mode witness (csrc/fspt_fwdmode.cu).
     """
     fields = _ordered(fields)
     radiometric_only = set(fields) <= RADIOMETRIC_FIELDS
@@ -509,8 +559,8 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     cam = HostCamera(camera, cfg.width, cfg.height)
     dev = _device_of(scene_pack)
     build = _affine_loss if (radiometric_only if affine is None else affine) else _chain_loss
-    plain, launch = build(scene_pack, camera, cfg, fields, remat, scene, mats, cam, sky_idx,
-                          dev)
+    plain, launch, witness = build(scene_pack, camera, cfg, fields, remat, scene, mats, cam,
+                                   sky_idx, dev)
 
     def entry(run, cast):
         def fn(params, target, seed, frame_idx, y0, rows):
@@ -530,11 +580,14 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     fn.plain = entry(plain, False)
     fn.nonfinite = None
     launch.owner = fn
+    if witness is not None and dev.type == "cuda":
+        fn.launch_fwdmode = entry(witness, False)
+        witness.owner = fn
     return fn
 
 
 def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_idx, dev):
-    """Kernel 8's affine construction: ``(plain, launch)``."""
+    """Kernel 8's affine construction: ``(plain, launch, None)``."""
     planes = make_affine_planes(scene_pack, camera, cfg)
     table = scene_pack.materials
     if dev.type == "cuda" and (mats.count > MAX_GRAD_MATS or n_slots(cfg) > MAX_SLOTS):
@@ -590,15 +643,13 @@ def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_
         g = out[1:].reshape(2, mats.count, 3)
         return out[0], table_grads(mats, g[0], g[1], fields), seg_out[0]
 
-    return plain, launch
+    return plain, launch, None
 
 
 def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_idx, dev):
-    """Kernel 8's whole chain (and remat): ``(plain, launch)``."""
+    """Kernel 8's whole chain (and remat): ``(plain, launch, witness)``, the
+    witness its forward-mode kernel."""
     table = scene_pack.materials
-    if dev.type == "cuda" and mats.count > MAX_ADJOINT_MATS:
-        raise ValueError(f"kernel 8's whole chain takes at most {MAX_ADJOINT_MATS} "
-                         f"material rows; got {mats.count}")
     use_camera = CAMERA_FIELD in fields
     P = param_count(mats, fields)
     P_mat = P - (CAMERA_PARAM_COUNT if use_camera else 0)
@@ -645,26 +696,36 @@ def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_i
         pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
         cp = _cam_params(cam, cfg)
         tp = _traced_params(cfg)
+        block, words = adjoint_plan(mats.count, 1 + P, pp.depth)
 
-    def launch(params, target, seed, sample_a, sample_b, lane0, n):
+    def run(counter, threads, extra, params, target, seed, sample_a, sample_b, lane0, n):
         pvec = pack_params(params, fields).detach().to(dev).contiguous()
         tgt = target.detach().to(torch.float32).reshape(-1, 3).contiguous()
         _build.check_cuda_tensor("target", tgt, torch.float32, (n // cfg.spp, 3), dev)
-        blocks = -(-n // ADJOINT_BLOCK)
+        blocks = -(-n // threads)
         partial = torch.empty((blocks, 1 + P), dtype=torch.float32, device=dev)
         int_partial = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
         out = torch.empty((1 + P,), dtype=torch.float64, device=dev)
         int_out = torch.empty((2,), dtype=torch.int64, device=dev)
         prims, meta = scene.tables(dev)
         mtab, mmeta = mats.tables(dev)
-        _build.launch(FUSED_LOSS_CHAIN, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
+        _build.launch(counter, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
                       mmeta.data_ptr(), pp, cp, tp, pvec.data_ptr(), cells.data_ptr(), P_mat,
                       int(use_camera), rng.seed_hash(seed), int(sample_a), int(sample_b),
-                      int(lane0), n, tgt.data_ptr(), partial.data_ptr(),
+                      int(lane0), n, tgt.data_ptr(), *extra, partial.data_ptr(),
                       int_partial.data_ptr(), out.data_ptr(), int_out.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         launch.owner.nonfinite = int_out[1]
         out = out.to(torch.float32)
         return out[0], unpack_params(out[1:], mats, fields), int_out[0]
 
-    return plain, launch
+    def launch(params, target, seed, sample_a, sample_b, lane0, n):
+        scratch = _record_scratch(words, 2, n, dev)
+        return run(FUSED_LOSS_CHAIN, block, (_ptr(scratch),), params, target, seed, sample_a,
+                   sample_b, lane0, n)
+
+    def witness(params, target, seed, sample_a, sample_b, lane0, n):
+        return run(FUSED_LOSS_CHAIN_FWDMODE, ADJOINT_BLOCK, (), params, target, seed, sample_a,
+                   sample_b, lane0, n)
+
+    return plain, launch, witness

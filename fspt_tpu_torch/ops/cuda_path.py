@@ -342,8 +342,9 @@ class _KeepFinite(torch.autograd.Function):
     (pallas_path.py:1210-1230): the traced raygen reduces every lane's ray
     cotangent into 9 camera scalars, so one degenerate lane (a normalize at
     a grazing or invalid lens sample) must not poison them with NaN.  The
-    kernels' forward-mode counterpart zeroes a lane's non-finite
-    contribution to a gradient entry (csrc/fspt_adjoint.cu)."""
+    reverse-mode kernel 8 zeroes a non-finite primary-segment cotangent the
+    same way before the camera's adjoint, and the adjoint kernels zero a
+    lane's non-finite gradient entries (csrc/fspt_adjoint.cu)."""
 
     @staticmethod
     def forward(ctx, x):

@@ -173,7 +173,8 @@ class _GrazeDiv(torch.autograd.Function):
     parameter is exact, but at glancing incidence its derivatives (∝ 1/ts)
     overflow float32; the backward clamps ``|ts|`` to ``floor`` (≈ 1e-3 of
     the segment length), so such lanes get a bounded derivative instead of
-    NaN.  csrc/fspt_kernels.cuh ``graze_div`` is its forward-mode form."""
+    NaN.  csrc/fspt_tangent.cuh ``graze_div`` is its forward-mode form,
+    csrc/fspt_adjoint.cu ``winner_adj`` its reverse-mode form."""
 
     @staticmethod
     def forward(ctx, ns, ts, floor):

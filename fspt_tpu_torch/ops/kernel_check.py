@@ -34,12 +34,17 @@ same table values; a last-bit ``sinf``/``cosf`` difference keeps some values
 from equality, never from the bar).  Kernel 10
 and kernel 8's gradients against ``torch.autograd.grad`` of the plain
 version, with each lane's gradient summed over lanes in float64: every
-entry within rtol 1e-3, or within 1e-5 of the largest |entry| (forward
-against reverse mode re-associates every sum of the chain rule, and an entry
-whose lanes cancel keeps only that noise); kernel 8's loss within rtol 1e-5
-and its segments equal, its camera entries within rtol 2e-3 (the
-reference's own bar, tests/test_pallas_grad.py:345); ``remat=True`` equal to
-``remat=False`` bit for bit (one kernel).
+entry within rtol 1e-3, or within 1e-5 of the largest |entry| (the kernel's
+hand-written adjoint and autograd's order every sum of the chain rule
+differently, and an entry whose lanes cancel keeps only that noise); kernel
+8's loss within rtol 1e-5 and its segments equal, its camera entries within
+rtol 2e-3 (the reference's own bar, tests/test_pallas_grad.py:345);
+``remat=True`` equal to ``remat=False`` bit for bit (one kernel).  The
+reverse-mode kernels against their forward-mode witnesses (a second,
+independent derivative of the same float body, which fits in memory at full
+width where the autograd plain version does not) at the same bars, loss and
+segments equal; and two launches of a reverse kernel equal bit for bit (no
+atomics).
 
 Treelet kernels (5, 6): equal to their plain versions on 100 % of values —
 the survivor counts, leaf order and entry t after the key sort (kernel 5),
@@ -429,6 +434,59 @@ def check_fused_loss_chain(scene_pack, camera, cfg, target, fields, seed: int,
             g_k[f], g_p[f], rtol=2e-3 if camera_field else 1e-3,
             atol=1e-7 if camera_field else 0.0)
     rep["max_abs_err"] = max(float((g_k[f].double() - g_p[f]).abs().max()) for f in g_k)
+    return rep
+
+
+def check_grad_backward_witness(tracer, pvec, cot, seed: int, sample0: int, lane0: int,
+                                n: int) -> dict:
+    """Kernel 10 (reverse mode, ``tracer.kernel_backward``) against its
+    forward-mode witness on the same inputs, and two reverse launches bit
+    for bit."""
+    g_k = tracer.kernel_backward(pvec, cot, seed, sample0, lane0, n)
+    nonfinite = _count(tracer.nonfinite)
+    g_again = tracer.kernel_backward(pvec, cot, seed, sample0, lane0, n)
+    g_w = tracer.kernel_backward_fwdmode(pvec, cot, seed, sample0, lane0, n)
+    torch.cuda.synchronize()
+    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params, nonfinite_lanes=nonfinite,
+               witness_nonfinite_lanes=_count(tracer.nonfinite),
+               bit_equal=bool(torch.equal(g_k, g_again)),
+               max_abs_err=float((g_k.double() - g_w.double()).abs().max()),
+               grad_max=float(g_w.abs().max()))
+    assert rep["bit_equal"], rep
+    assert rep["grad_max"] > 0, rep
+    rep["err_over_bar"] = _adjoint_close(g_k, g_w)
+    return rep
+
+
+def check_chain_witness(fn, params, target, seed: int, frame_idx: int, y0: int,
+                        rows: int) -> dict:
+    """Kernel 8's whole chain (reverse mode, ``fn`` from
+    ``make_fused_loss_grad_fn(affine=False)`` on the card) against its
+    forward-mode witness (``fn.launch_fwdmode``) on the same inputs: loss within
+    rtol 1e-5, segments equal, gradients at the plain version's bars; and
+    two reverse launches bit for bit."""
+    loss_k, g_k, seg_k = fn(params, target, seed, frame_idx, y0, rows)
+    nonfinite = _count(fn.nonfinite)
+    loss_a, g_a, seg_a = fn(params, target, seed, frame_idx, y0, rows)
+    loss_w, g_w, seg_w = fn.launch_fwdmode(params, target, seed, frame_idx, y0, rows)
+    torch.cuda.synchronize()
+    rep = dict(rows=rows, y0=y0, loss=float(loss_k), witness_loss=float(loss_w),
+               segments=int(seg_k), witness_segments=int(seg_w), nonfinite_lanes=nonfinite,
+               witness_nonfinite_lanes=_count(fn.nonfinite))
+    rep["bit_equal"] = bool(float(loss_a) == float(loss_k) and int(seg_a) == int(seg_k)
+                            and all(torch.equal(g_a[f], g_k[f]) for f in g_k))
+    assert rep["bit_equal"], rep
+    rep["loss_rel_err"] = abs(rep["loss"] - rep["witness_loss"]) / max(
+        abs(rep["witness_loss"]), 1e-30)
+    assert rep["loss_rel_err"] <= 1e-5, rep
+    assert rep["segments"] == rep["witness_segments"], rep
+    for f in g_k:
+        camera_field = f == cuda_grad.CAMERA_FIELD
+        rep[f"grad_{f}_err_over_bar"] = _adjoint_close(
+            g_k[f], g_w[f], rtol=2e-3 if camera_field else 1e-3,
+            atol=1e-7 if camera_field else 0.0)
+    rep["max_abs_err"] = max(float((g_k[f].double() - g_w[f].double()).abs().max())
+                             for f in g_k)
     return rep
 
 

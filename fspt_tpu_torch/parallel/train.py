@@ -333,7 +333,7 @@ def make_bvh_vertex_recovery_step(mesh, cfg: RenderConfig, scene, lr: float = 0.
         if use_queue:
             _, (ids, hitm) = render_queued(scene_in, camera, cfg2, seed, frame_idx * cfg2.spp,
                                            y0=y0, rows=rows, intersector=inner, queue=q,
-                                           record_hits=True)
+                                           aovs=False, record_hits=True)
             return ids, hitm
         rec = []
 

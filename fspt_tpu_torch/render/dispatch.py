@@ -25,9 +25,11 @@ from fspt_tpu_torch.scene.builder import ScenePack
 MESH_PATH = "queued wavefront + cuda treelet BVH"
 
 
-def make_scene_step(scene: ScenePack, cfg: RenderConfig):
+def make_scene_step(scene: ScenePack, cfg: RenderConfig, queue: int | None = None):
     """Returns ``(name, step)`` with
     ``step(scene, camera, fb, seed, frame_idx) → (fb, segments)``.
+    ``queue`` is the ray queue's lane count on the mesh path (``None``:
+    ``render.queue.DEFAULT_QUEUE``).
 
     The intersectors pack the build-time scene's primitives and triangles;
     the ``scene`` passed to ``step`` feeds only live material/texture tables.
@@ -38,11 +40,12 @@ def make_scene_step(scene: ScenePack, cfg: RenderConfig):
 
         inter = make_mesh_intersector(scene)
         if inter is not None:
+            q = DEFAULT_QUEUE if queue is None else queue
 
             def step(scene_in, camera, fb, seed, frame_idx):
                 rows = fb.mean.shape[0]
                 out = render_queued(scene_in, camera, cfg, seed, frame_idx * cfg.spp,
-                                    rows=rows, intersector=inter, queue=DEFAULT_QUEUE)
+                                    rows=rows, intersector=inter, queue=q)
                 fb = fb_mod.accumulate(fb, out.radiance, out.aov_normal, out.aov_depth,
                                        out.aov_mat, rows, cfg.width, cfg.spp)
                 return fb, out.segments
@@ -66,7 +69,7 @@ def make_scene_step(scene: ScenePack, cfg: RenderConfig):
     return name, step
 
 
-def make_cached_scene_step(scene: ScenePack, cfg: RenderConfig):
+def make_cached_scene_step(scene: ScenePack, cfg: RenderConfig, queue: int | None = None):
     """First-hit-cached progressive step for BVH scenes (reference
     ImagePlaneCache, engine.h:46-65 + engine.cpp:33-105).
 
@@ -78,7 +81,8 @@ def make_cached_scene_step(scene: ScenePack, cfg: RenderConfig):
     frame.  ``(None, None, None)`` when the scene has no queued BVH path or
     the configuration cannot warm-start (fast render, depth < 2,
     ``edge_eps``): callers fall back to :func:`make_scene_step`.  Rebuild
-    the pose whenever the camera changes.
+    the pose whenever the camera changes.  ``queue`` is the ray queue's lane
+    count and the pose pass's chunk (``None``: ``DEFAULT_QUEUE``).
     """
     if (scene.bvh is None or cfg.edge_eps != 0.0 or cfg.effective_depth < 2
             or cfg.fast_render):
@@ -90,17 +94,18 @@ def make_cached_scene_step(scene: ScenePack, cfg: RenderConfig):
     inter = make_mesh_intersector(scene)
     if inter is None:
         return None, None, None
+    q = DEFAULT_QUEUE if queue is None else queue
 
     def cache_fn(scene_in, camera, seed):
         return compute_warm_pose(scene_in, camera, cfg, seed, 0, intersector=inter,
-                                 chunk=DEFAULT_QUEUE)
+                                 chunk=q)
 
     def step(scene_in, camera, fb, seed, frame_idx, pose):
         rows = fb.mean.shape[0]
         warm = warm_frame(scene_in, camera, cfg, pose, seed, frame_idx * cfg.spp, 0,
                           rows=rows)
         out = render_queued(scene_in, camera, cfg, seed, frame_idx * cfg.spp, rows=rows,
-                            intersector=inter, queue=DEFAULT_QUEUE, cam_sample0=0,
+                            intersector=inter, queue=q, cam_sample0=0,
                             warm=warm)
         fb = fb_mod.accumulate(fb, out.radiance, out.aov_normal, out.aov_depth,
                                out.aov_mat, rows, cfg.width, cfg.spp)

@@ -51,11 +51,13 @@ def _intersect(intersector, o, d, alive):
 
 def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
                   seed, sample0, y0=0, rows=None, *, intersector,
-                  queue: int = DEFAULT_QUEUE, record_hits: bool = False,
-                  cam_sample0=None, warm=None):
+                  queue: int = DEFAULT_QUEUE, aovs: bool = True,
+                  record_hits: bool = False, cam_sample0=None, warm=None):
     """Render a band through a regenerating ray queue of ``queue`` lanes.
 
-    Drop-in for ``integrator.render_wavefront``.  ``cam_sample0``
+    Drop-in for ``integrator.render_wavefront``.  ``aovs=False`` skips the
+    AOV scatter buffers (zeros returned) for radiance-only consumers such as
+    the vertex recorder (the reference's ``aovs``).  ``cam_sample0``
     decouples the camera sample counter (jitter and lens uniforms) from the
     bounce counter ``sample0``; frames that freeze it re-trace identical
     primary rays.
@@ -109,12 +111,16 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
         segments=torch.zeros((), dtype=torch.int64, device=dev))
     pad = lambda a: torch.cat([a, torch.zeros((q,) + tuple(a.shape[1:]), dtype=a.dtype,
                                               device=dev)])
-    if warm is None:
-        rad_buf, aov_n, aov_d = f32(n + q, 3), f32(n + q, 3), f32(n + q)
+    rad_buf = f32(n + q, 3) if warm is None else pad(warm["radiance_init"])
+    if not aovs:
+        aov_n, aov_d = f32(n, 3), f32(n)
+        aov_m = torch.zeros((n,), dtype=torch.int32, device=dev)
+    elif warm is None:
+        aov_n, aov_d = f32(n + q, 3), f32(n + q)
         aov_m = torch.zeros((n + q,), dtype=torch.int32, device=dev)
     else:
-        rad_buf, aov_n = pad(warm["radiance_init"]), pad(warm["aov_normal"])
-        aov_d, aov_m = pad(warm["aov_depth"]), pad(warm["aov_mat"].to(torch.int32))
+        aov_n, aov_d = pad(warm["aov_normal"]), pad(warm["aov_depth"])
+        aov_m = pad(warm["aov_mat"].to(torch.int32))
     if record_hits:
         # q pad rows past the n·D record rows, one per queue slot.
         rec_ids = torch.full((n * eff_depth + q,), -1, dtype=torch.int32, device=dev)
@@ -212,10 +218,12 @@ def render_queued(scene: ScenePack, camera: Camera, cfg: RenderConfig,
                                                  throughput)
 
         at0 = depth == 0
-        scatter(aov_n, at0, lane_id, torch.where(hit.hit[:, None], normal, view_dir))
-        scatter(aov_d, at0, lane_id, torch.where(hit.hit, vm.length(hit.point - o), z_far))
-        scatter(aov_m, at0, lane_id,
-                torch.where(hit.hit, hit.mat, scene.sky_mat.to(torch.int32)).to(torch.int32))
+        if aovs:
+            scatter(aov_n, at0, lane_id, torch.where(hit.hit[:, None], normal, view_dir))
+            scatter(aov_d, at0, lane_id,
+                    torch.where(hit.hit, vm.length(hit.point - o), z_far))
+            scatter(aov_m, at0, lane_id, torch.where(
+                hit.hit, hit.mat, scene.sky_mat.to(torch.int32)).to(torch.int32))
         plh = torch.where(at0, hit.hit & sh.is_light, st["plh"])
         mark = active & sh.is_fog & at0
         st["fog_active"] = fog_active | mark

@@ -220,6 +220,24 @@ def test_pack_params_round_trip():
         assert torch.equal(back[k], params[k]), k
 
 
+@pytest.mark.parametrize("affine", [True, False])
+def test_fused_loss_entry_takes_no_launch_options(affine):
+    """The front door keeps the reference's arguments (params, target,
+    seed, frame_idx, y0, rows) on both constructions; the whole chain's
+    forward-mode witness has its own entry on the card only."""
+    import inspect
+
+    _, _, ps, pc, cfg = _setup(build_cornell_box(), width=8, height=4, spp=1, max_depth=2)
+    fn = cuda_grad.make_fused_loss_grad_fn(ps, pc, cfg, affine=affine)
+    assert list(inspect.signature(fn).parameters) == [
+        "params", "target", "seed", "frame_idx", "y0", "rows"]
+    assert not hasattr(fn, "launch_fwdmode")
+    params = {k: getattr(ps.materials, k) for k in ("diffuse", "emissive")}
+    target = torch.zeros((cfg.height, cfg.width, 3))
+    with pytest.raises(TypeError):
+        fn(params, target, 1, 0, 0, cfg.height, fwdmode=True)
+
+
 def test_fused_loss_takes_fields_in_any_order():
     """The reference's kernels read the packed vector in canonical column
     order whatever order ``fields`` names (pallas_grad.py:_TableView); the

@@ -1,8 +1,9 @@
 """Each CUDA kernel against its plain PyTorch version, on the card.
 
 Marked ``gpu``: they need a CUDA card and nvcc, and skip elsewhere.  Run
-them on the card with ``python -m pytest tests/test_torch_kernels_gpu.py
--m gpu``.  The comparisons and their bars live in
+them on the card with ``python -m pytest --noconftest -m gpu
+tests/test_torch_kernels_gpu.py`` (tests/conftest.py imports jax, which the
+card's machine does not have).  The comparisons and their bars live in
 fspt_tpu_torch/ops/kernel_check.py, shared with chip_smoke.py.
 """
 
@@ -89,8 +90,9 @@ ADJOINT_FIELDS = ("diffuse", "emissive", "glow", "param", "ior", "reflectivity",
 
 
 def test_grad_path_kernels_match_plain(cuda):
-    """Kernel 9 against its plain version and kernel 10 against autograd of
-    it, on all nine families through a thin-lens camera."""
+    """Kernel 9 against its plain version and kernel 10 (reverse mode)
+    against autograd of it, on all nine families through a thin-lens
+    camera."""
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
@@ -105,8 +107,8 @@ def test_grad_path_kernels_match_plain(cuda):
     ("flagship", ("diffuse", "emissive", "param", "camera")),
 ])
 def test_fused_loss_chain_kernel_matches_plain(cuda, scene_name, fields):
-    """Kernel 8's whole chain (and remat, the same kernel) against its plain
-    version, material fields and the camera."""
+    """Kernel 8's whole chain (reverse mode; remat is the same kernel)
+    against its plain version, material fields and the camera."""
     import numpy as np
 
     from fspt_tpu_torch.ops import kernel_check
@@ -118,6 +120,78 @@ def test_fused_loss_chain_kernel_matches_plain(cuda, scene_name, fields):
         (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
     kernel_check.check_fused_loss_chain(b.compile(device=cuda), b.cameras[0], cfg, target,
                                         fields, seed=4, frame_idx=2)
+
+
+def _adjoint_case(cuda, scene_name, fields, depth=4):
+    import numpy as np
+
+    from fspt_tpu_torch.ops import cuda_grad, cuda_path
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build(scene_name, device=cuda, aperture=1.5, focal_depth=120.0)
+    scene, cam = b.compile(device=cuda), b.cameras[0]
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=depth)
+    params = {f: (cuda_path.camera_pvec(cam) if f == cuda_grad.CAMERA_FIELD
+                  else getattr(scene.materials, f)) for f in fields}
+    target = torch.from_numpy(np.random.default_rng(1).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
+    return scene, cam, cfg, params, target
+
+
+@pytest.mark.parametrize("scene_name,fields,kernel,depth", [
+    ("all_families", ADJOINT_FIELDS, "grad_backward", 4),
+    ("all_families", ADJOINT_FIELDS, "fused_loss_chain", 4),
+    ("flagship", ("camera",), "fused_loss_chain", 4),
+    ("all_families", ADJOINT_FIELDS[:4], "grad_backward", 16),
+    ("all_families", ADJOINT_FIELDS[:4], "grad_backward", 17),
+    ("all_families", ADJOINT_FIELDS[:4], "grad_backward", 18),
+    ("all_families", ("diffuse", "param", "frost", "camera"), "fused_loss_chain", 16),
+    ("all_families", ("diffuse", "param", "frost", "camera"), "fused_loss_chain", 17),
+    ("all_families", ("diffuse", "param", "frost", "camera"), "fused_loss_chain", 18),
+])
+def test_reverse_adjoint_matches_fwdmode_witness(cuda, scene_name, fields, kernel, depth):
+    """Kernels 10 and 8's whole chain (reverse mode) against their
+    forward-mode witnesses on the same inputs, at the plain version's bars,
+    and two reverse launches bit for bit: all nine families with every
+    material field (P = 169, shared-memory columns above 48 KB), the
+    flagship's camera through the thin lens, and 16 bounces (the most the
+    per-thread record holds) against 17 and 18 (the device scratch)."""
+    import numpy as np
+
+    from fspt_tpu_torch.ops import cuda_grad, kernel_check
+
+    scene, cam, cfg, params, target = _adjoint_case(cuda, scene_name, fields, depth)
+    n = cfg.height * cfg.width * cfg.spp
+    if kernel == "grad_backward":
+        tracer = cuda_grad.make_grad_path_tracer(scene, cam, cfg, fields=fields)
+        pvec = cuda_grad.pack_params(params, tracer.fields)
+        cot = torch.from_numpy(np.random.default_rng(3).normal(size=(3, n)).astype(
+            np.float32)).to(cuda)
+        kernel_check.check_grad_backward_witness(tracer, pvec, cot, 3, 1, 0, n)
+    else:
+        fn = cuda_grad.make_fused_loss_grad_fn(scene, cam, cfg, fields=fields, affine=False)
+        kernel_check.check_chain_witness(fn, params, target, 4, 2, 0, cfg.height)
+
+
+@pytest.mark.parametrize("n_mats,rows,depth,block,scratch_words", [
+    (13, 169, 4, 128, 0),    # all_families, seven fields: 87 KB of columns
+    (64, 430, 16, 128, 0),   # the most bounces the per-thread record holds
+    (64, 841, 17, 64, 170),  # every field of 64 rows and the camera: past 227 KB at 128
+    (64, 1000, 40, 32, 400),
+])
+def test_reverse_adjoint_plan(cuda, n_mats, rows, depth, block, scratch_words):
+    """The reverse kernels' launch (csrc/fspt_adjoint.cu fspt_adjoint_plan):
+    128 threads a block, or fewer where the gradient columns and the table
+    would pass a block's shared memory; the per-thread record up to 16
+    bounces, 10 words a bounce of device scratch past it; a table past
+    shared memory raises."""
+    from fspt_tpu_torch.ops import cuda_grad
+
+    assert cuda_grad.adjoint_plan(n_mats, rows, depth) == (block, scratch_words)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_grad.adjoint_plan(n_mats, 60000, depth)
+    with pytest.raises(ValueError, match="material rows"):
+        cuda_grad.adjoint_plan(65, rows, depth)
 
 
 @pytest.fixture

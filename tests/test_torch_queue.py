@@ -9,7 +9,8 @@
   same per-lane work, so the two agree to float rounding.
 * The warm-start first-hit cache equals the uncached render of the same
   frozen-jitter estimator (``cam_sample0 = 0``) at the same bar, as in
-  tests/test_queue.py.
+  tests/test_queue.py.  ``aovs=False`` changes nothing but the AOVs
+  (zeros), and a step built with ``queue=`` renders at that queue.
 * With ``edge_eps`` the queue equals the wavefront (hit-id replay
   intersector), and the winners it records (``record_hits``), replayed
   through the wavefront, reproduce its render (tests/test_queue.py:120-160).
@@ -123,6 +124,67 @@ def test_dispatch_takes_the_queued_mesh_path(mesh):
     assert int((ids >= 0).sum()) > 0 and bool(hitm[:, 0].any())
     ref = render_queued(scene, cam, cfg, 3, 0, intersector=inter, queue=20)
     assert torch.equal(out.radiance, ref.radiance)
+
+
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_queue_without_aovs(mesh, warm_start):
+    """``aovs=False`` (the reference's, for radiance-only consumers such as
+    the vertex recorder) gives the same radiance and segments as
+    ``aovs=True``, and zero AOVs."""
+    scene, cam, inter = mesh
+    cfg = RenderConfig(width=16, height=12, spp=2, max_depth=3)
+    kw = {}
+    if warm_start:
+        pose = compute_warm_pose(scene, cam, cfg, 7, 0, intersector=inter, chunk=128)
+        kw = dict(cam_sample0=0, warm=warm_frame(scene, cam, cfg, pose, 7, 2, 0))
+    ref = render_queued(scene, cam, cfg, 7, 2, intersector=inter, queue=64, **kw)
+    out = render_queued(scene, cam, cfg, 7, 2, intersector=inter, queue=64, aovs=False, **kw)
+    assert torch.equal(out.radiance, ref.radiance)
+    assert int(out.segments) == int(ref.segments)
+    assert bool(ref.aov_depth.abs().sum() > 0)
+    for a in (out.aov_normal, out.aov_depth, out.aov_mat):
+        assert not bool(a.any())
+    assert out.aov_normal.shape == ref.aov_normal.shape
+    assert out.aov_mat.dtype == ref.aov_mat.dtype
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_scene_step_takes_its_queue(mesh, monkeypatch, cached):
+    """A mesh step built with ``queue=`` renders through a queue of that
+    size (the reference's ``make_scene_step(queue=)``): the frame equals
+    ``render_queued`` at that queue."""
+    from fspt_tpu_torch.render import framebuffer
+    from fspt_tpu_torch.render import queue as queue_mod
+
+    scene, cam, inter = mesh
+    cfg = RenderConfig(width=8, height=6, spp=2, max_depth=3)
+    seen = []
+    real = queue_mod.render_queued
+
+    def spy(*args, **kw):
+        seen.append(kw["queue"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(queue_mod, "render_queued", spy)
+    q = 20
+    if cached:
+        _, step, cache_fn = make_cached_scene_step(scene, cfg, queue=q)
+        pose = cache_fn(scene, cam, 3)
+        fb, segs = step(scene, cam, framebuffer.create(6, 8, device=CPU), 3, 1, pose)
+        warm = warm_frame(scene, cam, cfg, compute_warm_pose(scene, cam, cfg, 3, 0,
+                                                             intersector=inter, chunk=q),
+                          3, cfg.spp, 0)
+        ref = real(scene, cam, cfg, 3, cfg.spp, intersector=inter, queue=q, cam_sample0=0,
+                   warm=warm)
+    else:
+        _, step = make_scene_step(scene, cfg, queue=q)
+        fb, segs = step(scene, cam, framebuffer.create(6, 8, device=CPU), 3, 1)
+        ref = real(scene, cam, cfg, 3, cfg.spp, intersector=inter, queue=q)
+    assert seen == [q]
+    expect = framebuffer.accumulate(framebuffer.create(6, 8, device=CPU), ref.radiance,
+                                    ref.aov_normal, ref.aov_depth, ref.aov_mat, 6, 8, cfg.spp)
+    assert torch.equal(fb.mean, expect.mean)
+    assert int(segs) == int(ref.segments)
 
 
 @pytest.fixture(scope="module")
