@@ -57,7 +57,9 @@ Phases, each announced by one line:
    bench.py:155; profiled) and at the port's default (1 << 18), kernels 5
    and 6 per launch on one full default-queue iteration (262,144 rays) of
    primaries and of bounce rays and per frame, the key sort, the post-pass,
-   the queue's torch work, beside the plain versions and the bounds;
+   the queue's torch work, beside the plain versions and the bounds; the
+   p50 / p90 / p99 / max of kernel 6's leaf visits a block, its CTA shape
+   and its shared memory;
 18. kernels 9 (grad_forward), 10 (grad_backward, reverse mode) and kernel
    8's whole chain (fused_loss_chain, reverse mode, and remat: the same
    kernel) against their plain versions (the body with run-time table
@@ -197,9 +199,9 @@ WALK_SAMPLE = 65536
 
 
 def ptxas_report(log):
-    """CUDA function → registers, (spill stores, spill loads) and stack
-    frame bytes, from ``-Xptxas -v``; a template instantiation also under
-    ``name<args>`` (its integer arguments)."""
+    """CUDA function → registers, (spill stores, spill loads), stack frame
+    and static shared memory bytes, from ``-Xptxas -v``; a template
+    instantiation also under ``name<args>`` (its integer arguments)."""
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -222,6 +224,9 @@ def ptxas_report(log):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 out.setdefault(key, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out.setdefault(key, {})["smem"] = int(m.group(1))
     return out
 
 
@@ -819,7 +824,8 @@ def main():
     print(f"build: {build_s:.1f} s (0 if the libraries for these sources existed)")
     for k, v in regs.items():
         print(f"ptxas {k}: {v.get('registers')} registers, spill stores/loads "
-              f"{v.get('spill')} bytes, stack frame {v.get('stack')} bytes")
+              f"{v.get('spill')} bytes, stack frame {v.get('stack')} bytes, static shared "
+              f"memory {v.get('smem', 0)} bytes")
     for k in PTXAS_NAMES:
         assert k in regs, f"no ptxas report for {k}"
 
@@ -1396,6 +1402,13 @@ def main():
               f"treelet_cull {ms5:.4f} ms (plain {plain5:.2f}, bound {b5:.4f} {by5}); "
               f"key sort {ms_sort:.4f} ms; treelet_sweep {ms6:.4f} ms (plain {plain6:.2f}, "
               f"bound {b6:.4f} {by6}); post {ms_post:.4f} ms", flush=True)
+        vq = torch.quantile(visits.float(), torch.tensor([0.5, 0.9, 0.99], device=dev)).tolist()
+        sw, (threads, rays, slices) = regs["treelet_sweep_kernel"], cuda_bvh.sweep_shape()
+        print(f"{kind} leaf visits a block p50/p90/p99/max {vq[0]:g}/{vq[1]:g}/{vq[2]:g}/"
+              f"{int(visits.max())}; treelet_sweep CTA {threads} threads "
+              f"({rays} rays a thread, {slices} threads a ray), "
+              f"{sw.get('smem', 0)} bytes static shared memory, {sw.get('registers')} "
+              f"registers, blocks heaviest first", flush=True)
     print(f"queue iterations per frame: {n_calls}")
     timings.update(mesh_t["bounces"])  # a mid-frame iteration: the kernels line
 

@@ -25,16 +25,44 @@
 // operations: ~30 per (ray, leaf), against 64 bytes a ray and 24 a leaf read
 // and 4 bytes a (block, leaf) written.
 //
-// Kernel 6, one CTA of 64 threads (one per ray) per ray block: the block
-// walks its front-to-back leaf list; each leaf's 128 triangles (20 floats
-// each: 19 Möller–Trumbore weights and EPSILON·area) are staged in shared
-// memory with 16-byte loads, and every thread tests its ray against all 128
-// as warp-broadcast reads.  After each group of leaves the block's maximum t
-// (warp shuffles, then shared memory) decides the early exit, the ring
-// kernel's rule.  Bound by operations: ~51 per (ray, triangle) of a visited
-// leaf.  The TPU kernel's DMA ring and MXU matmul are not carried over: a
-// per-ray loop over shared memory is the simple form; wgmma and TMA are
-// later work.
+// Kernel 6, one CTA of 256 threads per ray block: each thread holds two of
+// the block's 64 rays, and eight threads share a pair.  The block walks its
+// front-to-back leaf list; each leaf's 128 triangles (20 floats each: 19
+// Möller–Trumbore weights and EPSILON·area) are staged in shared memory,
+// and each thread tests every eighth triangle (columns j ≡ slice mod 8:
+// the eight slices of a quarter-warp read eight float4 rows that fall in
+// distinct banks) against both of its rays.  A ray's eight packed keys
+// (bits(t) & ~127) | column are joined by an integer min over
+// __shfl_xor_sync, which does not depend on the split, so t, best and
+// visits equal the plain version's.  After each group of leaves the
+// block's maximum t (warp shuffles, then shared memory over 8 warps)
+// decides the early exit, the ring kernel's rule.
+//
+// Bound by operations: ~51 per (ray, triangle) of a visited leaf.  With
+// -fmad=false each is one instruction, plus the loads and the loop, so the
+// issue rate of 132 SMs × 128 lanes puts the floor near 2.5× the bound (the
+// bound counts an FMA as two operations).  What the design does about the
+// rest:
+//   - the tail: a block's leaf list is walked in order (the strict < on
+//     quantized t lets the first-visited leaf win a tie, so one block's
+//     list cannot be split across CTAs); eight threads a ray cut the
+//     heaviest block's walk eightfold, and the wrapper hands the kernel its
+//     blocks sorted by survivor count, heaviest first, so the long walks
+//     start in the first wave instead of ending the kernel;
+//   - shared-memory reads: with one ray a thread a test needs five LDS.128
+//     of its triangle's row, and a warp's LDS.128 is served a quarter-warp
+//     at a time, so those reads and not the arithmetic set the pace (the
+//     FMA-contracted build of that form was only 4 % faster on an H100);
+//     two rays a thread halve the reads a test;
+//   - the staging: two 10 KB leaf buffers; leaf s+1 is copied with 16-byte
+//     cp.async (L2 only) while leaf s is tested, one barrier a leaf.  The
+//     copy runs ahead of the early-exit test (never past counts[b]): a leaf
+//     copied and then not tested does not count as a visit;
+//   - occupancy: 8 warps a CTA, launch bounds for three CTAs (24 warps)
+//     an SM.
+// The TPU kernel's MXU product of [64 × 16] rays by [16 × 512] weights is
+// not carried over: an FMA-contracted or TF32 product would change which
+// triangle wins a near tie against the plain version.
 //
 // Kernels 11 and 12, one thread per ray (128 a CTA), walk a miss-link BVH
 // without a stack, in the order of ops/bvh.traverse_bvh: node + 1 on a
@@ -47,7 +75,8 @@
 // Kernel 11 tests each leaf triangle with the cross-product Möller–Trumbore
 // of traverse_bvh, term for term.  Kernel 12 walks a tree of 128-triangle
 // leaves and tests a leaf with kernel 6's sign-folded 19-weight form (the
-// same device function, reading the leaf's weights from global memory),
+// same per-column device function, tri_key, reading the leaf's weights
+// from global memory),
 // keeping the quantized packed key; ops/cuda_bvh.post recovers exact t, u,
 // v.  Both write per ray the nodes and the triangles it tested (kernel 12:
 // the real triangles of the leaves it swept, not their pad columns), from
@@ -69,6 +98,14 @@ constexpr int kFeat = 16;          // floats per ray feature row
 constexpr int kTreelet = 128;      // triangles per leaf
 constexpr int kRows = 20;          // floats per triangle
 constexpr int kCullThreads = 256;
+// Kernel 6: each thread holds kSweepRays rays and tests every
+// kSweepSlices-th triangle of a leaf against them; kSweepSlices threads
+// share a ray.
+constexpr int kSweepRays = 2;
+constexpr int kSweepSlices = 8;
+constexpr int kSweepThreads = kRays / kSweepRays * kSweepSlices;  // 256
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kLeafVec = kTreelet * kRows / 4;       // float4s in a leaf: 640
 constexpr int kWalkThreads = 128;
 constexpr float kBig = 3.0e38f;
 constexpr int kNoHit = 0x7FFFFFFF;
@@ -87,32 +124,54 @@ __device__ __forceinline__ RayF load_ray(const float* f) {
   return RayF{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
 }
 
-// One ray against the 128 triangles of a leaf (w: 20 floats a triangle, in
-// shared or global memory), the sign-folded Möller–Trumbore of
-// cuda_bvh._leaf_test term for term: the packed key (bits(t) & ~127) |
-// column of the nearest triangle closer than tb, kNoHit where none.
+// One ray against triangle column j of a leaf (wj: its 20 floats), the
+// sign-folded Möller–Trumbore of cuda_bvh._leaf_test term for term: the
+// packed key (bits(t) & ~127) | j when the triangle is hit closer than tb,
+// else kNoHit.
+__device__ __forceinline__ int tri_key(const float* __restrict__ wj, const RayF& r, float tb,
+                                       int j) {
+  const float det = r.d0 * wj[0] + r.d1 * wj[1] + r.d2 * wj[2];
+  const float u_num = r.d0 * wj[3] + r.d1 * wj[4] + r.d2 * wj[5] + r.c0 * wj[6] +
+                      r.c1 * wj[7] + r.c2 * wj[8];
+  const float v_num = r.d0 * wj[9] + r.d1 * wj[10] + r.d2 * wj[11] + r.c0 * wj[12] +
+                      r.c1 * wj[13] + r.c2 * wj[14];
+  const float t_num = r.o0 * wj[15] + r.o1 * wj[16] + r.o2 * wj[17] + wj[18];
+  const float ad = fabsf(det);
+  const float sm = det < 0.0f ? -1.0f : 1.0f;
+  const float un = u_num * sm, vn = v_num * sm, tn = t_num * sm;
+  const float min4 = fminf(fminf(un, vn), fminf(ad - (un + vn), tn));
+  if (min4 >= 0.0f && tn < tb * ad && ad >= wj[19]) {
+    const float tc = tn / ad;
+    return (__float_as_int(tc) & ~(kTreelet - 1)) | j;
+  }
+  return kNoHit;
+}
+
+// One ray against the 128 triangles of a leaf in global memory (kernel 12):
+// the smallest packed key, kNoHit where none is closer than tb.
 __device__ __forceinline__ int leaf_min_key(const float* __restrict__ w, const RayF& r,
                                             float tb) {
   int kmin = kNoHit;
 #pragma unroll 2
-  for (int j = 0; j < kTreelet; ++j) {
-    const float* wj = w + j * kRows;
-    const float det = r.d0 * wj[0] + r.d1 * wj[1] + r.d2 * wj[2];
-    const float u_num = r.d0 * wj[3] + r.d1 * wj[4] + r.d2 * wj[5] + r.c0 * wj[6] +
-                        r.c1 * wj[7] + r.c2 * wj[8];
-    const float v_num = r.d0 * wj[9] + r.d1 * wj[10] + r.d2 * wj[11] + r.c0 * wj[12] +
-                        r.c1 * wj[13] + r.c2 * wj[14];
-    const float t_num = r.o0 * wj[15] + r.o1 * wj[16] + r.o2 * wj[17] + wj[18];
-    const float ad = fabsf(det);
-    const float sm = det < 0.0f ? -1.0f : 1.0f;
-    const float un = u_num * sm, vn = v_num * sm, tn = t_num * sm;
-    const float min4 = fminf(fminf(un, vn), fminf(ad - (un + vn), tn));
-    if (min4 >= 0.0f && tn < tb * ad && ad >= wj[19]) {
-      const float tc = tn / ad;
-      kmin = min(kmin, (__float_as_int(tc) & ~(kTreelet - 1)) | j);
-    }
-  }
+  for (int j = 0; j < kTreelet; ++j) kmin = min(kmin, tri_key(w + j * kRows, r, tb, j));
   return kmin;
+}
+
+// Kernel 6's staging: the 640 float4s of leaf `leaf` into dst, 16-byte
+// cp.async copies through L2, one commit group per leaf.
+__device__ __forceinline__ void stage_leaf(float4* dst, const float* __restrict__ W, int leaf,
+                                           int tid) {
+  const float4* src = reinterpret_cast<const float4*>(W + (size_t)leaf * kTreelet * kRows);
+  for (int q = tid; q < kLeafVec; q += kSweepThreads) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + q));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + q)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void staged_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Slab test of the ray (origin o, guarded reciprocal direction r) against
@@ -174,55 +233,93 @@ treelet_cull_kernel(const float* __restrict__ F, const float* __restrict__ lbmin
   }
 }
 
-__global__ void __launch_bounds__(kRays)
-treelet_sweep_kernel(const int* __restrict__ counts, const int* __restrict__ order,
-                     const float* __restrict__ tlo, int n_leaves, int group,
-                     const float* __restrict__ F, const float* __restrict__ W,
-                     float* __restrict__ t_out, int* __restrict__ best_out,
-                     int* __restrict__ visits) {
-  __shared__ float4 s_w[kTreelet * kRows / 4];  // one leaf: 10 KB
-  __shared__ float s_max[kRays / 32];
-  const int b = blockIdx.x;
+__global__ void __launch_bounds__(kSweepThreads, 3)
+treelet_sweep_kernel(const int64_t* __restrict__ heavy_first, const int* __restrict__ counts,
+                     const int* __restrict__ order, const float* __restrict__ tlo,
+                     int n_leaves, int group, const float* __restrict__ F,
+                     const float* __restrict__ W, float* __restrict__ t_out,
+                     int* __restrict__ best_out, int* __restrict__ visits) {
+  constexpr int kStride = kRays / kSweepRays;  // a thread's rays: tid / kSweepSlices + k·kStride
+  __shared__ float4 s_w[2][kLeafVec];          // two leaves: 20 KB
+  __shared__ float s_max[2][kSweepWarps];      // by group parity
+  const int b = (int)heavy_first[blockIdx.x];
   const int tid = threadIdx.x;
-  const size_t i = (size_t)b * kRays + tid;
-  const float* f = F + i * kFeat;
-  const RayF ray = load_ray(f);
-  float tb = f[10];
-  int best = -1;
+  const int slice = tid % kSweepSlices;
+  const size_t i0 = (size_t)b * kRays + tid / kSweepSlices;
+  RayF ray[kSweepRays];
+  float tb[kSweepRays];
+  int best[kSweepRays];
+#pragma unroll
+  for (int k = 0; k < kSweepRays; ++k) {
+    const float* f = F + (i0 + k * kStride) * kFeat;
+    ray[k] = load_ray(f);
+    tb[k] = f[10];
+    best[k] = -1;
+  }
   const int count = counts[b];
   const int* ord = order + (size_t)b * n_leaves;
   const float* tl = tlo + (size_t)b * n_leaves;
-  const float* w = reinterpret_cast<const float*>(s_w);
-  int swept = 0;
 
-  for (int k = 0; k < count; k += group) {
-    const int end = min(k + group, count);
-    for (int s = k; s < end; ++s) {
-      const int leaf = ord[s];
-      const float4* src =
-          reinterpret_cast<const float4*>(W + (size_t)leaf * kTreelet * kRows);
-      __syncthreads();  // the previous leaf's readers are done
-      for (int q = tid; q < kTreelet * kRows / 4; q += kRays) s_w[q] = __ldg(src + q);
-      __syncthreads();
-      const int kmin = leaf_min_key(w, ray, tb);
-      if (kmin != kNoHit) {
-        best = leaf * kTreelet + (kmin & (kTreelet - 1));
-        tb = __int_as_float(kmin & ~(kTreelet - 1));
-      }
-      ++swept;
-    }
-    // Early exit: the next leaf starts beyond every ray's best hit.
-    float m = tb;
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((tid & 31) == 0) s_max[tid >> 5] = m;
+  if (count > 0) stage_leaf(s_w[0], W, ord[0], tid);
+  int s = 0;
+  for (; s < count; ++s) {
+    staged_wait();
+    // Leaf s is in s_w[s & 1] for every thread, and every thread is done
+    // with leaf s - 1, whose buffer takes leaf s + 1 next.
     __syncthreads();
-    const float t_blk = fminf(fmaxf(s_max[0], s_max[1]), 1.0f);
-    const int nk = k + group;
-    if (nk < count && tl[nk] > t_blk) break;
+    if (s > 0 && s % group == 0) {
+      // Early exit: the next leaf starts beyond every ray's best hit.
+      const float* warp_max = s_max[(s / group) & 1];
+      float t_blk = warp_max[0];
+#pragma unroll
+      for (int w = 1; w < kSweepWarps; ++w) t_blk = fmaxf(t_blk, warp_max[w]);
+      if (tl[s] > fminf(t_blk, 1.0f)) break;
+    }
+    if (s + 1 < count) stage_leaf(s_w[(s + 1) & 1], W, ord[s + 1], tid);
+    const float4* w = s_w[s & 1];
+    int kmin[kSweepRays];
+#pragma unroll
+    for (int k = 0; k < kSweepRays; ++k) kmin[k] = kNoHit;
+#pragma unroll 2
+    for (int m = 0; m < kTreelet / kSweepSlices; ++m) {
+      const int j = m * kSweepSlices + slice;
+      const float4* q = w + j * (kRows / 4);
+      const float4 a = q[0], c = q[1], d = q[2], e = q[3], g = q[4];
+      const float wj[kRows] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w, d.x, d.y,
+                               d.z, d.w, e.x, e.y, e.z, e.w, g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int k = 0; k < kSweepRays; ++k)
+        kmin[k] = min(kmin[k], tri_key(wj, ray[k], tb[k], j));
+    }
+    const int leaf = ord[s];
+#pragma unroll
+    for (int k = 0; k < kSweepRays; ++k) {
+#pragma unroll
+      for (int off = 1; off < kSweepSlices; off <<= 1)
+        kmin[k] = min(kmin[k], __shfl_xor_sync(0xffffffffu, kmin[k], off));
+      if (kmin[k] != kNoHit) {
+        best[k] = leaf * kTreelet + (kmin[k] & (kTreelet - 1));
+        tb[k] = __int_as_float(kmin[k] & ~(kTreelet - 1));
+      }
+    }
+    if ((s + 1) % group == 0) {
+      float m = tb[0];
+#pragma unroll
+      for (int k = 1; k < kSweepRays; ++k) m = fmaxf(m, tb[k]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if ((tid & 31) == 0) s_max[((s + 1) / group) & 1][tid >> 5] = m;
+    }
   }
-  t_out[i] = tb;
-  best_out[i] = best;
-  if (tid == 0) visits[b] = swept;
+  if (slice == 0) {
+#pragma unroll
+    for (int k = 0; k < kSweepRays; ++k) {
+      t_out[i0 + k * kStride] = tb[k];
+      best_out[i0 + k * kStride] = best[k];
+    }
+  }
+  if (tid == 0) visits[b] = s;
 }
 
 __global__ void __launch_bounds__(kWalkThreads)
@@ -351,16 +448,25 @@ int fspt_treelet_cull(const float* F, const float* lbmin, const float* lbmax,
   return (int)cudaGetLastError();
 }
 
-int fspt_treelet_sweep(const int* counts, const int* order, const float* tlo,
-                       int n_leaves, int group, const float* F, const float* W,
-                       int n_blocks, float* t, int* best, int* visits,
+int fspt_treelet_sweep(const int64_t* heavy_first, const int* counts, const int* order,
+                       const float* tlo, int n_leaves, int group, const float* F,
+                       const float* W, int n_blocks, float* t, int* best, int* visits,
                        void* stream) {
   using namespace fspt_bvh;
   if (n_blocks > 0) {
-    treelet_sweep_kernel<<<n_blocks, kRays, 0, (cudaStream_t)stream>>>(
-        counts, order, tlo, n_leaves, group, F, W, t, best, visits);
+    treelet_sweep_kernel<<<n_blocks, kSweepThreads, 0, (cudaStream_t)stream>>>(
+        heavy_first, counts, order, tlo, n_leaves, group, F, W, t, best, visits);
   }
   return (int)cudaGetLastError();
+}
+
+// Kernel 6's CTA as launched: threads, rays a thread, threads a ray.
+int fspt_sweep_shape(int* shape) {
+  using namespace fspt_bvh;
+  shape[0] = kSweepThreads;
+  shape[1] = kSweepRays;
+  shape[2] = kSweepSlices;
+  return 0;
 }
 
 int fspt_bvh_walk(const float* start, const float* seg, const float* t_init, int n,

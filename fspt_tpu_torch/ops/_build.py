@@ -112,7 +112,7 @@ class TracedCamParams(ctypes.Structure):
     ]
 
 
-# library → launcher symbol → argtypes (every pointer and the stream as c_void_p)
+# library → exported symbol → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "fspt_kernels": {
         # prims, meta, n_prims, start, seg, n, t, normal, mat, kind, uv, stream
@@ -148,9 +148,11 @@ _SIGNATURES = {
     "fspt_bvh": {
         # F, lbmin, lbmax, n_leaves, n_blocks, key, stream
         "fspt_treelet_cull": [_P, _P, _P, _I, _I, _P, _P],
-        # counts, order, tlo, n_leaves, group, F, weights, n_blocks, t, best,
-        # visits, stream
-        "fspt_treelet_sweep": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+        # heavy_first, counts, order, tlo, n_leaves, group, F, weights,
+        # n_blocks, t, best, visits, stream
+        "fspt_treelet_sweep": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+        # shape: int[3] out (threads, rays a thread, threads a ray)
+        "fspt_sweep_shape": [_P],
         # start, seg, t_init, n, bmin, bmax, first, count, miss, n_nodes, v0,
         # e1, e2, area2, tri_id, t, id, u, v, visits, tested, stream
         "fspt_bvh_walk": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,

@@ -17,7 +17,8 @@ treelets of 128 triangles; rays go in blocks of :data:`BLOCK_RAYS`:
    its leaf list, tests every ray against the leaf's 128 triangles with the
    sign-folded Möller–Trumbore of the reference's epilogue, keeps
    ``(t_best, best = leaf·128 + slot)`` per ray and stops once the next
-   leaf's entry t passes the block's worst hit;
+   leaf's entry t passes the block's worst hit; on the card eight threads
+   share a ray and the blocks start heaviest first (:func:`block_order`);
 4. :func:`post` recomputes the exact t, u, v and original triangle id of
    each ray's winner, in torch.
 
@@ -60,6 +61,7 @@ On a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -71,7 +73,7 @@ from fspt_tpu_torch.scene.geometry import INVALID_PARAM
 from fspt_tpu_torch.utils import vecmath as vm
 
 TREELET = 128  # triangles per leaf
-BLOCK_RAYS = 64  # rays per block: the sweep kernel's thread count (csrc kRays)
+BLOCK_RAYS = 64  # rays per block (csrc kRays)
 GROUP = 8  # leaves swept between two early-exit tests
 N_FEATURES = 16  # floats per ray feature row; 11 used
 W_ROWS = 20  # floats per triangle: 19 Möller–Trumbore weights + EPSILON·area
@@ -418,8 +420,25 @@ def plain_sweep(counts, order, tlo, F, tables: TreeletTables):
     return t_best.reshape(-1), best.reshape(-1), visits
 
 
+def block_order(counts):
+    """The order in which kernel 6 takes its ray blocks: a permutation of
+    ``range(B)`` (int64) with ``counts`` non-increasing along it, so the
+    blocks with the longest leaf lists start first.  Outputs are written by
+    block id, so the order leaves them unchanged."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
+def sweep_shape():
+    """Kernel 6's CTA as the built library launches it: ``(threads, rays a
+    thread, threads a ray)``."""
+    shape = (ctypes.c_int * 3)()
+    _build.library(TREELET_SWEEP.library).fspt_sweep_shape(shape)
+    return tuple(shape)
+
+
 def launch_sweep(counts, order, tlo, F, tables: TreeletTables):
-    """Launch kernel 6 on CUDA tensors; same contract as :func:`plain_sweep`."""
+    """Launch kernel 6 on CUDA tensors, its blocks in :func:`block_order`;
+    same contract as :func:`plain_sweep`."""
     dev = F.device
     n_pad, L = F.shape[0], tables.n_leaves
     n_blocks = n_pad // BLOCK_RAYS
@@ -434,9 +453,11 @@ def launch_sweep(counts, order, tlo, F, tables: TreeletTables):
     t = torch.empty((n_pad,), dtype=torch.float32, device=dev)
     best = torch.empty((n_pad,), dtype=torch.int32, device=dev)
     visits = torch.empty((n_blocks,), dtype=torch.int32, device=dev)
-    _build.launch(TREELET_SWEEP, counts.data_ptr(), order.data_ptr(), tlo.data_ptr(),
-                  L, GROUP, F.data_ptr(), tables.weights.data_ptr(), n_blocks,
-                  t.data_ptr(), best.data_ptr(), visits.data_ptr(),
+    heavy_first = block_order(counts)
+    _build.launch(TREELET_SWEEP, heavy_first.data_ptr(), counts.data_ptr(),
+                  order.data_ptr(), tlo.data_ptr(), L, GROUP, F.data_ptr(),
+                  tables.weights.data_ptr(), n_blocks, t.data_ptr(), best.data_ptr(),
+                  visits.data_ptr(),
                   torch.cuda.current_stream(dev).cuda_stream)
     return t, best, visits
 

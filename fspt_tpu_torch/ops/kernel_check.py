@@ -49,9 +49,10 @@ atomics).
 Treelet kernels (5, 6): equal to their plain versions on 100 % of values —
 the survivor counts, leaf order and entry t after the key sort (kernel 5),
 the packed winner, its t and the leaf visits (kernel 6).  Both sides add
-the same terms in the same order, so anything less is a fault.  The mesh
-frame on the kernel path (kernels 1, 5, 6) against the plain path: the
-path bar above, with equal segment counts.
+the same terms in the same order (kernel 6's integer min over packed keys
+does not depend on how its threads split a leaf), so anything less is a
+fault.  The mesh frame on the kernel path (kernels 1, 5, 6) against the
+plain path: the path bar above, with equal segment counts.
 
 Tree walks (11, 12), at the reference's bars (tests/test_pallas_bvh.py:
 37-63): kernel 11's t within rtol 1e-5 / atol 1e-7 and its ids equal on

@@ -44,16 +44,10 @@ from fspt_tpu_torch.scene import samples
 from fspt_tpu_torch.utils import native
 
 from conftest import assert_images_close
+from test_torch_kernels_gpu import sweep_case
+from test_torch_kernels_gpu import tris as _tris
 
 CPU = torch.device("cpu")
-
-
-def _tris(n, seed=0):
-    rs = np.random.RandomState(seed)
-    v0 = rs.uniform(-40, 40, (n, 3)).astype(np.float32)
-    v1 = v0 + rs.uniform(-8, 8, (n, 3)).astype(np.float32)
-    v2 = v0 + rs.uniform(-8, 8, (n, 3)).astype(np.float32)
-    return v0, v1, v2
 
 
 def _rays(n, seed=1):
@@ -197,6 +191,88 @@ def test_culled_traverser_dead_lanes():
     live = alive & (t_ref < 2.0)
     np.testing.assert_allclose(t_ref[live], t[live], rtol=1e-4, atol=1e-6)
     assert (id_ref[live] == ids[live]).mean() > 0.999
+
+
+def _nearest_brute_force(tables, start, seg, t_init):
+    """Float64 Möller–Trumbore of every ray against every triangle:
+    nearest original triangle id (−1: none), and whether the answer is
+    clear: no other triangle hit, or missed by less than 1e-4 (edge, t
+    range, parallel threshold), within 1e-3 of the winner's t."""
+    v0, e1, e2 = (getattr(tables, n).numpy().astype(np.float64)
+                  for n in ("tri_v0", "tri_e1", "tri_e2"))
+    o, d = start.astype(np.float64)[:, None], seg.astype(np.float64)[:, None]
+    p = np.cross(d, e2[None])
+    det = (e1[None] * p).sum(-1)
+    floor = 1e-5 * np.linalg.norm(np.cross(e1, e2), axis=-1)[None]
+    inv = 1.0 / np.where(det != 0, det, 1.0)
+    tv = o - v0[None]
+    u = (tv * p).sum(-1) * inv
+    q = np.cross(tv, e1[None])
+    v = (d * q).sum(-1) * inv
+    t = (e2[None] * q).sum(-1) * inv
+    edge = np.minimum(np.minimum(u, v), 1.0 - u - v)
+    t0 = t_init[:, None]
+    hit = (np.abs(det) >= floor) & (edge >= 0) & (t >= 0) & (t < t0)
+    near = ((np.abs(det) >= floor * (1 - 1e-4)) & (edge >= -1e-4) & (t >= -1e-4)
+            & (t < t0 + 1e-4))
+    t_hit = np.where(hit, t, np.inf).min(axis=1)
+    t_near = np.sort(np.where(near & ~(hit & (t == t_hit[:, None])), t, np.inf), axis=1)[:, 0]
+    with np.errstate(invalid="ignore"):  # inf − inf on rays that hit nothing
+        clear = t_near - t_hit > 1e-3 * np.maximum(np.where(np.isfinite(t_hit), t_hit, 0), 1e-3)
+    clear |= np.isinf(t_hit) & np.isinf(t_near)
+    winner = np.argmin(np.where(hit, t, np.inf), axis=1)
+    ids = np.where(np.isfinite(t_hit), tables.tri_id.numpy()[winner], -1)
+    return ids, clear
+
+
+def test_plain_sweep_contract():
+    """The contract kernel 6 is held to, on kernel 6's plain version: on
+    ~3,000 random triangles with one incoherent block (every leaf survives
+    its cull), ``best`` is the brute-force nearest triangle wherever that
+    is clear; ``visits[b]`` is at most ``counts[b]`` and a multiple of GROUP
+    or ``counts[b]``; a block stops early only where the next leaf's ``tlo``
+    exceeds min(its rays' largest t, 1); dead rays win nothing."""
+    trav, (start, seg, t_init), (counts, order, tlo, F) = sweep_case()
+    tables = trav.tables
+    L, R, G = tables.n_leaves, cuda_bvh.BLOCK_RAYS, cuda_bvh.GROUP
+    assert int(counts[0]) == L  # the incoherent block: every leaf
+    assert int(counts[1:7].max()) < L
+    t, best, visits = cuda_bvh.plain_sweep(counts, order, tlo, F, tables)
+
+    c, v = counts.numpy(), visits.numpy()
+    assert (v <= c).all()
+    assert ((v % G == 0) | (v == c)).all()
+    stopped = np.nonzero(v < c)[0]
+    assert len(stopped) > 0
+    t_blk = np.minimum(t.numpy().reshape(-1, R).max(axis=1), 1.0)
+    for b in stopped:
+        assert tlo[b, v[b]].item() > t_blk[b]
+    assert int(v[0]) > G  # the incoherent block sweeps past its first group
+
+    _, tri_id, _, _ = trav.post(torch.from_numpy(start), torch.from_numpy(seg),
+                                torch.where(best >= 0, t, torch.from_numpy(t_init)), best)
+    ids, clear = _nearest_brute_force(tables, start, seg, t_init)
+    assert clear.mean() > 0.9 and (ids[clear] >= 0).mean() > 0.3
+    np.testing.assert_array_equal(tri_id.numpy()[clear], ids[clear])
+    dead = t_init == 0
+    assert (best.numpy()[dead] == -1).all()
+    np.testing.assert_array_equal(t.numpy()[dead], 0.0)
+
+
+@pytest.mark.parametrize("case", ["survivors", "ties", "empty"])
+def test_block_order_heaviest_first(case):
+    """Kernel 6's launch order: a permutation of the blocks, survivor
+    counts non-increasing along it."""
+    if case == "survivors":
+        counts = sweep_case()[2][0]
+    elif case == "ties":
+        counts = torch.from_numpy(np.random.RandomState(3).randint(0, 4, 4096).astype(np.int32))
+    else:
+        counts = torch.zeros(64, dtype=torch.int32)
+    perm = cuda_bvh.block_order(counts)
+    assert perm.dtype == torch.int64
+    assert torch.equal(torch.sort(perm).values, torch.arange(counts.numel()))
+    assert (counts[perm][1:] <= counts[perm][:-1]).all()
 
 
 def test_torch_traverse_bvh_matches_reference():

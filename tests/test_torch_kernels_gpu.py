@@ -226,6 +226,90 @@ def test_treelet_kernels_match_plain(cuda, heightfield):
         kernel_check.check_treelet_kernels(inter.traverser, *inter.sweep_inputs(o, d, alive)[:3])
 
 
+def tris(n, seed=0):
+    """``n`` random triangles in a box of side 80, edges up to 8 (numpy,
+    float32); shared with tests/test_torch_bvh.py."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    v0 = rs.uniform(-40, 40, (n, 3)).astype(np.float32)
+    v1 = v0 + rs.uniform(-8, 8, (n, 3)).astype(np.float32)
+    v2 = v0 + rs.uniform(-8, 8, (n, 3)).astype(np.float32)
+    return v0, v1, v2
+
+
+def sweep_case(n_tris=3000, seed=22, device=None, dead_blocks=()):
+    """Kernel 6's inputs on ``n_tris`` random triangles cut into
+    128-triangle leaves and 8 blocks of 64 rays: block 0 incoherent (origins
+    all over the mesh box, directions anywhere, so every leaf survives its
+    cull), blocks 1-7 coherent (one origin 70 from the centre, a narrow cone
+    towards it each), the rays of block 7 alternately dead and those of
+    ``dead_blocks`` all dead.  Returns the traverser on ``device``, the rays
+    (numpy) and ``(counts, order, tlo, F)`` from its cull.  Shared with
+    tests/test_torch_bvh.py, which the card's machine cannot import."""
+    import numpy as np
+
+    from fspt_tpu_torch.ops import cuda_bvh
+
+    v0, v1, v2 = tris(n_tris, seed=seed)
+    trav = cuda_bvh.make_culled_traverser(cuda_bvh.build_treelet_chunks(v0, v1, v2),
+                                          device=device)
+    rs = np.random.RandomState(seed + 1)
+    R = cuda_bvh.BLOCK_RAYS
+    start = np.empty((8 * R, 3), np.float32)
+    d = rs.normal(size=(8 * R, 3))
+    start[:R] = rs.uniform(-40, 40, (R, 3))
+    for b in range(1, 8):
+        axis = rs.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        start[b * R:(b + 1) * R] = 70.0 * axis
+        d[b * R:(b + 1) * R] = 0.05 * d[b * R:(b + 1) * R] - axis
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    seg = (d * 200.0).astype(np.float32)
+    t_init = np.ones(8 * R, np.float32)
+    for b in dead_blocks:
+        t_init[b * R:(b + 1) * R] = 0.0
+    t_init[7 * R::2] = 0.0
+    rays = (start, seg, t_init)
+    return trav, rays, trav.prepare(*(torch.from_numpy(a).to(trav.tables.weights.device)
+                                      for a in rays))
+
+
+@pytest.mark.parametrize("case", ["incoherent", "empty", "ragged"])
+def test_treelet_sweep_edge_blocks(cuda, case):
+    """Kernel 6 against its plain version, every output bit-equal, and two
+    launches bit-equal (the heaviest-first block order does not reach the
+    results): a block whose survivor list is every leaf; an all-dead block
+    and live blocks given no leaves; survivor counts cut to values that are
+    not multiples of GROUP."""
+    from fspt_tpu_torch.ops import cuda_bvh
+
+    trav, _, (counts, order, tlo, F) = sweep_case(20000, device=cuda, dead_blocks=(6,))
+    L = trav.tables.n_leaves
+    assert int(counts[0]) == L and int(counts[6]) == 0
+    if case == "empty":
+        counts = counts.clone()
+        counts[1:3] = 0
+    elif case == "ragged":
+        cut = torch.tensor([L - 3, 13, 9, 3, 17, 1, 0, 11], dtype=torch.int32, device=cuda)
+        counts = torch.minimum(counts, cut)
+        assert int((counts % cuda_bvh.GROUP != 0).sum()) >= 5
+    first = cuda_bvh.launch_sweep(counts, order, tlo, F, trav.tables)
+    again = cuda_bvh.launch_sweep(counts, order, tlo, F, trav.tables)
+    plain = cuda_bvh.plain_sweep(counts, order, tlo, F, trav.tables)
+    torch.cuda.synchronize()
+    for name, k, a, p in zip(("t", "best", "visits"), first, again, plain):
+        assert torch.equal(k, p), name
+        assert torch.equal(k, a), name
+    visits = first[2]
+    if case == "incoherent":
+        assert int(visits[0]) == L  # the whole list swept
+    assert int(visits[6]) == 0 and (first[1].view(8, -1)[6] == -1).all()
+    if case == "empty":
+        assert (visits[1:3] == 0).all()
+        assert torch.equal(first[0].view(8, -1)[1:3], F[:, 10].view(8, -1)[1:3])
+
+
 def test_mesh_frame_matches_plain(cuda, heightfield):
     from fspt_tpu_torch.ops import kernel_check
 
