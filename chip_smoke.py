@@ -28,8 +28,8 @@ Phases, each announced by one line:
    slot planes, folded radiance, the lane0 split;
 10. kernel 7 (affine slot planes) against its plain version on the same
    scene, fast-render off and on, then image and gradients through the
-   fold; kernel 8 (fused dual-buffer loss) against its plain version on the
-   flagship at 256×256, 4 spp, depth 8;
+   fold; kernel 8 (fused dual-buffer loss, affine) against its plain version
+   on the flagship at 256×256, 4 spp, depth 8, two launches bit for bit;
 11. textured main path: ``fspt_tpu_torch.cli`` renders a textured copy of
    scenes/cornell.scene (tests/data/piz_pattern.exr on two walls,
    piz_dome.exr on the sky) at 1024², 4 spp, depth 8, 4 frames; kernel 4's
@@ -39,8 +39,13 @@ Phases, each announced by one line:
    and emissive (kernel 8 affine, one launch per step) — then 3 steps of
    the texture example at 512² (kernel 7); every loss finite and falling;
 13. timings of kernels 4, 7 and 8 at their main-path shapes beside their
-   plain versions and bounds, and the recovery step end to end (fwd+bwd
-   segments/s, both buffers counted);
+   plain versions and bounds: kernel 8 affine at 1080p×4 against its plain
+   version (two launches bit for bit), beside its bound, 2 × kernel 9 on
+   the same lanes (the trace floor); the pool-1 recovery step end to end (ms, device busy share,
+   fwd+bwd segments/s, both buffers counted); kernel 8 affine at 64
+   material rows and 16 slots (``samples.many_materials``, 512²×4, depth
+   16) against its plain version, timed, with its plan's block; kernel 7 at
+   its launch shape, the texture example's 512²×4, depth 3 (and at 1080p);
 14. kernels 5 (treelet cull) and 6 (treelet sweep) against their plain
    versions on the mesh bench scene (``samples.heightfield``, 99,458
    triangles in 778 treelets): 65,536 camera primaries and one queue
@@ -65,12 +70,9 @@ Phases, each announced by one line:
    kernel) against their plain versions (the body with run-time table
    tensors, under autograd) at 128×128, 2 spp, depth 4, thin-lens cameras:
    all families with the seven material fields, the flagship with
-   diffuse/emissive/param and with the camera (alone and joint); kernels 10
-   and 8 against their forward-mode witnesses (grad_backward_fwdmode,
-   fused_loss_chain_fwdmode: no user path launches them) on the same inputs
-   (all families, P = 169; the flagship camera), two reverse launches bit
-   for bit; then the plain versions', the kernels' and the witnesses' times
-   at that size;
+   diffuse/emissive/param and with the camera (alone and joint), two
+   launches of kernels 10 and 8 bit for bit; then the plain versions' and
+   the kernels' times at that size;
 19. training path at full width on the path-body adjoint: 4 steps at pool 1
    with diffuse, emissive, param and the camera (kernel 8 whole chain, one
    launch per step) and 4 at pool 8 with diffuse, emissive, param (kernels
@@ -80,10 +82,9 @@ Phases, each announced by one line:
 21. kernels 9, 10 and 8's whole chain against their plain versions at the
    full-width shape from the training start: kernel 9 over all 8,294,400
    lanes, kernels 10 and 8 (whose plain versions run under autograd) on a
-   band of rows mid-frame, and against their forward-mode witnesses over all
-   8,294,400 lanes; then their timings there (the reverse kernels before
-   and after the witnesses, in one call) beside their bounds, and both
-   adjoint recovery routes end to end;
+   band of rows mid-frame, and launched twice over all 8,294,400 lanes,
+   equal bit for bit; then their timings there beside their bounds, and
+   both adjoint recovery routes end to end;
 22. vertex recovery at full width (the reference's ``mesh_grad_100k``
    bench row, bench.py:224-279): ``make_bvh_vertex_recovery_step`` on the
    heightfield (99,458 triangles) at 512×512, 2 spp, depth 2, edge_eps
@@ -103,9 +104,8 @@ Phases, each announced by one line:
    versions on a 65,536-ray strided sample, against kernel 6's recorded
    winners on every live ray, and timed at the full count beside their
    bounds (from the nodes and triangles each ray tested);
-25. one JSON line of per-kernel numbers (the two witnesses last, their
-   launches those of the full-width witness check); then the card line; the
-   last line is ``{"ok": true, "device": {...}}``.
+25. one JSON line of per-kernel numbers; then the card line; the last
+   line is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
@@ -172,15 +172,8 @@ KERNELS = {
     "fused_loss_chain": ("fused_loss_chain_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "bvh_walk": ("bvh_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
     "treelet_walk": ("treelet_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
-    "grad_backward_fwdmode": ("grad_backward_fwdmode_kernel",
-                              "fspt_tpu_torch/csrc/fspt_fwdmode.cu"),
-    "fused_loss_chain_fwdmode": ("fused_loss_chain_fwdmode_kernel",
-                                 "fspt_tpu_torch/csrc/fspt_fwdmode.cu"),
 }
-#: The forward-mode witnesses: no user path launches them (their launches
-#: in the kernels line are those of the full-width witness check).
-WITNESSES = ("grad_backward_fwdmode", "fused_loss_chain_fwdmode")
-PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["fused_loss_reduce", "adjoint_reduce"]
+PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["adjoint_reduce"]
 
 #: Fields of the adjoint phases: every material column (kernel checks on
 #: all families), the whole-chain route's and the kernel-9/10 route's.
@@ -236,7 +229,8 @@ def profile_window(fn, label, counters, top=6):
     window's launches of each port kernel the trace holds, the device busy
     share of the window (read from the trace only where it holds every
     launch) and the kernels taking the most device time, and keep the table
-    in build/chip_smoke/profile_<label>.txt."""
+    in build/chip_smoke/profile_<label>.txt.  Returns the busy share, or
+    None where the trace misses a launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -267,13 +261,15 @@ def profile_window(fn, label, counters, top=6):
             print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
     dev_us = sorted(((e.self_device_time_total, e.key) for e in dev), reverse=True)
     busy_us = sum(us for us, _ in dev_us)
-    share = f"{busy_us / window_us:.1%}" if complete else "not read: launches missing"
+    share = busy_us / window_us if complete else None
     print(f"profile {label}: window {window_us:.0f} us, device busy {busy_us:.0f} us "
-          f"({share}); top kernels by device time:")
+          f"({'not read: launches missing' if share is None else f'{share:.1%}'}); top "
+          f"kernels by device time:")
     for us, key in dev_us[:top]:
         print(f"  {us:10.0f} us  {key[:90]}")
     (OUT / f"profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=25))
+    return share
 
 
 def check_launches(launches, want, label):
@@ -286,12 +282,11 @@ def check_launches(launches, want, label):
 def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, train_cam,
                    target_t, start, seg_ops, camera_argv):
     """Phases 18-21: the path-body adjoint (kernels 9, 10 and kernel 8's
-    whole chain; 10 and 8 in reverse mode, beside their forward-mode
-    witnesses) — checks at ``cfg_chk``, the two recovery routes at ``cfg_t``
-    on ``train_scene`` from the perturbed ``start`` (diffuse, emissive), the
-    camera example with ``camera_argv``, the full-width witness checks and
-    timings.  Returns ``(report, timings, launches)`` entries of the kernels
-    line."""
+    whole chain; 10 and 8 in reverse mode) — checks at ``cfg_chk``, the two
+    recovery routes at ``cfg_t`` on ``train_scene`` from the perturbed
+    ``start`` (diffuse, emissive), the camera example with ``camera_argv``,
+    the full-width relaunch checks and timings.  Returns ``(report,
+    timings, launches)`` entries of the kernels line."""
     import numpy as np
     import torch
 
@@ -301,16 +296,14 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     from fspt_tpu_torch.scene import samples
 
     report = {k: {"max_abs_err": 0.0} for k in ("grad_forward", "grad_backward",
-                                                 "fused_loss_chain", *WITNESSES)}
+                                                 "fused_loss_chain")}
 
     def worst(key, err):
         report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
 
     timings, path_launches = {}, {}
-    K = cuda_grad.TANGENT_K
 
-    # 18. kernels 9, 10 and 8's whole chain against their plain versions,
-    # and 10 and 8 against their forward-mode witnesses
+    # 18. kernels 9, 10 and 8's whole chain against their plain versions
     H, W, spp = cfg_chk.height, cfg_chk.width, cfg_chk.spp
     size = f"{W}x{H}x{spp}, depth {cfg_chk.max_depth}"
     n_c = H * W * spp
@@ -350,40 +343,19 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
         np.float32)).to(dev)
     chain_c = cuda_grad.make_fused_loss_grad_fn(fam_scene, fam_cam, cfg_chk,
                                                 fields=ADJOINT_FIELDS)
-    phase(f"reverse mode vs forward-mode witness: all families + DoF, {size}, P = "
-          f"{tracer_c.n_params} (kernel 10) and {tracer_c.n_params} (kernel 8); flagship "
-          f"camera (kernel 8)")
-    rep = kernel_check.check_grad_backward_witness(tracer_c, pv_c, cot_c, 3, 1, 0, n_c)
-    print(f"grad_backward vs witness: {json.dumps(rep)}", flush=True)
-    worst("grad_backward_fwdmode", rep["max_abs_err"])
-    for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
-                         ("flagship", CHAIN_FIELDS)):
-        sc, cm = scenes[name]
-        fn = cuda_grad.make_fused_loss_grad_fn(sc, cm, cfg_chk, fields=fields, affine=False)
-        ps = {f: (cuda_path.camera_pvec(cm) if f == cuda_grad.CAMERA_FIELD
-                  else getattr(sc.materials, f)) for f in fields}
-        rep = kernel_check.check_chain_witness(fn, ps, target_c, 4, 2, 0, H)
-        print(f"fused_loss_chain vs witness, {name} {fields}: {json.dumps(rep)}", flush=True)
-        worst("fused_loss_chain_fwdmode", rep["max_abs_err"])
-
-    phase(f"plain versions, kernels 9, 10, 8 whole chain and the witnesses: all families, "
-          f"{size}, {len(ADJOINT_FIELDS)} fields")
+    phase(f"plain versions, kernels 9, 10 and 8 whole chain: all families, {size}, "
+          f"{len(ADJOINT_FIELDS)} fields")
     small = {
         "grad_forward": (lambda: tracer_c.kernel_forward(pv_c, 3, 1, 0, n_c),
                          lambda: tracer_c.plain(pv_c, 3, 1, 0, n_c)),
         "grad_backward": (lambda: tracer_c.kernel_backward(pv_c, cot_c, 3, 1, 0, n_c),
                           lambda: tracer_c.plain_grad(pv_c, cot_c, 3, 1, 0, n_c)),
-        "grad_backward_fwdmode": (
-            lambda: tracer_c.kernel_backward_fwdmode(pv_c, cot_c, 3, 1, 0, n_c), None),
         "fused_loss_chain": (lambda: chain_c(params_c, target_c, 4, 2, 0, H),
                              lambda: chain_c.plain(params_c, target_c, 4, 2, 0, H)),
-        "fused_loss_chain_fwdmode": (
-            lambda: chain_c.launch_fwdmode(params_c, target_c, 4, 2, 0, H), None),
     }
     for key, (kern, plain) in small.items():
-        plain_ms = (cuda_time_ms(plain, iters=1) if plain is not None
-                    else timings[key.replace("_fwdmode", "")]["plain_ms"])
-        timings[key] = dict(check_ms=cuda_time_ms(kern, iters=3), plain_ms=plain_ms,
+        timings[key] = dict(check_ms=cuda_time_ms(kern, iters=3),
+                            plain_ms=cuda_time_ms(plain, iters=1),
                             plain_shape=f"all_families {size}, P={tracer_c.n_params}")
         print(f"{key} at {size}: kernel {timings[key]['check_ms']:.3f} ms, plain "
               f"{timings[key]['plain_ms']:.1f} ms", flush=True)
@@ -421,7 +393,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
             assert np.isfinite(losses[-1]) and all(
                 bool(torch.isfinite(v).all()) for v in params.values()), (label, it)
         launches = {k: c.launches for k, c in counters.items()}
-        # Every other count, the witnesses' among them, must be 0.
+        # Every other count must be 0.
         check_launches(launches, {k: v * steps for k, v in per_step.items()},
                        f"{label} pool={pool}")
         assert losses[-1] < losses[0], (label, losses)
@@ -451,7 +423,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     # 21. the kernels against their plain versions at the main path's shape
     # (kernel 9 over the whole frame; kernels 10 and 8's whole chain, whose
     # plain versions run under autograd, on a band of rows mid-frame, and
-    # against their forward-mode witnesses over the whole frame), from the
+    # launched twice over the whole frame, equal bit for bit), from the
     # training start; then their timings
     y0, rows = Ht // 2, BAND_ROWS
     phase(f"kernels 9, 10 and 8 whole chain vs plain at the main path's shape: flagship "
@@ -474,57 +446,38 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     print(f"fused_loss_chain and remat, band: {json.dumps(rep)}", flush=True)
     worst("fused_loss_chain", rep["max_abs_err"])
 
-    phase(f"reverse mode vs forward-mode witness on all {n_t} lanes: kernel 10 (P = "
-          f"{pair.n_params}) and kernel 8 whole chain with the camera")
+    phase(f"kernels 10 (P = {pair.n_params}) and 8 whole chain with the camera, twice on all "
+          f"{n_t} lanes: equal bit for bit")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cot_t = torch.randn((3, n_t), generator=gen, device=dev)
     chain_t = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t,
                                                 fields=CHAIN_FIELDS)
     params_t = {f: params0[f] for f in CHAIN_FIELDS}
-    reset_counts()
-    rep = kernel_check.check_grad_backward_witness(pair, pv_t, cot_t, 9, 0, 0, n_t)
-    print(f"grad_backward vs witness, whole frame: {json.dumps(rep)}", flush=True)
-    worst("grad_backward_fwdmode", rep["max_abs_err"])
-    rep = kernel_check.check_chain_witness(chain_t, params_t, target_t, 7, 1, 0, Ht)
-    print(f"fused_loss_chain vs witness, whole frame: {json.dumps(rep)}", flush=True)
-    worst("fused_loss_chain_fwdmode", rep["max_abs_err"])
-    launches = {k: c.launches for k, c in counters.items()}
-    check_launches(launches, {"grad_backward": 2, "grad_backward_fwdmode": 1,
-                              "fused_loss_chain": 2, "fused_loss_chain_fwdmode": 1},
-                   "full-width witness checks")
-    path_launches.update({k: launches[k] for k in WITNESSES})
-
-    phase(f"timing: kernels 9, 10 and 8 whole chain (reverse mode) and the witnesses, "
-          f"flagship {Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}")
-    _, segcnt = pair.kernel_forward(pv_t, 9, 0, 0, n_t)
-    seg9 = int(segcnt.sum())
     g10 = pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)
-    assert bool(torch.isfinite(g10).all())
     print(f"kernel 10 at full width: lanes with a zeroed non-finite contribution "
           f"{int(pair.nonfinite)} of {n_t}")
     loss8, g8, seg8 = chain_t(params_t, target_t, 7, 1, 0, Ht)
-    seg8 = int(seg8)
-    assert bool(torch.isfinite(loss8)) and all(bool(torch.isfinite(g).all())
-                                               for g in g8.values())
     print(f"kernel 8 whole chain at full width: lanes with a zeroed non-finite contribution "
           f"{int(chain_t.nonfinite)} of {n_t}")
+    again10 = pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)
+    again8 = chain_t(params_t, target_t, 7, 1, 0, Ht)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(g10).all()) and bool(torch.isfinite(loss8)) and all(
+        bool(torch.isfinite(g).all()) for g in g8.values())
+    equal = dict(grad_backward=bool(torch.equal(g10, again10)), fused_loss_chain=bool(
+        float(again8[0]) == float(loss8) and int(again8[2]) == int(seg8)
+        and all(torch.equal(again8[1][f], g8[f]) for f in g8)))
+    print(f"two launches on all {n_t} lanes equal bit for bit: {json.dumps(equal)}", flush=True)
+    assert all(equal.values()), equal
+
+    phase(f"timing: kernels 9, 10 and 8 whole chain (reverse mode), flagship "
+          f"{Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}")
+    _, segcnt = pair.kernel_forward(pv_t, 9, 0, 0, n_t)
+    seg9, seg8 = int(segcnt.sum()), int(seg8)
     ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
-    # Reverse mode, the witness, reverse mode again (the spread within the call).
-    t10 = {"reverse": None, "fwdmode": None, "reverse again": None}
-    t8 = dict(t10)
-    for key in t10:
-        if key == "fwdmode":
-            f10 = lambda: pair.kernel_backward_fwdmode(pv_t, cot_t, 9, 0, 0, n_t)  # noqa: E731
-            f8 = lambda: chain_t.launch_fwdmode(params_t, target_t, 7, 1, 0, Ht)  # noqa: E731
-        else:
-            f10 = lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)  # noqa: E731
-            f8 = lambda: chain_t(params_t, target_t, 7, 1, 0, Ht)  # noqa: E731
-        t10[key] = cuda_time_ms(f10, iters=2)
-        t8[key] = cuda_time_ms(f8, iters=2)
-    print(f"grad_backward ms: {json.dumps(t10)}", flush=True)
-    print(f"fused_loss_chain ms: {json.dumps(t8)}", flush=True)
-    ms10, ms8 = t10["reverse"], t8["reverse"]
+    ms10 = cuda_time_ms(lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t), iters=2)
+    ms8 = cuda_time_ms(lambda: chain_t(params_t, target_t, 7, 1, 0, Ht), iters=2)
     mats_t = cuda_path.HostMaterials(train_scene.materials)
     P_pair = cuda_grad.param_count(mats_t, PAIR_FIELDS)
     P_chain = cuda_grad.param_count(mats_t, CHAIN_FIELDS)
@@ -536,11 +489,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     full = {
         "grad_forward": (ms9, b9, seg9, P_pair, "float, 1 trace"),
         "grad_backward": (ms10, b10, seg9, P_pair, "reverse, 1 forward + 1 sweep"),
-        "grad_backward_fwdmode": (t10["fwdmode"], b10, seg9, P_pair,
-                                  f"forward mode, {-(-P_pair // K)} passes of K={K}"),
         "fused_loss_chain": (ms8, b8, seg8, P_chain, "reverse, 1 forward + 1 sweep a buffer"),
-        "fused_loss_chain_fwdmode": (t8["fwdmode"], b8, seg8, P_chain,
-                                     f"forward mode, {-(-P_chain // K)} passes of K={K}"),
     }
     for key, (ms, (b, by), segs, P, passes) in full.items():
         timings[key].update(ms=ms, bound_ms=b, bound_by=by, max_abs_err=0.0, params=P,
@@ -795,9 +744,7 @@ def main():
                 "grad_backward": cuda_grad.GRAD_BACKWARD,
                 "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN,
                 "bvh_walk": cuda_bvh.BVH_WALK,
-                "treelet_walk": cuda_bvh.TREELET_WALK,
-                "grad_backward_fwdmode": cuda_grad.GRAD_BACKWARD_FWDMODE,
-                "fused_loss_chain_fwdmode": cuda_grad.FUSED_LOSS_CHAIN_FWDMODE}
+                "treelet_walk": cuda_bvh.TREELET_WALK}
 
     def reset_counts():
         for c in counters.values():
@@ -1111,8 +1058,9 @@ def main():
     check_launches(launches, {"fused_loss": steps}, "pool=1")
     assert losses[-1] < losses[0], losses
     path_launches["fused_loss"] = launches["fused_loss"]
-    profile_window(lambda: step(params, state, train_scene, train_cam, target_t, 9, steps),
-                   "recovery_pool1", counters)
+    busy1 = profile_window(
+        lambda: step(params, state, train_scene, train_cam, target_t, 9, steps),
+        "recovery_pool1", counters)
     phase("texture example: recover_texture at 512x512, 3 iterations")
     reset_counts()
     from fspt_tpu_torch.examples import recover_texture
@@ -1164,24 +1112,18 @@ def main():
     phase("timing: kernels 7 and 8 on the flagship 1920x1080x4, depth 8")
     planes7 = cuda_grad.make_affine_planes(train_scene, train_cam, cfg_t)
     full7 = kernel_check.check_affine_planes(train_scene, train_cam, cfg_t, seed=9)
-    seg7 = full7["segments"]
     print(f"affine_planes vs plain at 1920x1080x4: {json.dumps(full7)}")
-    ms7 = cuda_time_ms(lambda: planes7(9, 0, 0, n_t), iters=10, warmup=2)
-    plain7 = cuda_time_ms(lambda: planes7.plain(9, 0, 0, n_t), iters=1)
-    S7 = cuda_path.n_slots(cfg_t)
+    ms7_1080 = cuda_time_ms(lambda: planes7(9, 0, 0, n_t), iters=10, warmup=2)
     hs_t = cuda_trace.HostScene(train_scene.geometry)
-    b7, by7 = bound_ms(seg7 * hs_t.segment_ops(), n_t * (S7 * 20 + 8))
-    timings["affine_planes"] = dict(ms=ms7, plain_ms=plain7, bound_ms=b7, bound_by=by7,
-                                    max_abs_err=full7["max_abs_err"])
-    print(f"affine_planes: {ms7:.3f} ms/frame, {seg7} segments, "
-          f"{seg7 / (ms7 * 1e-3):.4g} segments/s; plain {plain7:.1f} ms; bound {b7:.4f} ms "
-          f"({by7}: {S7} slots x 20 B + 8 B per lane)", flush=True)
+    print(f"affine_planes: {ms7_1080:.3f} ms/frame at 1920x1080x4, {full7['segments']} "
+          f"segments", flush=True)
 
     fused = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t)
     full8 = kernel_check.check_fused_loss(train_scene, train_cam, cfg_t, target_t,
                                           seed=7, frame_idx=1, params=start)
     seg8 = full8["segments"]
-    print(f"fused_loss vs plain at 1920x1080x4: {json.dumps(full8)}")
+    print(f"fused_loss vs plain at 1920x1080x4 (two launches bit for bit: "
+          f"{full8['bit_equal']}): {json.dumps(full8)}")
     calls = {"f": 2}
 
     def fused_call():
@@ -1192,19 +1134,91 @@ def main():
     ms8 = cuda_time_ms(fused_call, iters=10, warmup=2)
     _, grads8, _ = fused_call()
     assert all(bool(torch.isfinite(g).all()) for g in grads8.values())
+    ms8_again = cuda_time_ms(fused_call, iters=10, warmup=1)
     plain8 = cuda_time_ms(lambda: fused.plain(start, target_t, 7, 1, 0, cfg_t.height),
                           iters=1)
     b8, by8 = bound_ms(seg8 * hs_t.segment_ops(), target_t.numel() * 4)
+    # The trace floor: kernel 9 over the lanes of both buffers (the same
+    # float body in direct mode, without the fold and its adjoint).
+    pair8 = cuda_grad.make_grad_path_tracer(train_scene, train_cam, cfg_t)
+    pv8 = cuda_grad.pack_params(start, pair8.fields)
+    spp_t = cfg_t.spp
+
+    def two_traces():
+        pair8.kernel_forward(pv8, 7, 2 * spp_t, 0, n_t)
+        pair8.kernel_forward(pv8, 7, (2 + 10007) * spp_t, 0, n_t)
+
+    floor8 = cuda_time_ms(two_traces, iters=5)
+    block8, grid8 = cuda_grad.loss_plan(cuda_path.HostMaterials(train_scene.materials).count,
+                                        cuda_path.n_slots(cfg_t), n_t)
     timings["fused_loss"] = dict(ms=ms8, plain_ms=plain8, bound_ms=b8, bound_by=by8,
-                                 max_abs_err=full8["max_abs_err"])
-    print(f"fused_loss: {ms8:.3f} ms/call, {seg8} segments (both buffers), fwd+bwd "
-          f"{seg8 / (ms8 * 1e-3):.4g} segments/s; plain {plain8:.1f} ms; bound {b8:.4f} ms "
-          f"({by8})", flush=True)
+                                 max_abs_err=full8["max_abs_err"], ms_again=ms8_again,
+                                 two_kernel9_ms=floor8, block=block8, grid=grid8)
     steady = step_times[1:]
     ms_step = sum(steady) / len(steady)
+    print(f"fused_loss: {ms8:.3f} ms/call ({ms8_again:.3f} again), {seg8} segments (both "
+          f"buffers), fwd+bwd {seg8 / (ms8 * 1e-3):.4g} segments/s; block {block8}, grid "
+          f"{grid8}; plain {plain8:.1f} ms; bound {b8:.4f} ms ({by8}); 2 x kernel 9 on the "
+          f"same lanes {floor8:.3f} ms (the trace floor, beside the bound); card {smi}",
+          flush=True)
     print(f"recovery step pool=1 (affine): {ms_step:.2f} ms/step (mean of steps 1.., host "
-          f"clock), fwd+bwd {seg8 / (ms_step * 1e-3):.4g} segments/s (~{seg8} segments per "
-          f"step, both buffers)", flush=True)
+          f"clock), device busy {'not read' if busy1 is None else f'{busy1:.1%}'} of a "
+          f"profiled step, fwd+bwd {seg8 / (ms_step * 1e-3):.4g} segments/s (~{seg8} "
+          f"segments per step, both buffers); card {smi}", flush=True)
+
+    # Kernel 8 affine at the widest table it takes: 64 material rows, 16
+    # slots (the plan's smaller block).
+    cfg_mm = RenderConfig(width=512, height=512, spp=4, max_depth=16)
+    n_mm = cfg_mm.width * cfg_mm.height * cfg_mm.spp
+    phase(f"kernel 8 affine at 64 material rows and 16 slots: many_materials "
+          f"{cfg_mm.width}x{cfg_mm.height}x{cfg_mm.spp}, depth {cfg_mm.max_depth}")
+    mmb = samples.build("many_materials", device=dev, rows=64)
+    mm_scene, mm_cam = mmb.compile(device=dev), mmb.cameras[0]
+    target_mm = torch.from_numpy(np.random.default_rng(2).random(
+        (cfg_mm.height, cfg_mm.width, 3), dtype=np.float32)).to(dev)
+    rep_mm = kernel_check.check_fused_loss(mm_scene, mm_cam, cfg_mm, target_mm, seed=5,
+                                           frame_idx=1)
+    print(f"fused_loss vs plain at 64 rows, 16 slots: {json.dumps(rep_mm)}", flush=True)
+    fused_mm = cuda_grad.make_fused_loss_grad_fn(mm_scene, mm_cam, cfg_mm)
+    params_mm = {f: getattr(mm_scene.materials, f) for f in ("diffuse", "emissive")}
+    ms_mm = cuda_time_ms(lambda: fused_mm(params_mm, target_mm, 5, 2, 0, cfg_mm.height),
+                         iters=3)
+    block_mm, grid_mm = cuda_grad.loss_plan(64, cuda_path.n_slots(cfg_mm), n_mm)
+    print(f"fused_loss at 64 rows, 16 slots: {ms_mm:.3f} ms/call, {rep_mm['segments']} "
+          f"segments, {rep_mm['segments'] / (ms_mm * 1e-3):.4g} segments/s; block {block_mm}, "
+          f"grid {grid_mm}; card {smi}", flush=True)
+    timings["fused_loss"].update(ms_64_rows_16_slots=ms_mm, block_64_rows_16_slots=block_mm)
+    report["fused_loss"]["max_abs_err"] = max(report["fused_loss"]["max_abs_err"],
+                                              rep_mm["max_abs_err"])
+
+    # Kernel 7 at its launch shape on the main path: the texture example's
+    # scene at 512x512x4, depth 3 (5 float planes and 2 rows: 28 B a slot).
+    from fspt_tpu_torch.examples import recover_texture
+
+    cfg_tx = RenderConfig(width=512, height=512, spp=4, max_depth=3)
+    n_tx = cfg_tx.width * cfg_tx.height * cfg_tx.spp
+    phase(f"timing: kernel 7 at the texture example's shape, {cfg_tx.width}x{cfg_tx.height}"
+          f"x{cfg_tx.spp}, depth {cfg_tx.max_depth}, textured")
+    txb = recover_texture.build_scene(dev)
+    tx_scene, tx_cam = txb.compile(device=dev), txb.cameras[0]
+    rep_tx = kernel_check.check_affine_planes(tx_scene, tx_cam, cfg_tx, seed=9)
+    print(f"affine_planes vs plain at the texture example's shape: {json.dumps(rep_tx)}")
+    planes_tx = cuda_grad.make_affine_planes(tx_scene, tx_cam, cfg_tx)
+    ms7 = cuda_time_ms(lambda: planes_tx(9, 0, 0, n_tx), iters=10, warmup=2)
+    plain7 = cuda_time_ms(lambda: planes_tx.plain(9, 0, 0, n_tx), iters=1)
+    S7 = cuda_path.n_slots(cfg_tx)
+    slot_bytes = 4 * ((5 if planes_tx.mats.any_textured else 3) + 2)  # planes, mat, mat_e
+    b7, by7 = bound_ms(rep_tx["segments"] * cuda_trace.HostScene(tx_scene.geometry)
+                       .segment_ops(), n_tx * (S7 * slot_bytes + 8))
+    timings["affine_planes"] = dict(ms=ms7, plain_ms=plain7, bound_ms=b7, bound_by=by7,
+                                    max_abs_err=max(full7["max_abs_err"],
+                                                    rep_tx["max_abs_err"]),
+                                    ms_1080p_flagship=ms7_1080)
+    print(f"affine_planes: {ms7:.4f} ms/frame at the texture example's shape, "
+          f"{rep_tx['segments']} segments, {rep_tx['segments'] / (ms7 * 1e-3):.4g} segments/s; "
+          f"plain {plain7:.1f} ms; bound {b7:.4f} ms ({by7}: {S7} slots x {slot_bytes} B + 8 B "
+          f"per lane); {ms7_1080:.3f} ms at 1920x1080x4 on the flagship; card {smi}",
+          flush=True)
 
     # 14. kernels 5 and 6 against their plain versions on the mesh scene
     from fspt_tpu_torch.render.queue import DEFAULT_QUEUE, render_queued
@@ -1442,10 +1456,8 @@ def main():
         t = timings[key]
         fn, source = KERNELS[key]
         reg = regs[fn + variant.get(key, "")]
-        extra = {k: t[k] for k in ("check_ms", "plain_shape", "passes", "params") if k in t}
-        if key in WITNESSES:
-            extra.update(main_path=False, launches_from="phase 21: the full-width witness "
-                         "check (no user path launches a forward-mode witness)")
+        extra = {k: v for k, v in t.items() if k not in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
         kernels.append(dict(
             name=key, route="cuda", source=f"{source} ({fn})",
             replaces=c.replaces, launches=path_launches[key],

@@ -36,19 +36,19 @@
 //   4. kernel 8 with the camera sends the primary segment's cotangent
 //      through the adjoint of traced_camera_ray into the 9 camera entries.
 // The cost is one forward trace and one sweep whatever P is.  Derivative
-// rules are those of the forward-mode witnesses (csrc/fspt_fwdmode.cu,
-// csrc/fspt_tangent.cuh): branches read the float values, ties of fmax pass
-// the cotangent to its first argument, plane hits and sphere roots take the
-// reference's floors (graze_div, graze_sqrt), and a zero cotangent meets
-// no infinite local derivative.
+// rules: branches read the float values, ties of fmax pass the cotangent
+// to its first argument (as torch.clamp does), plane hits and sphere roots
+// take the reference's floors (pallas_trace.py _graze_div, _graze_sqrt;
+// ops/cuda_trace.py), and a zero cotangent meets no infinite local
+// derivative.
 //
 // Parameter cotangents go into a per-thread column of shared memory,
 // [rows][blockDim] (thread t owns column t), so a lane's non-finite
-// entries are zeroed and the lane counted exactly as the witnesses do (the
-// counterpart of the reference's _keep_finite); blocks then sum their
+// entries can be zeroed and the lane counted (the counterpart of the
+// reference's _keep_finite); blocks then sum their
 // columns in a fixed order (warp shuffles, then the warps in turn) into one
-// row per block, and adjoint_reduce sums each column over the blocks in
-// double.  No atomics: the same inputs give the same bits on every run.
+// column per block of a [rows][blocks] partial, and adjoint_reduce sums
+// each row of it over the blocks in double, reading it coalesced.  No atomics: the same inputs give the same bits on every run.
 // The block is 128 threads, or 64 or 32 when P columns of 128 threads do
 // not fit in shared memory.
 //
@@ -69,7 +69,6 @@ namespace fspt {
 
 constexpr int kMaxAdjDepth = 16;   // bounces a per-thread record holds
 constexpr int kStateWords = 10;    // segment (6), throughput (3), winner row
-constexpr size_t kMaxDynSmem = 232448 - 1024;  // a block's shared memory, less static
 
 // Kernel 9: the float body over the run-time table; radiance as [3][n]
 // planes and the lane's segment count.
@@ -310,7 +309,7 @@ __device__ __forceinline__ float rotate_adj(const float (&f)[3], float angle,
          + co[1] * (-s * f[1] + s * a[1] * adf + c * axf[1])
          + co[2] * (-s * f[2] + s * a[2] * adf + c * axf[2]);
 }
-// --- the winner's t and normal (winner_geometry) and their adjoint --------
+// --- the winner's t and normal and their adjoint ---------------------------
 
 // The float values of intersect_lanes for the winning row: the same
 // operations, so the same bits.
@@ -366,7 +365,7 @@ __device__ __forceinline__ void winner_fwd(const float* __restrict__ prims, int 
 
 // Cotangents ct of t and cn of the normal: adds those of the segment to cs
 // and cd.  The sphere root and the plane hit take the reference's
-// derivative floors (graze_sqrt, graze_div; csrc/fspt_tangent.cuh).
+// derivative floors (pallas_trace.py _graze_sqrt, _graze_div).
 __device__ __forceinline__ void winner_adj(const float* __restrict__ prims, int kind, int prim,
                                            const float (&s)[3], const float (&d)[3], float ct,
                                            const float (&cn)[3], float (&cs)[3],
@@ -931,24 +930,6 @@ __device__ __forceinline__ int finish_column(const ParamCol& g, int P) {
   return bad;
 }
 
-// dst[q] = the block's sum of row q of acc ([Q][blockDim]), in a fixed
-// order: warp shuffles, then the warps in turn.  Each warp's sum lands in
-// its first slot of the row, which only that warp's lane 0 reads.
-__device__ __forceinline__ void block_columns(float* acc, int Q, float* dst) {
-  const int B = blockDim.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int q = 0; q < Q; ++q) {
-    const float s = warp_sum(acc[q * B + threadIdx.x]);
-    if (lane == 0) acc[q * B + warp * 32] = s;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < Q; q += B) {
-    float s = 0.0f;
-    for (int w = 0; w < (B >> 5); ++w) s += acc[q * B + w * 32];
-    dst[q] = s;
-  }
-}
 // --- the reverse-mode kernels ----------------------------------------------
 
 // Shared memory of the reverse kernels: table and seed map [M·kMatStride]
@@ -958,7 +939,7 @@ __host__ __device__ constexpr size_t reverse_smem(int n_mats, int rows, int bloc
 }
 
 // Kernel 10: per lane, cot · d(radiance)/d(pvec) by one recorded trace and
-// one sweep; partial [blocks][n_cells], int_partial [blocks][2] (0, lanes
+// one sweep; partial [n_cells][blocks], int_partial [2][blocks] (0, lanes
 // with a zeroed non-finite entry).  scratch: layout 1's record.
 template <int kLayout>
 __global__ void __launch_bounds__(kAdjBlock)
@@ -994,14 +975,14 @@ grad_backward_kernel(const float* __restrict__ prims, const int* __restrict__ me
     sweep(prims, meta, sm, mat_meta, pp, r.hs, rec, o, c, g, cs, cd);
     bad = finish_column(g, n_cells);
   }
-  block_columns(acc, n_cells, partial + (size_t)blockIdx.x * n_cells);
-  block_ints(bad, 0, warp_int, int_partial + 2 * (size_t)blockIdx.x);
+  block_columns(acc, n_cells, partial);
+  block_ints(bad, 0, warp_int, int_partial);
 }
 
 // Kernel 8, whole chain: per lane the two buffers, the lane loss
 // sum_c (a_c - t_c)(b_c - t_c) and the adjoint of both (cotangent b - t
 // into A, a - t into B; with use_camera, through the traced raygen too);
-// partial [blocks][1 + P] (loss, gradient), int_partial [blocks][2]
+// partial [1 + P][blocks] (loss, gradient), int_partial [2][blocks]
 // (segments of both buffers, bad lanes).  A's and B's records are both
 // kept (layout 1: scratch holds [2][depth][10][n]).
 template <int kLayout>
@@ -1056,14 +1037,8 @@ fused_loss_chain_kernel(const float* __restrict__ prims, const int* __restrict__
     acc[threadIdx.x] = ra[0] * rb[0] + ra[1] * rb[1] + ra[2] * rb[2];
     bad = finish_column(g, P);
   }
-  block_columns(acc, Q, partial + (size_t)blockIdx.x * Q);
-  block_ints(segs, bad, warp_int, int_partial + 2 * (size_t)blockIdx.x);
-}
-
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  block_columns(acc, Q, partial);
+  block_ints(segs, bad, warp_int, int_partial);
 }
 
 // A launch of the reverse kernels: its block (128 threads, or 64 or 32
@@ -1078,13 +1053,8 @@ struct ReversePlan {
 inline bool plan_reverse(int n_mats, int rows, int depth, ReversePlan& plan) {
   if (n_mats > kMaxAdjMats || rows < 0 || depth < 0) return false;
   plan.scratch_words = depth <= kMaxAdjDepth ? 0 : depth * kStateWords;
-  for (int block = kAdjBlock; block >= 32; block >>= 1) {
-    if (reverse_smem(n_mats, rows, block) <= kMaxDynSmem) {
-      plan.block = block;
-      return true;
-    }
-  }
-  return false;
+  plan.block = column_block(reverse_smem(n_mats, 0, 0), reverse_smem(0, rows, 1));
+  return plan.block > 0;
 }
 
 }  // namespace fspt
@@ -1122,8 +1092,8 @@ int fspt_adjoint_plan(int n_mats, int rows, int depth, int* block, int* scratch_
 }
 
 // cot: [3, n] float; scratch: [scratch_words, n] float where the plan asks
-// for it, else null; partial: [blocks, n_cells] float and int_partial
-// [blocks, 2] int scratch, blocks = ceil(n / block) (fspt_adjoint_plan);
+// for it, else null; partial: [n_cells, blocks] float and int_partial
+// [2, blocks] int scratch, blocks = ceil(n / block) (fspt_adjoint_plan);
 // out: [n_cells] double; int_out: [2] int64 (0, lanes with a zeroed
 // non-finite entry).
 int fspt_grad_backward(const float* prims, const int* meta, const float* mats,
@@ -1150,14 +1120,14 @@ int fspt_grad_backward(const float* prims, const int* meta, const float* mats,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   adjoint_reduce<<<n_cells + 2, kReduceBlock, 0, st>>>(partial, int_partial, blocks,
-                                                       n_cells, 2, out, int_out);
+                                                       n_cells, out, int_out);
   return (int)cudaGetLastError();
 }
 
 // n_cells material parameters, then (use_camera) the 9 camera values:
 // P = n_cells + 9·use_camera.  target: [n / spp, 3]; scratch: [2,
 // scratch_words, n] float where the plan asks for it, else null; partial
-// [blocks, 1 + P] float and int_partial [blocks, 2] int scratch, blocks as
+// [1 + P, blocks] float and int_partial [2, blocks] int scratch, blocks as
 // fspt_grad_backward; out: [1 + P] double (loss, gradient); int_out: [2]
 // int64 (segments, bad lanes).
 int fspt_fused_loss_chain(const float* prims, const int* meta, const float* mats,
@@ -1187,7 +1157,7 @@ int fspt_fused_loss_chain(const float* prims, const int* meta, const float* mats
                                            int_partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  adjoint_reduce<<<1 + P + 2, kReduceBlock, 0, st>>>(partial, int_partial, blocks, 1 + P, 2,
+  adjoint_reduce<<<1 + P + 2, kReduceBlock, 0, st>>>(partial, int_partial, blocks, 1 + P,
                                                      out, int_out);
   return (int)cudaGetLastError();
 }

@@ -1,56 +1,67 @@
 // Kernel 8 of the port: the fused dual-buffer loss and its gradient, affine
 // construction.  Replaces pallas_grad.py make_fused_loss_grad_fn (kernel
-// body :589, call :792) for radiometric fields.  Plain C launcher, loaded
-// with ctypes by ops/_build.py; it returns cudaGetLastError().
+// body :589, call :792) for radiometric fields.  Plain C launchers, loaded
+// with ctypes by ops/_build.py; each returns cudaGetLastError().
 //
-// One thread per lane:
-//   1. trace buffer A (samples from sample0_a) and buffer B (sample0_b) in
-//      kDeferAll mode; each buffer's <= kMaxSlots slots (s, k, se, mat,
-//      mat_e) stay in a per-thread array;
-//   2. fold each buffer with the table values held in shared memory
-//      (coef value tc = diffuse[mat] or 0, bias value te = bias_table[mat_e]
-//      or 1), L += T·te·se; T *= tc·s + k, then the depth-0 light clamp;
-//   3. lane loss sum_c (a_c - t_c)(b_c - t_c);
-//   4. the adjoint of the fold and the clamp, written out: A with
-//      cotangent (b - t), B with (a - t).  The clamp's Jacobian is
-//      c·(I - L̂L̂ᵀ)/|L| where it applies; then the D steps of the fold in
-//      reverse accumulate d/d tc[row] and d/d te[row] into a per-thread
-//      gradient of 6·M values.
-// The TPU kernel carried its sums across sequential grid steps; Hopper
-// blocks run in no order.  So each block reduces its lanes in a fixed order
-// (warp shuffles, then the warps in turn) and writes one partial row
-// [loss, grad(6M)] and its segment count; a second kernel sums the rows of
-// all blocks per column in a fixed order, in double.  No atomics: the same
-// inputs give the same bits on every run.
+// Two threads a lane, neighbours in a warp: the even one takes buffer A
+// (samples from sample0_a), the odd one buffer B (sample0_b).  Each thread:
+//   1. traces its buffer in kDeferAll mode; each slot goes into a 16-byte
+//      record (s, k, se, and mat and mat_e packed into one int) of a
+//      per-thread array;
+//   2. folds it with the table values held in shared memory (coef value
+//      tc = diffuse[mat] or 0, bias value te = bias_table[mat_e] or 1),
+//      L += T·te·se; T *= tc·s + k, then the depth-0 light clamp;
+//   3. takes its partner's output by a shuffle; the even thread adds the
+//      lane loss sum_c (a_c - t_c)(b_c - t_c);
+//   4. runs the adjoint of its fold and clamp, written out, for the
+//      cotangent (partner - t): the clamp's Jacobian is c·(I - L̂L̂ᵀ)/|L|
+//      where it applies; then the D steps of the fold in reverse, the
+//      throughput before each slot recomputed from the record in the
+//      fold's own order (so its own bits; O(D²) products, D ≤ 16), adding
+//      d/d tc[row] and d/d te[row] into this thread's gradient column.
+// No per-lane gradient vector in local memory: thread t owns column t of
+// the block's [1 + 6M][blockDim] shared array (row 0 the loss, then d/d tc,
+// d/d te), as the reverse kernels do (csrc/fspt_adjoint.cu).  One block
+// takes blockDim/2 lanes; it sums its columns in a fixed order into column
+// blockIdx.x of a [1 + 6M][blocks] partial (block_columns), and
+// adjoint_reduce sums each row of it in double, reading it coalesced.  The
+// grid depends on n alone, nothing is read from the card, and there are no
+// atomics: the same inputs give the same bits on every run.
 //
-// What bounds it on the H100: operations.  It traces two buffers (twice
-// the segments of one frame) and writes only ~4·(6M+1) bytes per block;
-// the fold and its adjoint add a few dozen operations per slot.  The
-// per-thread slots and gradient live in local memory (spills that stay in
-// L1 for the most part); the design accepts that for a first port.
+// What bounds it on the H100: operations, the two traces (twice the
+// segments of one frame); it writes (1 + 6M) floats a block.  The design
+// keeps the traces at the occupancy of a one-buffer kernel: a thread holds
+// one buffer's record (256 bytes of local memory, read back while it is
+// fresh), the columns take 4·(1 + 6M) bytes of shared memory a thread, and
+// the fold and its adjoint add a few dozen operations a slot.  The block
+// is 128 threads, or 64 or 32 where the columns of 128 would not fit
+// (column_block, csrc/fspt_adjoint.cuh; at most 64 rows, 128 always fits).
 
-#include "fspt_kernels.cuh"
+#include "fspt_adjoint.cuh"
 
 namespace fspt {
 
-constexpr int kGradBlock = 128;
-constexpr int kGradWarps = kGradBlock / 32;
-constexpr int kMaxSlots = 16;      // depth + fast-render terminal
-constexpr int kMaxGradMats = 64;   // material rows of the per-thread gradient
-constexpr int kReduceBlock = 256;
+constexpr int kMaxSlots = 16;  // slots a buffer's record holds: depth + fast-render terminal
 
-struct SlotVals {
-  float s, k, se;
-  int mc, me;
-};
+// One slot in 16 bytes: s, k, se, then mat in the low and mat_e in the high
+// half of one int (each signed 16-bit: both lie in [-1, 64)).
+__device__ __forceinline__ float4 pack_slot(const Slot& sl) {
+  return make_float4(sl.s, sl.k[0], sl.se,
+                     __int_as_float((sl.mat & 0xffff) | (sl.mat_e << 16)));
+}
+__device__ __forceinline__ int slot_mat(const float4& r) {
+  return (__float_as_int(r.w) << 16) >> 16;
+}
+__device__ __forceinline__ int slot_mat_e(const float4& r) {
+  return __float_as_int(r.w) >> 16;
+}
 
-// Kernel 8's sink: the slots of one buffer, in a per-thread array.
-struct LocalSlots {
-  SlotVals* v;
+// Kernel 8's sink: one buffer's records.
+struct SlotRecord {
+  float4 rec[kMaxSlots];
 
-  __device__ __forceinline__ void put(int d, const Slot& sl) {
-    v[d] = SlotVals{sl.s, sl.k[0], sl.se, sl.mat, sl.mat_e};
-  }
+  __device__ __forceinline__ void put(int d, const Slot& sl) { rec[d] = pack_slot(sl); }
+  __device__ __forceinline__ float4 operator[](int d) const { return rec[d]; }
 };
 
 // The value a slot's coefficient reads: diffuse[mat], 0 off the table.
@@ -74,25 +85,23 @@ struct Folded {
 };
 
 // The fold (pallas_grad.py _fold_slots, pallas_path.py fold_deferred_params)
-// in the order of ops/cuda_path.py fold_deferred_params.  T_pre[d] keeps the
-// throughput before slot d for the adjoint.
-__device__ __forceinline__ Folded fold_slots(const SlotVals* sl, int n_slot,
+// in the order of ops/cuda_path.py fold_deferred_params.
+__device__ __forceinline__ Folded fold_slots(const SlotRecord& r, int n_slot,
                                              const float* tc_tab, const float* te_tab,
-                                             int n_mats, bool p_light, float light_clamp,
-                                             float (*T_pre)[3]) {
+                                             int n_mats, bool p_light, float light_clamp) {
   Folded f;
+  float T[3] = {1.0f, 1.0f, 1.0f};
+  f.L[0] = f.L[1] = f.L[2] = 0.0f;
+  for (int d = 0; d < n_slot; ++d) {
+    const float4 v = r[d];
+    const int mc = slot_mat(v), me = slot_mat_e(v);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float T = 1.0f, L = 0.0f;
-    for (int d = 0; d < n_slot; ++d) {
-      const SlotVals v = sl[d];
-      T_pre[d][c] = T;
-      const float tc = coef_value(tc_tab, v.mc, n_mats, c);
-      const float te = bias_value(te_tab, v.me, n_mats, c);
-      L = L + T * (te * v.se);
-      T = T * (tc * v.s + v.k);
+    for (int c = 0; c < 3; ++c) {
+      const float tc = coef_value(tc_tab, mc, n_mats, c);
+      const float te = bias_value(te_tab, me, n_mats, c);
+      f.L[c] = f.L[c] + T[c] * (te * v.z);
+      T[c] = T[c] * (tc * v.x + v.y);
     }
-    f.L[c] = L;
   }
   // Depth-0 light tone clamp (engine.cpp:148-151).
   const float n2 = f.L[0] * f.L[0] + f.L[1] * f.L[1] + f.L[2] * f.L[2];
@@ -105,14 +114,15 @@ __device__ __forceinline__ Folded fold_slots(const SlotVals* sl, int n_slot,
   return f;
 }
 
-// Adjoint of fold_slots for the cotangent g of its output: accumulates
-// d<g, out>/d tc[row][c] into grad[3*row + c] and d/d te[row][c] into
-// grad[3*(n_mats + row) + c].
-__device__ __forceinline__ void fold_adjoint(const SlotVals* sl, int n_slot,
+// Adjoint of fold_slots for the cotangent g of its output: adds
+// d<g, out>/d tc[row][c] into row 1 + 3·row + c of this thread's column
+// col (entry q at col[q * B]) and d/d te[row][c] into row 1 + 3·(n_mats +
+// row) + c.
+__device__ __forceinline__ void fold_adjoint(const SlotRecord& r, int n_slot,
                                              const float* tc_tab, const float* te_tab,
                                              int n_mats, const Folded& f,
-                                             float light_clamp, const float g[3],
-                                             float (*T_pre)[3], float* grad) {
+                                             float light_clamp, const float g[3], float* col,
+                                             int B) {
   float gL[3] = {g[0], g[1], g[2]};
   if (f.clamped) {
     // out = L·c/|L|: gL = (c/|L|)·(g - L̂ (L̂·g)).
@@ -122,172 +132,159 @@ __device__ __forceinline__ void fold_adjoint(const SlotVals* sl, int n_slot,
 #pragma unroll
     for (int c = 0; c < 3; ++c) gL[c] = g[c] * sc - f.L[c] * w;
   }
-  float* grad_te = grad + 3 * n_mats;
+  float* col_tc = col + B;
+  float* col_te = col + (1 + 3 * n_mats) * B;
+  float gT[3] = {0.0f, 0.0f, 0.0f};  // cotangent of the throughput after slot d
+  for (int d = n_slot - 1; d >= 0; --d) {
+    // The throughput before slot d, as the fold formed it.
+    float T[3] = {1.0f, 1.0f, 1.0f};
+    for (int j = 0; j < d; ++j) {
+      const float4 w = r[j];
+      const int wm = slot_mat(w);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float gT = 0.0f;  // cotangent of the throughput after slot d
-    for (int d = n_slot - 1; d >= 0; --d) {
-      const SlotVals v = sl[d];
-      const float T = T_pre[d][c];
-      const float tc = coef_value(tc_tab, v.mc, n_mats, c);
-      const float te = bias_value(te_tab, v.me, n_mats, c);
-      if (v.me >= 0 && v.me < n_mats) grad_te[3 * v.me + c] += gL[c] * T * v.se;
-      if (v.mc >= 0 && v.mc < n_mats) grad[3 * v.mc + c] += gT * T * v.s;
-      gT = gL[c] * (te * v.se) + gT * (tc * v.s + v.k);
+      for (int c = 0; c < 3; ++c) {
+        T[c] = T[c] * (coef_value(tc_tab, wm, n_mats, c) * w.x + w.y);
+      }
+    }
+    const float4 v = r[d];
+    const int mc = slot_mat(v), me = slot_mat_e(v);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float tc = coef_value(tc_tab, mc, n_mats, c);
+      const float te = bias_value(te_tab, me, n_mats, c);
+      if (me >= 0 && me < n_mats) col_te[(3 * me + c) * B] += gL[c] * T[c] * v.z;
+      if (mc >= 0 && mc < n_mats) col_tc[(3 * mc + c) * B] += gT[c] * T[c] * v.x;
+      gT[c] = gL[c] * (te * v.z) + gT[c] * (tc * v.x + v.y);
     }
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+// Dynamic shared memory: the columns [1 + 6M][blockDim], then tc_tab [3M]
+// and te_tab [3M].
+__host__ __device__ constexpr size_t loss_smem(int n_mats, int block) {
+  return sizeof(float) * ((1 + 6 * (size_t)n_mats) * block + 6 * (size_t)n_mats);
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Dynamic shared memory: tc_tab [3M], te_tab [3M], then one partial row
-// [1 + 6M] per warp.
-__global__ void __launch_bounds__(kGradBlock)
+__global__ void __launch_bounds__(kAdjBlock)
 fused_loss_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                   const float* __restrict__ mats, const int* __restrict__ mat_meta,
                   const PathParams pp, const CamParams cp,
                   const float* __restrict__ tc_g, const float* __restrict__ te_g,
                   uint32_t h0, int sample0_a, int sample0_b, int lane0, int n,
                   const float* __restrict__ target, float* __restrict__ partial,
-                  int* __restrict__ seg_partial) {
+                  int* __restrict__ int_partial) {
   extern __shared__ float smem[];
-  __shared__ int seg_warp[kGradWarps];
+  __shared__ int warp_int[2 * kAdjWarps];
+  const int B = blockDim.x;
   const int M = pp.n_mats;
   const int Q = 1 + 6 * M;
-  float* tc_tab = smem;
-  float* te_tab = smem + 3 * M;
-  float* warp_part = smem + 6 * M;
-  for (int j = threadIdx.x; j < 3 * M; j += blockDim.x) {
+  const int n_slot = pp.depth + (pp.fast_render ? 1 : 0);
+  float* acc = smem;
+  float* tc_tab = acc + Q * B;
+  float* te_tab = tc_tab + 3 * M;
+  for (int j = threadIdx.x; j < 3 * M; j += B) {
     tc_tab[j] = tc_g[j];
     te_tab[j] = te_g[j];
   }
+  float* col = acc + threadIdx.x;
+  for (int q = 0; q < Q; ++q) col[q * B] = 0.0f;
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float loss = 0.0f;
+  const int i = (int)(((long long)blockIdx.x * B + threadIdx.x) >> 1);
+  const bool second = threadIdx.x & 1;  // this thread takes buffer B
+  const bool active = i < n;
+  SlotRecord rec;
+  Folded f;
+  f.out[0] = f.out[1] = f.out[2] = 0.0f;
   int segs = 0;
-  float grad[6 * kMaxGradMats];
-  for (int j = 0; j < 6 * M; ++j) grad[j] = 0.0f;
-
-  if (i < n) {
-    const int n_slot = pp.depth + (pp.fast_render ? 1 : 0);
-    SlotVals slots_a[kMaxSlots], slots_b[kMaxSlots];
-    float T_a[kMaxSlots][3], T_b[kMaxSlots][3];
-    const CameraRay ra = camera_ray(cp, h0, sample0_a, lane0 + i);
-    LocalSlots sink_a{slots_a};
-    const PathOut oa = trace_path<kDeferAll>(prims, meta, mats, mat_meta, pp, ra.hs,
-                                             ra.sx, ra.sy, ra.sz, ra.dx, ra.dy, ra.dz,
-                                             sink_a);
-    const CameraRay rb = camera_ray(cp, h0, sample0_b, lane0 + i);
-    LocalSlots sink_b{slots_b};
-    const PathOut ob = trace_path<kDeferAll>(prims, meta, mats, mat_meta, pp, rb.hs,
-                                             rb.sx, rb.sy, rb.sz, rb.dx, rb.dy, rb.dz,
-                                             sink_b);
-    segs = oa.segcnt + ob.segcnt;
-    const Folded fa = fold_slots(slots_a, n_slot, tc_tab, te_tab, M, oa.p_light,
-                                 pp.light_clamp, T_a);
-    const Folded fb = fold_slots(slots_b, n_slot, tc_tab, te_tab, M, ob.p_light,
-                                 pp.light_clamp, T_b);
+  if (active) {
+    const CameraRay r = camera_ray(cp, h0, second ? sample0_b : sample0_a, lane0 + i);
+    const PathOut o = trace_path<kDeferAll>(prims, meta, mats, mat_meta, pp, r.hs, r.sx,
+                                            r.sy, r.sz, r.dx, r.dy, r.dz, rec);
+    segs = o.segcnt;
+    f = fold_slots(rec, n_slot, tc_tab, te_tab, M, o.p_light, pp.light_clamp);
+  }
+  float other[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) other[c] = __shfl_xor_sync(0xffffffffu, f.out[c], 1);
+  if (active) {
     // The target pixel of this lane (band-local lane order pixel-major).
     const float* t = target + 3 * (i / cp.spp);
-    float res_a[3], res_b[3];
+    float res[3], g[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      res_a[c] = fa.out[c] - t[c];
-      res_b[c] = fb.out[c] - t[c];
+      res[c] = f.out[c] - t[c];
+      g[c] = other[c] - t[c];
     }
-    loss = res_a[0] * res_b[0] + res_a[1] * res_b[1] + res_a[2] * res_b[2];
-    fold_adjoint(slots_a, n_slot, tc_tab, te_tab, M, fa, pp.light_clamp, res_b, T_a, grad);
-    fold_adjoint(slots_b, n_slot, tc_tab, te_tab, M, fb, pp.light_clamp, res_a, T_b, grad);
+    if (!second) col[0] += res[0] * g[0] + res[1] * g[1] + res[2] * g[2];
+    fold_adjoint(rec, n_slot, tc_tab, te_tab, M, f, pp.light_clamp, g, col, B);
   }
-
-  // Block partial, in a fixed order: each warp by shuffles, then the warps
-  // in turn.  Lanes past n add zeros.
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int j = 0; j < Q; ++j) {
-    const float v = warp_sum(j == 0 ? loss : grad[j - 1]);
-    if (lane == 0) warp_part[warp * Q + j] = v;
-  }
-  const int sv = warp_sum(segs);
-  if (lane == 0) seg_warp[warp] = sv;
-  __syncthreads();
-  for (int j = threadIdx.x; j < Q; j += blockDim.x) {
-    float s = 0.0f;
-    for (int w = 0; w < kGradWarps; ++w) s += warp_part[w * Q + j];
-    partial[(size_t)blockIdx.x * Q + j] = s;
-  }
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kGradWarps; ++w) s += seg_warp[w];
-    seg_partial[blockIdx.x] = s;
-  }
+  block_columns(acc, Q, partial);
+  block_ints(segs, 0, warp_int, int_partial);
 }
 
-// Column j < Q of out sums partial[:, j]; block Q sums the segment counts.
-// Each thread takes a fixed stride of block rows, then a fixed tree.
-__global__ void __launch_bounds__(kReduceBlock)
-fused_loss_reduce(const float* __restrict__ partial, const int* __restrict__ seg_partial,
-                  int blocks, int Q, double* __restrict__ out,
-                  long long* __restrict__ seg_out) {
-  __shared__ double red[kReduceBlock];
-  const int j = blockIdx.x;
-  double acc = 0.0;
-  for (int b = threadIdx.x; b < blocks; b += kReduceBlock) {
-    acc += j < Q ? (double)partial[(size_t)b * Q + j] : (double)seg_partial[b];
+// A launch of kernel 8 affine: its block, grid and shared memory.  False
+// where the record or a block of 32 threads' columns does not fit.
+struct LossPlan {
+  int block;
+  int grid;
+  size_t smem;
+};
+
+inline bool plan_loss(int n_mats, int n_slot, int n, LossPlan& plan) {
+  if (n_mats > kMaxAdjMats || n_mats < 0 || n_slot > kMaxSlots || n_slot < 0 || n < 0) {
+    return false;
   }
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kReduceBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    if (j < Q) out[j] = red[0];
-    else seg_out[0] = (long long)red[0];
-  }
+  plan.block = column_block(loss_smem(n_mats, 0), loss_smem(n_mats, 1) - loss_smem(n_mats, 0));
+  if (plan.block == 0) return false;
+  plan.grid = (int)((2 * (long long)n + plan.block - 1) / plan.block);
+  plan.smem = loss_smem(n_mats, plan.block);
+  return true;
 }
 
 }  // namespace fspt
 
 extern "C" {
 
-// partial: [blocks, 1 + 6·n_mats] float scratch; seg_partial: [blocks] int
-// scratch, blocks = ceil(n / 128); out: [1 + 6·n_mats] double (loss, then
-// d/d diffuse-as-coefficient [M,3], then d/d bias value [M,3]); seg_out:
-// [1] int64.
+// The launch plan of kernel 8 affine for n_mats table rows, n_slot slots a
+// buffer and n lanes: *block, the threads of a block (two a lane), and
+// *grid, its blocks (the columns of the partial buffers).  Returns
+// cudaErrorInvalidValue past 64 rows or 16 slots.
+int fspt_fused_loss_plan(int n_mats, int n_slot, int n, int* block, int* grid) {
+  fspt::LossPlan plan;
+  if (!fspt::plan_loss(n_mats, n_slot, n, plan)) return (int)cudaErrorInvalidValue;
+  *block = plan.block;
+  *grid = plan.grid;
+  return 0;
+}
+
+// partial: [1 + 6·n_mats, grid] float and int_partial [2, grid] int
+// scratch (fspt_fused_loss_plan); out: [1 + 6·n_mats] double (loss, then
+// d/d diffuse-as-coefficient [M,3], then d/d bias value [M,3]); int_out:
+// [2] int64 (segments of both buffers, 0).
 int fspt_fused_loss(const float* prims, const int* meta, const float* mats,
                     const int* mat_meta, fspt::PathParams pp, fspt::CamParams cp,
                     const float* tc_tab, const float* te_tab, unsigned int h0,
                     int sample0_a, int sample0_b, int lane0, int n,
-                    const float* target, float* partial, int* seg_partial,
-                    double* out, long long* seg_out, void* stream) {
+                    const float* target, float* partial, int* int_partial,
+                    double* out, long long* int_out, void* stream) {
   using namespace fspt;
-  if (n <= 0) return 0;
-  if (pp.n_mats > kMaxGradMats || pp.depth + pp.fast_render > kMaxSlots) {
+  LossPlan plan;
+  if (!plan_loss(pp.n_mats, pp.depth + pp.fast_render, n, plan)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int blocks = blocks_for(n, kGradBlock);
+  if (n <= 0) return 0;
   const int Q = 1 + 6 * pp.n_mats;
-  const size_t smem = sizeof(float) * (6 * pp.n_mats + kGradWarps * Q);
   cudaStream_t st = (cudaStream_t)stream;
-  fused_loss_kernel<<<blocks, kGradBlock, smem, st>>>(
-      prims, meta, mats, mat_meta, pp, cp, tc_tab, te_tab, h0, sample0_a,
-      sample0_b, lane0, n, target, partial, seg_partial);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = allow_smem(fused_loss_kernel, plan.smem);
   if (err != cudaSuccess) return (int)err;
-  fused_loss_reduce<<<Q + 1, kReduceBlock, 0, st>>>(partial, seg_partial, blocks,
-                                                    Q, out, seg_out);
+  fused_loss_kernel<<<plan.grid, plan.block, plan.smem, st>>>(
+      prims, meta, mats, mat_meta, pp, cp, tc_tab, te_tab, h0, sample0_a, sample0_b, lane0,
+      n, target, partial, int_partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  adjoint_reduce<<<Q + 2, kReduceBlock, 0, st>>>(partial, int_partial, plan.grid, Q, out,
+                                                 int_out);
   return (int)cudaGetLastError();
 }
 

@@ -12,15 +12,11 @@
 // Each .cu file of csrc/ is its own library (ops/_build.py) and includes
 // this header.
 //
-// The body is a template on its number type T (csrc/fspt_tangent.cuh):
-// float for every kernel on a user path (1-4, 7, 8, 9, and the forward
-// trace of the reverse-mode adjoints 10 and 8's whole chain, which record
-// each bounce's state through the direct mode's sink), Tangent<K> for the
-// forward-mode witnesses of kernels 10 and 8 (csrc/fspt_fwdmode.cu).
-// Comparisons and branches read val(x), so every instantiation traces the
-// float body's path.  The closest hit is always found in float; a Tangent
-// body then recomputes the winner's t and normal with derivatives
-// (winner_geometry).
+// The body is a template on its number type T (csrc/fspt_tangent.cuh),
+// float for every kernel (1-4, 7, 8, 9, and the forward trace of the
+// reverse-mode adjoints 10 and 8's whole chain, which record each bounce's
+// state through the direct mode's sink).  Comparisons and branches read
+// val(x).
 #pragma once
 
 #include <cstdint>
@@ -274,66 +270,9 @@ __device__ __forceinline__ Hit intersect_lanes(const float* __restrict__ prims,
   return h;
 }
 
-// The winner's t and shading normal as functions of the segment, recomputed
-// with the same operations as intersect_lanes (so the values are its values
-// bit for bit) on a number type that carries derivatives.  Plane hits and
-// sphere roots take the reference's derivative floors (graze_div,
-// graze_sqrt).  A miss keeps t = kInvalid and the zero normal.
-template <class T>
-__device__ __forceinline__ void winner_geometry(const float* __restrict__ prims,
-                                                const Hit& h, const T& sx, const T& sy,
-                                                const T& sz, const T& dx, const T& dy,
-                                                const T& dz, T& t, T& nx, T& ny, T& nz) {
-  t = T(h.t);
-  nx = T(h.nx); ny = T(h.ny); nz = T(h.nz);
-  if (h.prim < 0) return;
-  const float* q = prims + h.prim * kPrimStride;
-  if (h.kind == SPHERE) {
-    const float c0 = __ldg(q), c1 = __ldg(q + 1), c2 = __ldg(q + 2);
-    const float r = __ldg(q + 3), inv_r = __ldg(q + 4);
-    T ox = sx - c0, oy = sy - c1, oz = sz - c2;
-    T a = dx * dx + dy * dy + dz * dz;
-    T b = 2.0f * (ox * dx + oy * dy + oz * dz);
-    T oc2 = ox * ox + oy * oy + oz * oz;
-    const float rr = r * r;
-    T cc = oc2 - rr;
-    T disc = b * b - 4.0f * a * cc;
-    T sq = graze_sqrt(disc, 1e-3f * fabsf(val(b)) + 1e-12f);
-    t = (val(oc2) <= rr ? -b + sq : -b - sq) / (2.0f * a);
-    T px = sx + dx * t, py = sy + dy * t, pz = sz + dz * t;
-    nx = (px - c0) * inv_r;
-    ny = (py - c1) * inv_r;
-    nz = (pz - c2) * inv_r;
-  } else if (h.kind == TRIANGLE) {
-    const float v0x = __ldg(q), v0y = __ldg(q + 1), v0z = __ldg(q + 2);
-    const float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
-    const float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
-    T pvx = dy * e2z - dz * e2y;
-    T pvy = dz * e2x - dx * e2z;
-    T pvz = dx * e2y - dy * e2x;
-    T det = e1x * pvx + e1y * pvy + e1z * pvz;
-    T inv = 1.0f / det;
-    T tx = sx - v0x, ty = sy - v0y, tz = sz - v0z;
-    T ub = (tx * pvx + ty * pvy + tz * pvz) * inv;
-    T qvx = ty * e1z - tz * e1y;
-    T qvy = tz * e1x - tx * e1z;
-    T qvz = tx * e1y - ty * e1x;
-    T vb = (dx * qvx + dy * qvy + dz * qvz) * inv;
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-    nx = __ldg(q + 10) + __ldg(q + 13) * ub + __ldg(q + 16) * vb;
-    ny = __ldg(q + 11) + __ldg(q + 14) * ub + __ldg(q + 17) * vb;
-    nz = __ldg(q + 12) + __ldg(q + 15) * ub + __ldg(q + 18) * vb;
-  } else {
-    const float p0 = __ldg(q), p1 = __ldg(q + 1), p2 = __ldg(q + 2);
-    const float pw = __ldg(q + 3);
-    T ts = p0 * dx + p1 * dy + p2 * dz;
-    T ns = -(p0 * sx + p1 * sy + p2 * sz + pw);
-    const float ddx = val(dx), ddy = val(dy), ddz = val(dz);
-    t = graze_div(ns, ts, 1e-3f * sqrtf(ddx * ddx + ddy * ddy + ddz * ddz) + 1e-20f);
-  }
-}
-
-// The float body keeps intersect_lanes' own values.
+// The winner's t and shading normal: the float body keeps intersect_lanes'
+// own values.  (The reverse sweep recomputes them from the winner's row
+// with the same operations, csrc/fspt_adjoint.cu.)
 __device__ __forceinline__ void winner_geometry(const float* __restrict__, const Hit& h,
                                                 float, float, float, float, float, float,
                                                 float& t, float& nx, float& ny, float& nz) {
@@ -451,9 +390,7 @@ using PathOut = PathOutT<float>;
 // the sky emission x3 precomputed on the host (kernels 2-4, 7, 8).
 // SmemMats: a block's own copy of the table in shared memory (kernel 9,
 // and the reverse-mode adjoints 10 and 8's whole chain, whose optimized
-// cells come from the parameter vector).  SeededMats: the same copy read as
-// tangents, seeded where a cell is an optimized parameter (the forward-mode
-// witnesses of kernels 10 and 8).
+// cells come from the parameter vector).
 struct TableMats {
   const float* mats;
 
@@ -476,28 +413,12 @@ struct SmemMats {
   }
 };
 
-template <int K>
-struct SeededMats {
-  const float* tab;
-  const int* seed;  // per cell: its parameter index, or -1
-  int p0;           // the first parameter of this pass
-
-  __device__ __forceinline__ Tangent<K> get(int row, int col) const {
-    const int c = row * kMatStride + col;
-    return seeded<K>(tab[c], seed[c], p0);
-  }
-  __device__ __forceinline__ Tangent<K> sky(int c, const PathParams& pp) const {
-    return get(pp.sky_idx, 3 + c) * 3.0f;
-  }
-};
-
 // Trace one lane's whole path from its primary segment.  The switch on the
 // hit material's family replaces the reference's masked loop over material
 // rows (the masks are disjoint); a row at or past n_mats matches no family
 // and the path dies with zero coefficients, as in the reference.  The
 // deferred modes hand sink one slot per depth (an inactive lane's slot is
-// empty_slot()), then the fast-render white terminal as one more.  T is
-// float in every mode, or Tangent<K> in kDirect.
+// empty_slot()), then the fast-render white terminal as one more.
 template <int kMode, class T, class Mats, class Sink>
 __device__ __forceinline__ PathOutT<T> trace_path_t(const float* __restrict__ prims,
                                                     const int* __restrict__ meta,
@@ -947,10 +868,10 @@ struct CameraRayT {
 // build_traced_raygen (pallas_path.py:1233-1334, ops/cuda_path.py): the
 // primary ray of a frame lane from the 9 camera values cv (origin, target,
 // fov_y in degrees, aperture, focal depth), the basis, projection and focal
-// plane recomputed per lane in float so a Tangent carries camera
-// derivatives.  cp supplies z_far, the lane layout and whether the
-// thin-lens code runs (dof).  Not camera_ray's bits: that one takes the
-// basis from the host.
+// plane recomputed per lane from them (its adjoint: camera_adj,
+// csrc/fspt_adjoint.cu).  cp supplies z_far, the lane layout and whether
+// the thin-lens code runs (dof).  Not camera_ray's bits: that one takes
+// the basis from the host.
 template <class T>
 __device__ __forceinline__ CameraRayT<T> traced_camera_ray(const CamParams& cp,
                                                            const TracedCamParams& tp,

@@ -35,7 +35,6 @@ LIBRARIES = {
     "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
     "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5, 6, 11 and 12
     "fspt_adjoint": CSRC / "fspt_adjoint.cu",    # kernels 9, 10, 8 whole chain
-    "fspt_fwdmode": CSRC / "fspt_fwdmode.cu",    # forward-mode witnesses of 10 and 8
 }
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fspt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -139,9 +138,11 @@ _SIGNATURES = {
                                _I, _I, _P, _I, _P, _P, _P, _P, _P],
     },
     "fspt_grad": {
+        # n_mats, n_slot, n, *block, *grid
+        "fspt_fused_loss_plan": [_I, _I, _I, _P, _P],
         # prims, meta, mats, mat_meta, PathParams, CamParams, tc_tab, te_tab,
-        # h0, sample0_a, sample0_b, lane0, n, target, partial, seg_partial,
-        # out, seg_out, stream
+        # h0, sample0_a, sample0_b, lane0, n, target, partial, int_partial,
+        # out, int_out, stream
         "fspt_fused_loss": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _U,
                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
@@ -178,15 +179,6 @@ _SIGNATURES = {
         "fspt_fused_loss_chain": [_P, _P, _P, _P, PathParams, CamParams, TracedCamParams,
                                   _P, _P, _I, _I, _U, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                   _P, _P],
-    },
-    "fspt_fwdmode": {
-        # as fspt_grad_backward without scratch
-        "fspt_grad_backward_fwdmode": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I,
-                                       _U, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-        # as fspt_fused_loss_chain without scratch
-        "fspt_fused_loss_chain_fwdmode": [_P, _P, _P, _P, PathParams, CamParams,
-                                          TracedCamParams, _P, _P, _I, _I, _U, _I, _I, _I,
-                                          _I, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -13,8 +13,10 @@ Counterpart of fspt_tpu/ops/pallas_grad.py.
 * ``fused_loss_kernel`` (csrc/fspt_grad.cu) replaces
   ``pallas_grad.py:make_fused_loss_grad_fn`` (kernel ``:589``) in its
   affine construction: two traces, the fold, the lane loss and the
-  hand-written adjoint of fold and clamp in one launch, with a fixed-order
-  reduction across blocks.
+  hand-written adjoint of fold and clamp in one launch (two threads a
+  lane, one a buffer), the gradient in per-thread shared-memory columns
+  and the fixed-order reduction across blocks that the reverse kernels
+  use.
 * ``fused_loss_chain_kernel`` (csrc/fspt_adjoint.cu) is kernel 8's whole
   chain (``:700-753``), for scalar fields (param, ior, reflectivity, frost)
   and the camera: two traces, the lane loss and the adjoint of both whole
@@ -30,11 +32,8 @@ The adjoint of the path body is reverse mode on the card (kernels 10 and
 sweep, csrc/fspt_adjoint.cu), whose cost does not grow with the number of
 parameters; each kernel's plain version is torch autograd of the plain body
 with ``tmats`` (:func:`ops.cuda_path.build_path_core`), which the tests hold
-against the reference's ``jax.grad``.  The forward-mode kernels they
-replaced (the body on ``Tangent<K>``, csrc/fspt_fwdmode.cu) stay as
-witnesses: ``kernel_backward_fwdmode`` and ``launch_fwdmode``, which no
-user path takes.  Parameters are mapped onto table cells by name, so ``fields``
-may come in any order.
+against the reference's ``jax.grad``.  Parameters are mapped onto table
+cells by name, so ``fields`` may come in any order.
 """
 
 from __future__ import annotations
@@ -74,16 +73,6 @@ RADIOMETRIC_FIELDS = frozenset({"diffuse", "emissive", "glow"})
 FIELD_COLUMN = {"diffuse": 0, "emissive": 3, "glow": 6, "param": 9, "ior": 10,
                 "reflectivity": 11, "frost": 12}
 
-#: Limits of kernel 8's per-thread arrays (csrc/fspt_grad.cu).
-GRAD_BLOCK = 128
-MAX_SLOTS = 16
-MAX_GRAD_MATS = 64
-#: Block of the forward-mode witnesses (csrc/fspt_adjoint.cuh kAdjBlock).
-ADJOINT_BLOCK = 128
-#: K, the derivatives a Tangent carries per pass of the forward-mode
-#: witnesses (csrc/fspt_fwdmode.cu kTangentK).
-TANGENT_K = 4
-
 AFFINE_PLANES = _build.KernelCounter(
     "affine_planes", "fspt_deferred", "fspt_affine_planes",
     "fspt_tpu/ops/pallas_grad.py:403 make_affine_grad_image_fn (body :360)")
@@ -100,14 +89,6 @@ FUSED_LOSS_CHAIN = _build.KernelCounter(
     "fused_loss_chain", "fspt_adjoint", "fspt_fused_loss_chain",
     "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn, whole chain "
     "(body :589, :700-753)")
-GRAD_BACKWARD_FWDMODE = _build.KernelCounter(
-    "grad_backward_fwdmode", "fspt_fwdmode", "fspt_grad_backward_fwdmode",
-    "fspt_tpu/ops/pallas_grad.py:227 make_grad_path_tracer bwd (body :193), "
-    "forward-mode witness")
-FUSED_LOSS_CHAIN_FWDMODE = _build.KernelCounter(
-    "fused_loss_chain_fwdmode", "fspt_fwdmode", "fspt_fused_loss_chain_fwdmode",
-    "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn, whole chain "
-    "(body :589, :700-753), forward-mode witness")
 
 
 def adjoint_plan(n_mats: int, rows: int, depth: int) -> tuple[int, int]:
@@ -124,6 +105,20 @@ def adjoint_plan(n_mats: int, rows: int, depth: int) -> tuple[int, int]:
                          f"{rows} gradient rows: the table or the gradient columns pass "
                          f"the shared memory of a block")
     return block.value, words.value
+
+
+def loss_plan(n_mats: int, n_slot: int, n: int) -> tuple[int, int]:
+    """Kernel 8 affine's launch for ``n_mats`` table rows, ``n_slot`` slots
+    a buffer and ``n`` lanes (csrc/fspt_grad.cu fspt_fused_loss_plan, which
+    the launcher follows): the threads of a block (two a lane) and the
+    blocks of the grid.  Loads the kernel library."""
+    block, grid = ctypes.c_int(), ctypes.c_int()
+    err = _build.library("fspt_grad").fspt_fused_loss_plan(
+        n_mats, n_slot, n, ctypes.byref(block), ctypes.byref(grid))
+    if err != 0:
+        raise ValueError(f"kernel 8 takes at most 64 material rows and 16 slots a buffer; "
+                         f"got {n_mats} and {n_slot}")
+    return block.value, grid.value
 
 
 def _record_scratch(words, buffers, n, dev):
@@ -258,8 +253,7 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     lane0, n)`` its ``torch.autograd.grad`` with lane sums in float64, and
     ``trace.kernel_forward(pvec, seed, sample0, lane0, n)`` and
     ``trace.kernel_backward(pvec, cot, seed, sample0, lane0, n)`` launch the
-    kernels themselves (card only), ``trace.kernel_backward_fwdmode`` (same
-    arguments) the forward-mode witness of kernel 10, and ``trace.nonfinite`` holds the lanes
+    kernels themselves (card only), and ``trace.nonfinite`` holds the lanes
     whose non-finite contribution the last kernel-10 launch zeroed.
     """
     if CAMERA_FIELD in fields:
@@ -314,33 +308,25 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
                       segcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         return radiance, segcnt
 
-    def backward_launch(counter, pvec, cot, seed, sample0, lane0, n, block, *extra):
-        head, pv = tables(pvec)
-        cot = cot.to(torch.float32).contiguous()
-        _build.check_cuda_tensor("cotangent", cot, torch.float32, (3, n), dev)
-        blocks = -(-n // block)
-        partial = torch.empty((blocks, P), dtype=torch.float32, device=dev)
-        int_partial = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
-        out = torch.empty((P,), dtype=torch.float64, device=dev)
-        int_out = torch.empty((2,), dtype=torch.int64, device=dev)
-        _build.launch(counter, *head, pv.data_ptr(), cells.data_ptr(), P,
-                      rng.seed_hash(seed), int(sample0), int(lane0), n, cot.data_ptr(),
-                      *extra, partial.data_ptr(), int_partial.data_ptr(), out.data_ptr(),
-                      int_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        trace.nonfinite = int_out[1]
-        return out.to(torch.float32)
-
     def kernel_backward(pvec, cot, seed, sample0, lane0, n):
         """Kernel 10 (reverse mode): ``Σ_lanes cotᵀ·∂radiance/∂pvec`` for
         ``cot [3, n]``."""
         scratch = _record_scratch(words, 1, n, dev)
-        return backward_launch(GRAD_BACKWARD, pvec, cot, seed, sample0, lane0, n, block,
-                               _ptr(scratch))
-
-    def kernel_backward_fwdmode(pvec, cot, seed, sample0, lane0, n):
-        """Kernel 10's forward-mode witness (csrc/fspt_fwdmode.cu)."""
-        return backward_launch(GRAD_BACKWARD_FWDMODE, pvec, cot, seed, sample0, lane0, n,
-                               ADJOINT_BLOCK)
+        head, pv = tables(pvec)
+        cot = cot.to(torch.float32).contiguous()
+        _build.check_cuda_tensor("cotangent", cot, torch.float32, (3, n), dev)
+        blocks = -(-n // block)
+        partial = torch.empty((P, blocks), dtype=torch.float32, device=dev)
+        int_partial = torch.empty((2, blocks), dtype=torch.int32, device=dev)
+        out = torch.empty((P,), dtype=torch.float64, device=dev)
+        int_out = torch.empty((2,), dtype=torch.int64, device=dev)
+        _build.launch(GRAD_BACKWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
+                      rng.seed_hash(seed), int(sample0), int(lane0), n, cot.data_ptr(),
+                      _ptr(scratch), partial.data_ptr(), int_partial.data_ptr(),
+                      out.data_ptr(), int_out.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        trace.nonfinite = int_out[1]
+        return out.to(torch.float32)
 
     def trace(pvec, seed, sample0, lane0=0, n_lanes=None):
         n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
@@ -363,7 +349,6 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     trace.plain_grad = plain_grad
     trace.kernel_forward = kernel_forward
     trace.kernel_backward = kernel_backward
-    trace.kernel_backward_fwdmode = kernel_backward_fwdmode
     trace.nonfinite = None
     return trace
 
@@ -541,8 +526,7 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     lane loss and ``torch.autograd.grad`` (the whole chain's with per-lane
     leaves summed in float64, returned in float64).  ``fn.nonfinite`` holds
     the lanes whose non-finite contribution the last whole-chain launch
-    zeroed.  On the card the whole chain's ``fn.launch_fwdmode`` (same
-    arguments) runs its forward-mode witness (csrc/fspt_fwdmode.cu).
+    zeroed.
     """
     fields = _ordered(fields)
     radiometric_only = set(fields) <= RADIOMETRIC_FIELDS
@@ -559,8 +543,8 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     cam = HostCamera(camera, cfg.width, cfg.height)
     dev = _device_of(scene_pack)
     build = _affine_loss if (radiometric_only if affine is None else affine) else _chain_loss
-    plain, launch, witness = build(scene_pack, camera, cfg, fields, remat, scene, mats, cam,
-                                   sky_idx, dev)
+    plain, launch = build(scene_pack, camera, cfg, fields, remat, scene, mats, cam, sky_idx,
+                          dev)
 
     def entry(run, cast):
         def fn(params, target, seed, frame_idx, y0, rows):
@@ -580,19 +564,15 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     fn.plain = entry(plain, False)
     fn.nonfinite = None
     launch.owner = fn
-    if witness is not None and dev.type == "cuda":
-        fn.launch_fwdmode = entry(witness, False)
-        witness.owner = fn
     return fn
 
 
 def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_idx, dev):
-    """Kernel 8's affine construction: ``(plain, launch, None)``."""
+    """Kernel 8's affine construction: ``(plain, launch)``."""
     planes = make_affine_planes(scene_pack, camera, cfg)
     table = scene_pack.materials
-    if dev.type == "cuda" and (mats.count > MAX_GRAD_MATS or n_slots(cfg) > MAX_SLOTS):
-        raise ValueError(f"kernel 8 takes at most {MAX_GRAD_MATS} material rows and "
-                         f"{MAX_SLOTS} slots; got {mats.count} and {n_slots(cfg)}")
+    if dev.type == "cuda":
+        loss_plan(mats.count, n_slots(cfg), 0)  # raises past the kernel's limits
 
     def values(params):
         return (params.get("diffuse", table.diffuse), params.get("emissive", table.emissive),
@@ -624,31 +604,30 @@ def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_
         tgt = target.detach().to(torch.float32).reshape(-1, 3).contiguous()
         _build.check_cuda_tensor("target", tgt, torch.float32, (n // cfg.spp, 3), dev)
         _build.check_cuda_tensor("diffuse", tc_tab, torch.float32, (mats.count, 3), dev)
-        blocks = -(-n // GRAD_BLOCK)
+        _, grid = loss_plan(mats.count, n_slots(cfg), n)
         width = 1 + 6 * mats.count
-        partial = torch.empty((blocks, width), dtype=torch.float32, device=dev)
-        seg_partial = torch.empty((blocks,), dtype=torch.int32, device=dev)
+        partial = torch.empty((width, grid), dtype=torch.float32, device=dev)
+        int_partial = torch.empty((2, grid), dtype=torch.int32, device=dev)
         out = torch.zeros((width,), dtype=torch.float64, device=dev)
-        seg_out = torch.zeros((1,), dtype=torch.int64, device=dev)
+        int_out = torch.zeros((2,), dtype=torch.int64, device=dev)
         prims, meta = scene.tables(dev)
         mtab, mmeta = mats.tables(dev)
         _build.launch(FUSED_LOSS, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
                       mmeta.data_ptr(), _path_params(scene, mats, cfg, sky_idx, cam.z_far),
                       _cam_params(cam, cfg), tc_tab.data_ptr(), te_tab.data_ptr(),
                       rng.seed_hash(seed), int(sample_a), int(sample_b), int(lane0), n,
-                      tgt.data_ptr(), partial.data_ptr(), seg_partial.data_ptr(),
-                      out.data_ptr(), seg_out.data_ptr(),
+                      tgt.data_ptr(), partial.data_ptr(), int_partial.data_ptr(),
+                      out.data_ptr(), int_out.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         out = out.to(torch.float32)
         g = out[1:].reshape(2, mats.count, 3)
-        return out[0], table_grads(mats, g[0], g[1], fields), seg_out[0]
+        return out[0], table_grads(mats, g[0], g[1], fields), int_out[0]
 
-    return plain, launch, None
+    return plain, launch
 
 
 def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_idx, dev):
-    """Kernel 8's whole chain (and remat): ``(plain, launch, witness)``, the
-    witness its forward-mode kernel."""
+    """Kernel 8's whole chain (and remat): ``(plain, launch)``."""
     table = scene_pack.materials
     use_camera = CAMERA_FIELD in fields
     P = param_count(mats, fields)
@@ -698,34 +677,26 @@ def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_i
         tp = _traced_params(cfg)
         block, words = adjoint_plan(mats.count, 1 + P, pp.depth)
 
-    def run(counter, threads, extra, params, target, seed, sample_a, sample_b, lane0, n):
+    def launch(params, target, seed, sample_a, sample_b, lane0, n):
+        scratch = _record_scratch(words, 2, n, dev)
         pvec = pack_params(params, fields).detach().to(dev).contiguous()
         tgt = target.detach().to(torch.float32).reshape(-1, 3).contiguous()
         _build.check_cuda_tensor("target", tgt, torch.float32, (n // cfg.spp, 3), dev)
-        blocks = -(-n // threads)
-        partial = torch.empty((blocks, 1 + P), dtype=torch.float32, device=dev)
-        int_partial = torch.empty((blocks, 2), dtype=torch.int32, device=dev)
+        blocks = -(-n // block)
+        partial = torch.empty((1 + P, blocks), dtype=torch.float32, device=dev)
+        int_partial = torch.empty((2, blocks), dtype=torch.int32, device=dev)
         out = torch.empty((1 + P,), dtype=torch.float64, device=dev)
         int_out = torch.empty((2,), dtype=torch.int64, device=dev)
         prims, meta = scene.tables(dev)
         mtab, mmeta = mats.tables(dev)
-        _build.launch(counter, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
+        _build.launch(FUSED_LOSS_CHAIN, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
                       mmeta.data_ptr(), pp, cp, tp, pvec.data_ptr(), cells.data_ptr(), P_mat,
                       int(use_camera), rng.seed_hash(seed), int(sample_a), int(sample_b),
-                      int(lane0), n, tgt.data_ptr(), *extra, partial.data_ptr(),
+                      int(lane0), n, tgt.data_ptr(), _ptr(scratch), partial.data_ptr(),
                       int_partial.data_ptr(), out.data_ptr(), int_out.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         launch.owner.nonfinite = int_out[1]
         out = out.to(torch.float32)
         return out[0], unpack_params(out[1:], mats, fields), int_out[0]
 
-    def launch(params, target, seed, sample_a, sample_b, lane0, n):
-        scratch = _record_scratch(words, 2, n, dev)
-        return run(FUSED_LOSS_CHAIN, block, (_ptr(scratch),), params, target, seed, sample_a,
-                   sample_b, lane0, n)
-
-    def witness(params, target, seed, sample_a, sample_b, lane0, n):
-        return run(FUSED_LOSS_CHAIN_FWDMODE, ADJOINT_BLOCK, (), params, target, seed, sample_a,
-                   sample_b, lane0, n)
-
-    return plain, launch, witness
+    return plain, launch

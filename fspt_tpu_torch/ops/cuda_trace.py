@@ -173,8 +173,7 @@ class _GrazeDiv(torch.autograd.Function):
     parameter is exact, but at glancing incidence its derivatives (∝ 1/ts)
     overflow float32; the backward clamps ``|ts|`` to ``floor`` (≈ 1e-3 of
     the segment length), so such lanes get a bounded derivative instead of
-    NaN.  csrc/fspt_tangent.cuh ``graze_div`` is its forward-mode form,
-    csrc/fspt_adjoint.cu ``winner_adj`` its reverse-mode form."""
+    NaN.  csrc/fspt_adjoint.cu ``winner_adj`` is its reverse-mode form."""
 
     @staticmethod
     def forward(ctx, ns, ts, floor):

@@ -25,7 +25,8 @@ fixed order on the card.  Kernel 8:
 loss at rtol 1e-5, gradients within rtol 1e-4 of the largest, segments
 equal, against the plain version run with float64 parameters: the kernel
 sums its blocks in another order, and at 1080p the float32 plain version's
-own sums are off by more than 1e-4 of the largest gradient.
+own sums are off by more than 1e-4 of the largest gradient; and two
+launches equal bit for bit (a fixed grid, fixed-order sums, no atomics).
 
 Adjoint kernels (9, 10, 8's whole chain).  Kernel 9 against its plain
 version (the body with ``tmats``): 100 % of radiance values at the path bar
@@ -39,12 +40,9 @@ hand-written adjoint and autograd's order every sum of the chain rule
 differently, and an entry whose lanes cancel keeps only that noise); kernel
 8's loss within rtol 1e-5 and its segments equal, its camera entries within
 rtol 2e-3 (the reference's own bar, tests/test_pallas_grad.py:345);
-``remat=True`` equal to ``remat=False`` bit for bit (one kernel).  The
-reverse-mode kernels against their forward-mode witnesses (a second,
-independent derivative of the same float body, which fits in memory at full
-width where the autograd plain version does not) at the same bars, loss and
-segments equal; and two launches of a reverse kernel equal bit for bit (no
-atomics).
+``remat=True`` equal to ``remat=False`` bit for bit (one kernel, so two
+launches equal bit for bit), and two launches of kernel 10 equal bit for
+bit (no atomics).
 
 Treelet kernels (5, 6): equal to their plain versions on 100 % of values —
 the survivor counts, leaf order and entry t after the key sort (kernel 5),
@@ -290,9 +288,13 @@ def check_affine_planes(scene_pack, camera, cfg, seed: int, sample0: int = 0) ->
 
 
 def check_fused_loss(scene_pack, camera, cfg, target, seed: int, frame_idx: int = 0,
-                     params=None, fields=("diffuse", "emissive")) -> dict:
-    """Kernel 8 against its plain version on the card (plain ``defer_all``
-    traces, the torch fold, the lane loss and ``torch.autograd.grad``).
+                     params=None, fields=("diffuse", "emissive"), y0: int = 0,
+                     rows=None) -> dict:
+    """Kernel 8 affine against its plain version on the card (plain
+    ``defer_all`` traces, the torch fold, the lane loss and
+    ``torch.autograd.grad``) on the frame rows ``y0 .. y0+rows-1`` (all by
+    default; ``target`` holds those rows only), and two launches bit for
+    bit.
 
     The bar is held against the plain version with the parameters in
     float64, which folds the same float32 slots and sums the lanes exactly
@@ -302,13 +304,19 @@ def check_fused_loss(scene_pack, camera, cfg, target, seed: int, frame_idx: int 
     fn = cuda_grad.make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=fields)
     if params is None:
         params = {f: getattr(scene_pack.materials, f) for f in fields}
-    loss_k, g_k, seg_k = fn(params, target, seed, frame_idx, 0, cfg.height)
+    rows = cfg.height - y0 if rows is None else rows
+    loss_k, g_k, seg_k = fn(params, target, seed, frame_idx, y0, rows)
+    loss_a, g_a, seg_a = fn(params, target, seed, frame_idx, y0, rows)
     loss_p, g_p, seg_p = fn.plain({f: v.double() for f, v in params.items()}, target,
-                                  seed, frame_idx, 0, cfg.height)
-    loss_32, g_32, _ = fn.plain(params, target, seed, frame_idx, 0, cfg.height)
+                                  seed, frame_idx, y0, rows)
+    loss_32, g_32, _ = fn.plain(params, target, seed, frame_idx, y0, rows)
     torch.cuda.synchronize()
-    rep = dict(lanes=cfg.height * cfg.width * cfg.spp, loss=float(loss_k),
-               plain_loss=float(loss_p), segments=int(seg_k), plain_segments=int(seg_p))
+    rep = dict(lanes=rows * cfg.width * cfg.spp, lane0=_band(cfg, y0, rows)[0],
+               loss=float(loss_k), plain_loss=float(loss_p), segments=int(seg_k),
+               plain_segments=int(seg_p))
+    rep["bit_equal"] = bool(float(loss_a) == float(loss_k) and int(seg_a) == int(seg_k)
+                            and all(torch.equal(g_a[f], g_k[f]) for f in g_k))
+    assert rep["bit_equal"], rep
     rep["loss_rel_err"] = abs(rep["loss"] - rep["plain_loss"]) / max(abs(rep["plain_loss"]),
                                                                      1e-30)
     assert rep["loss_rel_err"] <= 1e-5, rep
@@ -373,7 +381,8 @@ def check_grad_path_tracer(scene_pack, camera, cfg, fields, seed: int, sample0: 
     segments) and kernel 10 against ``torch.autograd.grad`` of the plain
     version for a seeded radiance cotangent, through the autograd glue, on
     the frame rows ``y0 .. y0+rows-1`` (all by default), from ``params``
-    (the table's columns by default)."""
+    (the table's columns by default); a second kernel-10 launch equal bit
+    for bit."""
     tracer = cuda_grad.make_grad_path_tracer(scene_pack, camera, cfg, fields=fields)
     lane0, n = _band(cfg, y0, rows)
     if params is None:
@@ -384,13 +393,17 @@ def check_grad_path_tracer(scene_pack, camera, cfg, fields, seed: int, sample0: 
     cot = torch.from_numpy(np.random.default_rng(seed).normal(size=(3, n)).astype(
         np.float32)).to(pvec.device)
     (g_k,) = torch.autograd.grad((out.radiance.t() * cot).sum(), [pvec])
+    nonfinite = _count(tracer.nonfinite)
+    g_again = tracer.kernel_backward(pvec, cot, seed, sample0, lane0, n)
     g_p = tracer.plain_grad(pvec, cot, seed, sample0, lane0, n)
     torch.cuda.synchronize()
-    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params)
+    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params,
+               bit_equal=bool(torch.equal(g_k, g_again)))
+    assert rep["bit_equal"], rep
     rep.update(_forward_report(out.radiance.t(), out.segments, planes_p, seg_p.sum()))
     del rep["segments_equal"]  # the glue returns the sum only
     rep.update(grad_max_abs_err=float((g_k.double() - g_p).abs().max()),
-               grad_max=float(g_p.abs().max()), nonfinite_lanes=_count(tracer.nonfinite))
+               grad_max=float(g_p.abs().max()), nonfinite_lanes=nonfinite)
     assert rep["grad_max"] > 0, rep
     rep["grad_err_over_bar"] = _adjoint_close(g_k, g_p)
     return rep
@@ -400,7 +413,8 @@ def check_fused_loss_chain(scene_pack, camera, cfg, target, fields, seed: int,
                            frame_idx: int = 0, params=None, y0: int = 0, rows=None) -> dict:
     """Kernel 8's whole chain against its plain version (autograd of the two
     traces and the lane loss, lane sums in float64), and ``remat=True``
-    against ``remat=False`` (the same kernel: equal bit for bit), on the
+    against ``remat=False`` (the same kernel launched again: equal bit for
+    bit), on the
     frame rows ``y0 .. y0+rows-1`` (all by default; ``target`` holds those
     rows only), from ``params`` (the table's columns and the camera by
     default)."""
@@ -435,59 +449,6 @@ def check_fused_loss_chain(scene_pack, camera, cfg, target, fields, seed: int,
             g_k[f], g_p[f], rtol=2e-3 if camera_field else 1e-3,
             atol=1e-7 if camera_field else 0.0)
     rep["max_abs_err"] = max(float((g_k[f].double() - g_p[f]).abs().max()) for f in g_k)
-    return rep
-
-
-def check_grad_backward_witness(tracer, pvec, cot, seed: int, sample0: int, lane0: int,
-                                n: int) -> dict:
-    """Kernel 10 (reverse mode, ``tracer.kernel_backward``) against its
-    forward-mode witness on the same inputs, and two reverse launches bit
-    for bit."""
-    g_k = tracer.kernel_backward(pvec, cot, seed, sample0, lane0, n)
-    nonfinite = _count(tracer.nonfinite)
-    g_again = tracer.kernel_backward(pvec, cot, seed, sample0, lane0, n)
-    g_w = tracer.kernel_backward_fwdmode(pvec, cot, seed, sample0, lane0, n)
-    torch.cuda.synchronize()
-    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params, nonfinite_lanes=nonfinite,
-               witness_nonfinite_lanes=_count(tracer.nonfinite),
-               bit_equal=bool(torch.equal(g_k, g_again)),
-               max_abs_err=float((g_k.double() - g_w.double()).abs().max()),
-               grad_max=float(g_w.abs().max()))
-    assert rep["bit_equal"], rep
-    assert rep["grad_max"] > 0, rep
-    rep["err_over_bar"] = _adjoint_close(g_k, g_w)
-    return rep
-
-
-def check_chain_witness(fn, params, target, seed: int, frame_idx: int, y0: int,
-                        rows: int) -> dict:
-    """Kernel 8's whole chain (reverse mode, ``fn`` from
-    ``make_fused_loss_grad_fn(affine=False)`` on the card) against its
-    forward-mode witness (``fn.launch_fwdmode``) on the same inputs: loss within
-    rtol 1e-5, segments equal, gradients at the plain version's bars; and
-    two reverse launches bit for bit."""
-    loss_k, g_k, seg_k = fn(params, target, seed, frame_idx, y0, rows)
-    nonfinite = _count(fn.nonfinite)
-    loss_a, g_a, seg_a = fn(params, target, seed, frame_idx, y0, rows)
-    loss_w, g_w, seg_w = fn.launch_fwdmode(params, target, seed, frame_idx, y0, rows)
-    torch.cuda.synchronize()
-    rep = dict(rows=rows, y0=y0, loss=float(loss_k), witness_loss=float(loss_w),
-               segments=int(seg_k), witness_segments=int(seg_w), nonfinite_lanes=nonfinite,
-               witness_nonfinite_lanes=_count(fn.nonfinite))
-    rep["bit_equal"] = bool(float(loss_a) == float(loss_k) and int(seg_a) == int(seg_k)
-                            and all(torch.equal(g_a[f], g_k[f]) for f in g_k))
-    assert rep["bit_equal"], rep
-    rep["loss_rel_err"] = abs(rep["loss"] - rep["witness_loss"]) / max(
-        abs(rep["witness_loss"]), 1e-30)
-    assert rep["loss_rel_err"] <= 1e-5, rep
-    assert rep["segments"] == rep["witness_segments"], rep
-    for f in g_k:
-        camera_field = f == cuda_grad.CAMERA_FIELD
-        rep[f"grad_{f}_err_over_bar"] = _adjoint_close(
-            g_k[f], g_w[f], rtol=2e-3 if camera_field else 1e-3,
-            atol=1e-7 if camera_field else 0.0)
-    rep["max_abs_err"] = max(float((g_k[f].double() - g_w[f].double()).abs().max())
-                             for f in g_k)
     return rep
 
 

@@ -161,6 +161,30 @@ def all_families(b, M, textured=False, seed=11):
     b.add_sphere((5.0, 0.0, 0.0), 40.0, fog)
 
 
+def many_materials(b, M, rows=64, seed=13):
+    """The Cornell walls, a dim sky and ``rows`` material rows in all: each
+    row past the walls' and the sky's lights a small sphere of its own
+    (diffuse, metal, or an emitter, in turn), on a grid in front of the
+    back wall.  A wide table for kernel 8's plan (64 rows)."""
+    rng = np.random.default_rng(seed)
+    _cornell_walls(b, M)
+    b.set_sky(b.add_material(M.MaterialSpec(M.LIGHT, emissive=(0.05, 0.07, 0.10))))
+    extra = rows - 5
+    side = int(np.ceil(np.sqrt(extra)))
+    for j in range(extra):
+        color = tuple(float(c) for c in rng.uniform(0.2, 0.9, 3))
+        kind = j % 3
+        if kind == 0:
+            spec = M.MaterialSpec(M.DIFFUSE, diffuse=color)
+        elif kind == 1:
+            spec = M.MaterialSpec(M.METAL, diffuse=color, param=0.4)
+        else:
+            spec = M.MaterialSpec(M.LIGHT, emissive=tuple(2.0 * c for c in color))
+        x = -40.0 + 80.0 * (j % side + 0.5) / side
+        y = -40.0 + 80.0 * (j // side + 0.5) / side
+        b.add_sphere((x, y, 30.0), 0.35 * 80.0 / side, b.add_material(spec))
+
+
 HEIGHTFIELD_CAMERA = dict(origin=(0.0, 25.0, -110.0), target=(0.0, -15.0, 0.0),
                           aperture_size=1.5, focal_depth=95.0)
 
@@ -285,7 +309,7 @@ mesh
 SCENES = {"flagship": flagship, "all_primitives": all_primitives,
           "all_families": all_families, "textured": textured,
           "all_families_textured": lambda b, M: all_families(b, M, textured=True),
-          "heightfield": heightfield}
+          "many_materials": many_materials, "heightfield": heightfield}
 CAMERAS = {"heightfield": HEIGHTFIELD_CAMERA}
 
 

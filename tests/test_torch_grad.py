@@ -124,9 +124,14 @@ def test_texel_gradient_matches_central_differences():
     np.testing.assert_allclose(float(gn[ti, tc]), fd, rtol=2e-2, atol=1e-6)
 
 
-def test_fused_loss_matches_lane_level_planar_reference():
+@pytest.mark.parametrize("fast", [False, True])
+def test_fused_loss_matches_lane_level_planar_reference(fast):
+    """Kernel 8's affine construction (its plain version on the CPU)
+    against the reference's lane-level planar loss, with the fast-render
+    white slot (``mat_e < 0``) and without."""
     scene, cam, ps, pc, cfg = _setup(build_cornell_box(with_specular=True),
-                                     width=16, height=12, spp=2, max_depth=3)
+                                     width=16, height=12, spp=2, max_depth=3,
+                                     fast_render=fast)
     rcfg = RefConfig(**vars(cfg))
     trace = make_diff_path(scene, rcfg, z_far=float(np.asarray(cam.z_far)))
     target = np.random.default_rng(0).random((cfg.height, cfg.width, 3),
@@ -223,8 +228,8 @@ def test_pack_params_round_trip():
 @pytest.mark.parametrize("affine", [True, False])
 def test_fused_loss_entry_takes_no_launch_options(affine):
     """The front door keeps the reference's arguments (params, target,
-    seed, frame_idx, y0, rows) on both constructions; the whole chain's
-    forward-mode witness has its own entry on the card only."""
+    seed, frame_idx, y0, rows) on both constructions, and no launch option
+    or second entry rides on it."""
     import inspect
 
     _, _, ps, pc, cfg = _setup(build_cornell_box(), width=8, height=4, spp=1, max_depth=2)

@@ -72,105 +72,102 @@ def test_affine_planes_kernel_matches_plain(cuda, fast):
     kernel_check.check_affine_planes(b.compile(device=cuda), b.cameras[0], cfg, seed=7)
 
 
-def test_fused_loss_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("case", ["flagship", "64_rows_16_slots", "fast_render", "band",
+                                  "ragged"])
+def test_fused_loss_kernel_matches_plain(cuda, case):
+    """Kernel 8 affine against its plain version, two launches bit for bit:
+    the flagship; 64 material rows at 16 slots (the widest columns and the
+    longest record); fast render (the white slot, mat_e < 0); a band of
+    rows below the top; and 560,282 lanes, not a multiple of a block's 64
+    (the last block half full)."""
     import numpy as np
 
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
-    b = samples.build("flagship", device=cuda)
+    name, y0, rows = "flagship", 0, None
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    if case == "64_rows_16_slots":
+        name, cfg = "many_materials", RenderConfig(width=64, height=48, spp=2, max_depth=16)
+    elif case == "fast_render":
+        cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8, fast_render=True)
+    elif case == "band":
+        y0, rows = 13, 17
+    elif case == "ragged":
+        cfg = RenderConfig(width=613, height=457, spp=2, max_depth=4)
+    b = samples.build(name, device=cuda)
+    n_rows = cfg.height - y0 if rows is None else rows
     target = torch.from_numpy(np.random.default_rng(0).random(
-        (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
+        (n_rows, cfg.width, 3), dtype=np.float32)).to(cuda)
     kernel_check.check_fused_loss(b.compile(device=cuda), b.cameras[0], cfg, target,
-                                  seed=8, frame_idx=3)
+                                  seed=8, frame_idx=3, y0=y0, rows=rows)
+
+
+@pytest.mark.parametrize("n_mats,n_slot,n,block,grid", [
+    (7, 8, 8_294_400, 128, 129_600),  # the flagship at 1080p×4: 64 lanes a block
+    (32, 8, 98_304, 128, 1_536),      # 99 KB of columns
+    (64, 8, 1000, 128, 16),           # 198 KB of columns: 128 threads still fit
+    (64, 16, 1001, 128, 16),          # a record of 16 slots; the last block part full
+])
+def test_fused_loss_plan(cuda, n_mats, n_slot, n, block, grid):
+    """Kernel 8 affine's launch (csrc/fspt_grad.cu fspt_fused_loss_plan):
+    the block by the reverse kernels' rule (column_block) over its
+    gradient columns, two threads a lane, the grid one block per block/2
+    lanes; past 64 rows or 16 slots it raises."""
+    from fspt_tpu_torch.ops import cuda_grad
+
+    assert cuda_grad.loss_plan(n_mats, n_slot, n) == (block, grid)
+    with pytest.raises(ValueError, match="at most 64 material rows and 16 slots"):
+        cuda_grad.loss_plan(n_mats, 17, n)
+    with pytest.raises(ValueError, match="at most 64 material rows and 16 slots"):
+        cuda_grad.loss_plan(65, n_slot, n)
 
 
 ADJOINT_FIELDS = ("diffuse", "emissive", "glow", "param", "ior", "reflectivity", "frost")
 
 
-def test_grad_path_kernels_match_plain(cuda):
+@pytest.mark.parametrize("fields,depth", [
+    (ADJOINT_FIELDS, 4), (ADJOINT_FIELDS[:4], 16), (ADJOINT_FIELDS[:4], 17),
+    (ADJOINT_FIELDS[:4], 18),
+])
+def test_grad_path_kernels_match_plain(cuda, fields, depth):
     """Kernel 9 against its plain version and kernel 10 (reverse mode)
-    against autograd of it, on all nine families through a thin-lens
-    camera."""
+    against autograd of it, two kernel-10 launches bit for bit, on all nine
+    families through a thin-lens camera: every material field (P = 169,
+    shared-memory columns above 48 KB), and 16 bounces (the most the
+    per-thread record holds) against 17 and 18 (the device scratch)."""
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
     b = samples.build("all_families", device=cuda, aperture=1.5, focal_depth=120.0)
-    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=depth)
     kernel_check.check_grad_path_tracer(b.compile(device=cuda), b.cameras[0], cfg,
-                                        ADJOINT_FIELDS, seed=3, sample0=1)
+                                        fields, seed=3, sample0=1)
 
 
-@pytest.mark.parametrize("scene_name,fields", [
-    ("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
-    ("flagship", ("diffuse", "emissive", "param", "camera")),
+@pytest.mark.parametrize("scene_name,fields,depth", [
+    ("all_families", ADJOINT_FIELDS, 4), ("flagship", ("camera",), 4),
+    ("flagship", ("diffuse", "emissive", "param", "camera"), 4),
+    ("all_families", ("diffuse", "param", "frost", "camera"), 16),
+    ("all_families", ("diffuse", "param", "frost", "camera"), 17),
+    ("all_families", ("diffuse", "param", "frost", "camera"), 18),
 ])
-def test_fused_loss_chain_kernel_matches_plain(cuda, scene_name, fields):
-    """Kernel 8's whole chain (reverse mode; remat is the same kernel)
-    against its plain version, material fields and the camera."""
+def test_fused_loss_chain_kernel_matches_plain(cuda, scene_name, fields, depth):
+    """Kernel 8's whole chain (reverse mode; remat is the same kernel,
+    launched again, so equal bit for bit) against its plain version,
+    material fields and the camera, with the per-thread record (4 and 16
+    bounces) and the device scratch (17 and 18)."""
     import numpy as np
 
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
     b = samples.build(scene_name, device=cuda, aperture=1.5, focal_depth=120.0)
-    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=depth)
     target = torch.from_numpy(np.random.default_rng(1).random(
         (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
     kernel_check.check_fused_loss_chain(b.compile(device=cuda), b.cameras[0], cfg, target,
                                         fields, seed=4, frame_idx=2)
-
-
-def _adjoint_case(cuda, scene_name, fields, depth=4):
-    import numpy as np
-
-    from fspt_tpu_torch.ops import cuda_grad, cuda_path
-    from fspt_tpu_torch.scene import samples
-
-    b = samples.build(scene_name, device=cuda, aperture=1.5, focal_depth=120.0)
-    scene, cam = b.compile(device=cuda), b.cameras[0]
-    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=depth)
-    params = {f: (cuda_path.camera_pvec(cam) if f == cuda_grad.CAMERA_FIELD
-                  else getattr(scene.materials, f)) for f in fields}
-    target = torch.from_numpy(np.random.default_rng(1).random(
-        (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
-    return scene, cam, cfg, params, target
-
-
-@pytest.mark.parametrize("scene_name,fields,kernel,depth", [
-    ("all_families", ADJOINT_FIELDS, "grad_backward", 4),
-    ("all_families", ADJOINT_FIELDS, "fused_loss_chain", 4),
-    ("flagship", ("camera",), "fused_loss_chain", 4),
-    ("all_families", ADJOINT_FIELDS[:4], "grad_backward", 16),
-    ("all_families", ADJOINT_FIELDS[:4], "grad_backward", 17),
-    ("all_families", ADJOINT_FIELDS[:4], "grad_backward", 18),
-    ("all_families", ("diffuse", "param", "frost", "camera"), "fused_loss_chain", 16),
-    ("all_families", ("diffuse", "param", "frost", "camera"), "fused_loss_chain", 17),
-    ("all_families", ("diffuse", "param", "frost", "camera"), "fused_loss_chain", 18),
-])
-def test_reverse_adjoint_matches_fwdmode_witness(cuda, scene_name, fields, kernel, depth):
-    """Kernels 10 and 8's whole chain (reverse mode) against their
-    forward-mode witnesses on the same inputs, at the plain version's bars,
-    and two reverse launches bit for bit: all nine families with every
-    material field (P = 169, shared-memory columns above 48 KB), the
-    flagship's camera through the thin lens, and 16 bounces (the most the
-    per-thread record holds) against 17 and 18 (the device scratch)."""
-    import numpy as np
-
-    from fspt_tpu_torch.ops import cuda_grad, kernel_check
-
-    scene, cam, cfg, params, target = _adjoint_case(cuda, scene_name, fields, depth)
-    n = cfg.height * cfg.width * cfg.spp
-    if kernel == "grad_backward":
-        tracer = cuda_grad.make_grad_path_tracer(scene, cam, cfg, fields=fields)
-        pvec = cuda_grad.pack_params(params, tracer.fields)
-        cot = torch.from_numpy(np.random.default_rng(3).normal(size=(3, n)).astype(
-            np.float32)).to(cuda)
-        kernel_check.check_grad_backward_witness(tracer, pvec, cot, 3, 1, 0, n)
-    else:
-        fn = cuda_grad.make_fused_loss_grad_fn(scene, cam, cfg, fields=fields, affine=False)
-        kernel_check.check_chain_witness(fn, params, target, 4, 2, 0, cfg.height)
 
 
 @pytest.mark.parametrize("n_mats,rows,depth,block,scratch_words", [
