@@ -41,11 +41,14 @@ Phases, each announced by one line:
 13. timings of kernels 4, 7 and 8 at their main-path shapes beside their
    plain versions and bounds: kernel 8 affine at 1080p×4 against its plain
    version (two launches bit for bit), beside its bound, 2 × kernel 9 on
-   the same lanes (the trace floor); the pool-1 recovery step end to end (ms, device busy share,
+   the same lanes (the body's trace floor, on kernel 9's regenerating
+   lanes); the pool-1 recovery step end to end (ms, device busy share,
    fwd+bwd segments/s, both buffers counted); kernel 8 affine at 64
    material rows and 16 slots (``samples.many_materials``, 512²×4, depth
    16) against its plain version, timed, with its plan's block; kernel 7 at
-   its launch shape, the texture example's 512²×4, depth 3 (and at 1080p);
+   its launch shape, the texture example's 512²×4, depth 3 (its device time
+   a launch from the profiler: its wrapper's host work takes as long), and
+   at 1080p;
 14. kernels 5 (treelet cull) and 6 (treelet sweep) against their plain
    versions on the mesh bench scene (``samples.heightfield``, 99,458
    triangles in 778 treelets): 65,536 camera primaries and one queue
@@ -62,9 +65,10 @@ Phases, each announced by one line:
    bench.py:155; profiled) and at the port's default (1 << 18), kernels 5
    and 6 per launch on one full default-queue iteration (262,144 rays) of
    primaries and of bounce rays and per frame, the key sort, the post-pass,
-   the queue's torch work, beside the plain versions and the bounds; the
-   p50 / p90 / p99 / max of kernel 6's leaf visits a block, its CTA shape
-   and its shared memory;
+   the queue's torch work, beside the plain versions and the bounds (every
+   key of kernel 5 bit-equal); kernel 5's live rays and its CTA (threads,
+   leaf boxes a thread); the p50 / p90 / p99 / max of kernel 6's leaf
+   visits a block, its CTA shape and its shared memory;
 18. kernels 9 (grad_forward), 10 (grad_backward, reverse mode) and kernel
    8's whole chain (fused_loss_chain, reverse mode, and remat: the same
    kernel) against their plain versions (the body with run-time table
@@ -81,10 +85,13 @@ Phases, each announced by one line:
    for 40 iterations on kernel 8's whole chain; its loss must fall;
 21. kernels 9, 10 and 8's whole chain against their plain versions at the
    full-width shape from the training start: kernel 9 over all 8,294,400
-   lanes, kernels 10 and 8 (whose plain versions run under autograd) on a
-   band of rows mid-frame, and launched twice over all 8,294,400 lanes,
-   equal bit for bit; then their timings there beside their bounds, and
-   both adjoint recovery routes end to end;
+   lanes (every radiance bit and segment count equal), kernels 10 and 8
+   (whose plain versions run under autograd) on a band of rows mid-frame,
+   and launched twice over all 8,294,400 lanes, equal bit for bit; then
+   their timings there beside their bounds, kernel 9's grid and lane
+   efficiency (segments / (lanes × depth); a replay of its regenerating
+   schedule over the launch's per-lane segments is printed as a model
+   estimate), and both adjoint recovery routes end to end;
 22. vertex recovery at full width (the reference's ``mesh_grad_100k``
    bench row, bench.py:224-279): ``make_bvh_vertex_recovery_step`` on the
    heightfield (99,458 triangles) at 512×512, 2 spp, depth 2, edge_eps
@@ -149,6 +156,34 @@ def cuda_time_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, symbol, iters, warmup=2):
+    """Mean device milliseconds of one launch of the CUDA function
+    ``symbol`` over ``iters`` calls of ``fn``, from the profiler's trace:
+    for a kernel shorter than its wrapper's host work, where CUDA events
+    around the calls time the host.  ``warmup`` calls run under the
+    profiler unrecorded first (its CUPTI start-up can drop a launch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and symbol in e.key]
+    count = sum(e.count for e in found)
+    assert count == iters, f"the trace holds {count} of {iters} {symbol} launches"
+    return sum(e.self_device_time_total for e in found) / count / 1e3
 
 
 def bound_ms(ops, nbytes):
@@ -270,6 +305,58 @@ def profile_window(fn, label, counters, top=6):
     (OUT / f"profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=25))
     return share
+
+
+def regenerating_schedule(segcnt, grid, refill, warps_per_block=4):
+    """Replay kernel 9's schedule (csrc/fspt_adjoint.cu grad_forward_kernel)
+    on the per-lane segment counts of its launch: warp w of the grid's W
+    takes the 32-lane chunks r·W + (w + r) mod W, r = 0, 1, ..., in turn
+    (while they are in the band); a thread traces one bounce of its lane a
+    step, ``segcnt`` of them, and takes the next lane of the chunk once
+    ``refill`` threads of its warp are idle.  Returns the live share of the
+    warps' thread-steps and the warps' steps (mean, max): a model estimate
+    from the run's data, not a device measurement."""
+    import torch
+
+    dev = segcnt.device
+    s = segcnt.reshape(-1).to(torch.int32)
+    n = s.numel()
+    assert int(s.min()) >= 1, "a lane bounces at least once at depth >= 1"
+    W = grid * warps_per_block
+    n_chunks = -(-n // 32)
+    warp = torch.arange(W, device=dev)
+    chunk, rnd = warp.clone(), torch.zeros_like(warp)
+    taken = torch.zeros(W, dtype=torch.int64, device=dev)
+    rem = torch.zeros((W, 32), dtype=torch.int32, device=dev)  # bounces left; 0 idle
+    steps = torch.zeros(W, dtype=torch.int64, device=dev)
+    given = 0
+    while True:
+        idle = rem == 0
+        can = idle.sum(1) >= refill
+        while True:
+            act = can & idle.any(1) & (chunk < n_chunks)
+            if not bool(act.any()):
+                break
+            length = torch.clamp(n - chunk * 32, max=32)
+            idle_i = idle.to(torch.int64)
+            at = taken[:, None] + torch.cumsum(idle_i, 1) - idle_i
+            take = idle & act[:, None] & (at < length[:, None])
+            rem[take] = s[(chunk[:, None] * 32 + at)[take]]
+            given += int(take.sum())
+            taken = torch.where(act, taken + idle_i.sum(1), taken)
+            adv = act & (taken >= length)
+            rnd = torch.where(adv, rnd + 1, rnd)
+            chunk = torch.where(adv, rnd * W + (warp + rnd) % W, chunk)
+            taken = torch.where(adv, torch.zeros_like(taken), taken)
+            idle = rem == 0
+        busy = rem > 0
+        if not bool(busy.any()):
+            break
+        steps += busy.any(1)
+        rem -= busy.to(torch.int32)
+    assert given == n and bool((chunk >= n_chunks).all()), (given, n)
+    live = float(s.sum()) / (32.0 * float(steps.sum()))
+    return live, float(steps.float().mean()), int(steps.max())
 
 
 def check_launches(launches, want, label):
@@ -433,6 +520,9 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     pv_t = cuda_grad.pack_params({f: params0[f] for f in PAIR_FIELDS}, pair.fields)
     rep = kernel_check.check_grad_forward(pair, pv_t, 9, 0, 0, n_t)
     print(f"grad_forward, whole frame: {json.dumps(rep)}", flush=True)
+    # A lane's path depends only on its index and the kernel runs the plain
+    # version's operations in its order: every radiance bit and segment.
+    assert rep["radiance_bits_equal"] == 1.0 and rep["segments_equal"] == 1.0, rep
     worst("grad_forward", rep["max_abs_err"])
     rep = kernel_check.check_grad_path_tracer(
         train_scene, train_cam, cfg_t, PAIR_FIELDS, seed=9, sample0=cfg_t.spp,
@@ -475,6 +565,23 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
           f"{Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}")
     _, segcnt = pair.kernel_forward(pv_t, 9, 0, 0, n_t)
     seg9, seg8 = int(segcnt.sum()), int(seg8)
+    grid9, refill9 = cuda_grad.forward_plan(pair.mats.count, n_t)
+    live9, steps_mean, steps_max = regenerating_schedule(segcnt, grid9, refill9)
+    share_fixed = seg9 / (n_t * cfg_t.effective_depth)
+    # One lane a thread: a warp steps while any of its 32 lanes lives.
+    chunks9 = -(-n_t // 32)
+    lane_segs = torch.zeros(chunks9 * 32, dtype=segcnt.dtype, device=dev)
+    lane_segs[:n_t] = segcnt
+    steps_fixed = int(lane_segs.view(-1, 32).max(1).values.sum()) / chunks9
+    print(f"grad_forward schedule: grid {grid9} blocks x 128 threads ({grid9 * 4} warps), "
+          f"refill at {refill9} idle threads a warp; lane efficiency (segments / (lanes x "
+          f"depth), one lane a thread for all depths) {share_fixed:.1%}", flush=True)
+    print(f"grad_forward schedule, model estimate (not measured on the card: a replay of "
+          f"the two schedules over this launch's per-lane segments): live share of the "
+          f"regenerating schedule's thread-steps {live9:.1%}, steps a warp mean "
+          f"{steps_mean:.1f} max {steps_max}; steps a 32-lane chunk: one lane a thread "
+          f"{steps_fixed:.3f} (a warp with no live lane skips its step), regenerating "
+          f"{steps_mean * grid9 * 4 / chunks9:.3f}", flush=True)
     ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
     ms10 = cuda_time_ms(lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t), iters=2)
     ms8 = cuda_time_ms(lambda: chain_t(params_t, target_t, 7, 1, 0, Ht), iters=2)
@@ -491,6 +598,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
         "grad_backward": (ms10, b10, seg9, P_pair, "reverse, 1 forward + 1 sweep"),
         "fused_loss_chain": (ms8, b8, seg8, P_chain, "reverse, 1 forward + 1 sweep a buffer"),
     }
+    timings["grad_forward"].update(grid=grid9, lane_efficiency_fixed=share_fixed)
     for key, (ms, (b, by), segs, P, passes) in full.items():
         timings[key].update(ms=ms, bound_ms=b, bound_by=by, max_abs_err=0.0, params=P,
                             passes=passes)
@@ -1138,8 +1246,10 @@ def main():
     plain8 = cuda_time_ms(lambda: fused.plain(start, target_t, 7, 1, 0, cfg_t.height),
                           iters=1)
     b8, by8 = bound_ms(seg8 * hs_t.segment_ops(), target_t.numel() * 4)
-    # The trace floor: kernel 9 over the lanes of both buffers (the same
-    # float body in direct mode, without the fold and its adjoint).
+    # A trace floor: kernel 9 over the lanes of both buffers (the same float
+    # body in direct mode, without the fold and its adjoint).  Kernel 9 runs
+    # regenerating lanes, a schedule kernel 8 affine (one lane a thread for
+    # all depths) does not share: a floor of the body, not of its schedule.
     pair8 = cuda_grad.make_grad_path_tracer(train_scene, train_cam, cfg_t)
     pv8 = cuda_grad.pack_params(start, pair8.fields)
     spp_t = cfg_t.spp
@@ -1159,7 +1269,8 @@ def main():
     print(f"fused_loss: {ms8:.3f} ms/call ({ms8_again:.3f} again), {seg8} segments (both "
           f"buffers), fwd+bwd {seg8 / (ms8 * 1e-3):.4g} segments/s; block {block8}, grid "
           f"{grid8}; plain {plain8:.1f} ms; bound {b8:.4f} ms ({by8}); 2 x kernel 9 on the "
-          f"same lanes {floor8:.3f} ms (the trace floor, beside the bound); card {smi}",
+          f"same lanes {floor8:.3f} ms (the body's trace floor on regenerating lanes, not "
+          f"on kernel 8's one-lane-a-thread schedule; beside the bound); card {smi}",
           flush=True)
     print(f"recovery step pool=1 (affine): {ms_step:.2f} ms/step (mean of steps 1.., host "
           f"clock), device busy {'not read' if busy1 is None else f'{busy1:.1%}'} of a "
@@ -1204,7 +1315,11 @@ def main():
     rep_tx = kernel_check.check_affine_planes(tx_scene, tx_cam, cfg_tx, seed=9)
     print(f"affine_planes vs plain at the texture example's shape: {json.dumps(rep_tx)}")
     planes_tx = cuda_grad.make_affine_planes(tx_scene, tx_cam, cfg_tx)
-    ms7 = cuda_time_ms(lambda: planes_tx(9, 0, 0, n_tx), iters=10, warmup=2)
+    # The wrapper's host work takes about as long as this launch, so the
+    # kernel's own time comes from the trace.
+    ms7 = kernel_device_ms(lambda: planes_tx(9, 0, 0, n_tx), KERNELS["affine_planes"][0],
+                           iters=100)
+    ms7_call = cuda_time_ms(lambda: planes_tx(9, 0, 0, n_tx), iters=100, warmup=2)
     plain7 = cuda_time_ms(lambda: planes_tx.plain(9, 0, 0, n_tx), iters=1)
     S7 = cuda_path.n_slots(cfg_tx)
     slot_bytes = 4 * ((5 if planes_tx.mats.any_textured else 3) + 2)  # planes, mat, mat_e
@@ -1213,9 +1328,11 @@ def main():
     timings["affine_planes"] = dict(ms=ms7, plain_ms=plain7, bound_ms=b7, bound_by=by7,
                                     max_abs_err=max(full7["max_abs_err"],
                                                     rep_tx["max_abs_err"]),
-                                    ms_1080p_flagship=ms7_1080)
-    print(f"affine_planes: {ms7:.4f} ms/frame at the texture example's shape, "
-          f"{rep_tx['segments']} segments, {rep_tx['segments'] / (ms7 * 1e-3):.4g} segments/s; "
+                                    ms_1080p_flagship=ms7_1080, ms_call=ms7_call)
+    print(f"affine_planes: {ms7:.4f} ms/frame at the texture example's shape (device time "
+          f"a launch from the profiler, 100 launches; {ms7_call:.4f} ms a wrapper call by "
+          f"CUDA events), {rep_tx['segments']} segments, "
+          f"{rep_tx['segments'] / (ms7 * 1e-3):.4g} segments/s; "
           f"plain {plain7:.1f} ms; bound {b7:.4f} ms ({by7}: {S7} slots x {slot_bytes} B + 8 B "
           f"per lane); {ms7_1080:.3f} ms at 1920x1080x4 on the flagship; card {smi}",
           flush=True)
@@ -1416,6 +1533,15 @@ def main():
               f"treelet_cull {ms5:.4f} ms (plain {plain5:.2f}, bound {b5:.4f} {by5}); "
               f"key sort {ms_sort:.4f} ms; treelet_sweep {ms6:.4f} ms (plain {plain6:.2f}, "
               f"bound {b6:.4f} {by6}); post {ms_post:.4f} ms", flush=True)
+        threads5, leaves5 = cuda_bvh.cull_shape(L)
+        live_blk = (F[:, 10] > 0).view(B, -1).sum(1).float()
+        print(f"{kind} treelet_cull: live rays {live} of {n_pad} ({live / n_pad:.1%}), a block "
+              f"mean {live_blk.mean().item():.1f}, blocks with none "
+              f"{int((live_blk == 0).sum())} of {B}; CTA {threads5} threads ({leaves5} leaf "
+              f"boxes a thread, {L} leaves), {regs['treelet_cull_kernel'].get('registers')} "
+              f"registers; every key bit-equal: {full['key_equal']}", flush=True)
+        mesh_t[kind]["treelet_cull"].update(threads=threads5, leaves_a_thread=leaves5,
+                                            live_rays=live)
         vq = torch.quantile(visits.float(), torch.tensor([0.5, 0.9, 0.99], device=dev)).tolist()
         sw, (threads, rays, slices) = regs["treelet_sweep_kernel"], cuda_bvh.sweep_shape()
         print(f"{kind} leaf visits a block p50/p90/p99/max {vq[0]:g}/{vq[1]:g}/{vq[2]:g}/"

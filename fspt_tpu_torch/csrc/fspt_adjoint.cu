@@ -17,7 +17,9 @@
 // shared memory and writes the parameters into their cells, so the body
 // reads them as it reads any table value.  Kernel 9 traces the float body
 // over that table: the plain version (the body with tmats) and it agree bit
-// for bit.
+// for bit.  It is persistent and regenerating (a thread takes a new lane
+// as soon as its path ends), so its warps run full until their chunks of
+// the band are spent.
 //
 // Kernels 10 and 8 are reverse mode: the reference's remat construction
 // (pallas_grad.py:700-753), a per-bounce recompute sweep, written by hand.
@@ -70,9 +72,35 @@ namespace fspt {
 constexpr int kMaxAdjDepth = 16;   // bounces a per-thread record holds
 constexpr int kStateWords = 10;    // segment (6), throughput (3), winner row
 
+// Kernel 9's schedule (constants, each the fastest of its variants on an
+// H100, PERF.md §6).  Seven blocks an SM (launch bounds: 72 registers, a
+// few bytes of spill); the grid is the card's resident blocks
+// (fspt_grad_forward_plan).  The band's 32-lane chunks are dealt to the W
+// warps of the grid in rounds of W, round r rotated by r: warp w takes
+// chunk r·W + (w + r) mod W.  So every warp's chunks lie all over the
+// band, and its mix of path lengths is the frame's (chunk c ≡ w mod W
+// alone would keep a warp in a few image columns).  A path has ended when
+// it is dead or at pp.depth; once kFwdRefill threads of a warp are idle
+// or ended, each ended one writes its lane and every idle one takes the
+// next lane of the warp's chunk.
+constexpr int kFwdMinBlocks = 7;
+constexpr int kFwdRefill = 4;
+
+// Kernel 10 at five blocks an SM (launch bounds: at most 96 registers, a
+// few bytes of spill).  Left free, the compiler gives it 105-106 and four
+// blocks, slower on an H100 at the pool-8 route's launch (PERF.md §6).
+constexpr int kBackwardMinBlocks = 5;
+
 // Kernel 9: the float body over the run-time table; radiance as [3][n]
-// planes and the lane's segment count.
-__global__ void __launch_bounds__(kAdjBlock)
+// planes and the lane's segment count.  Persistent and regenerating: the
+// threads of a warp trace the lanes of its chunks in turn, one bounce a
+// step (path_bounce); an ended path's radiance and segments are written at
+// its lane's own index (path_finish), and a new lane is ranked among the
+// warp's idle threads by __ballot_sync and __popc.  A lane's result
+// depends only on its index (the RNG is counter-based), so the schedule
+// changes no bit, and nothing is summed across lanes: no atomics.  Each
+// block copies the table once.
+__global__ void __launch_bounds__(kAdjBlock, kFwdMinBlocks)
 grad_forward_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                     const float* __restrict__ mats, const int* __restrict__ mat_meta,
                     const PathParams pp, const CamParams cp, const float* __restrict__ pvec,
@@ -81,17 +109,52 @@ grad_forward_kernel(const float* __restrict__ prims, const int* __restrict__ met
                     int* __restrict__ segcnt) {
   extern __shared__ float smem[];
   load_table(smem, nullptr, mats, pp.n_mats, pvec, cells, n_cells);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
+  const SmemMats tab{smem};
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  const int n_warps = gridDim.x * kAdjWarps;
+  const int n_chunks = (n + 31) >> 5;
+  const int warp = blockIdx.x * kAdjWarps + (threadIdx.x >> 5);
+  int round = 0;  // the warp's chunk of round r: r·n_warps + (warp + r) mod n_warps
+  int chunk = warp;
+  int taken = 0;  // lanes of the current chunk handed out
+  int i = -1;     // this thread's lane, -1 when idle
+  int depth = 0;
+  PathState<float> st;
   NoSlots none;
-  const PathOut o = trace_path_t<kDirect, float>(prims, meta, SmemMats{smem}, mat_meta, pp,
-                                                 r.hs, r.sx, r.sy, r.sz, r.dx, r.dy, r.dz,
-                                                 none);
-  radiance[i] = o.L[0];
-  radiance[(size_t)n + i] = o.L[1];
-  radiance[2 * (size_t)n + i] = o.L[2];
-  segcnt[i] = o.segcnt;
+  for (;;) {
+    const bool ended = i >= 0 && (!st.alive || depth >= pp.depth);
+    unsigned idle = __ballot_sync(0xffffffffu, i < 0 || ended);
+    if (__popc(idle) >= kFwdRefill) {
+      if (ended) {
+        const PathOut o = path_finish<kDirect>(st, pp, none);
+        radiance[i] = o.L[0];
+        radiance[(size_t)n + i] = o.L[1];
+        radiance[2 * (size_t)n + i] = o.L[2];
+        segcnt[i] = o.segcnt;
+        i = -1;
+      }
+      while (idle != 0u && chunk < n_chunks) {
+        const int len = min(32, n - (chunk << 5));
+        const int at = taken + __popc(idle & below);
+        if (i < 0 && at < len) {
+          i = (chunk << 5) + at;
+          const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
+          st = path_init<float>(pp, r.hs, r.sx, r.sy, r.sz, r.dx, r.dy, r.dz);
+          depth = 0;
+        }
+        taken += __popc(idle);
+        if (taken >= len) {
+          ++round;
+          chunk = round * n_warps + (warp + round) % n_warps;
+          taken = 0;
+        }
+        idle = __ballot_sync(0xffffffffu, i < 0);
+      }
+    }
+    if (idle == 0xffffffffu) break;  // every lane of the warp's chunks written
+    if (i >= 0 && st.alive && depth < pp.depth)
+      path_bounce<kDirect>(st, depth++, prims, meta, tab, mat_meta, pp, none);
+  }
 }
 
 // --- a lane's record of its forward trace ----------------------------------
@@ -942,7 +1005,7 @@ __host__ __device__ constexpr size_t reverse_smem(int n_mats, int rows, int bloc
 // one sweep; partial [n_cells][blocks], int_partial [2][blocks] (0, lanes
 // with a zeroed non-finite entry).  scratch: layout 1's record.
 template <int kLayout>
-__global__ void __launch_bounds__(kAdjBlock)
+__global__ void __launch_bounds__(kAdjBlock, kBackwardMinBlocks)
 grad_backward_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                      const float* __restrict__ mats, const int* __restrict__ mat_meta,
                      const PathParams pp, const CamParams cp, const float* __restrict__ pvec,
@@ -1057,6 +1120,31 @@ inline bool plan_reverse(int n_mats, int rows, int depth, ReversePlan& plan) {
   return plan.block > 0;
 }
 
+// Kernel 9's resident blocks a device and table size: 0 not yet computed.
+static int resident_blocks[64][kMaxAdjMats + 1];
+
+// The grid of a kernel-9 launch over n lanes with a table of n_mats rows:
+// the card's resident blocks (occupancy at the table's shared memory times
+// the SMs, computed once a device and table size), or fewer where the band
+// has fewer chunks than the grid has warps; -1 where CUDA fails.
+int forward_grid(int n_mats, int n) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
+  int& resident = resident_blocks[dev][n_mats];
+  if (resident == 0) {
+    int per_sm = 0, sms = 0;
+    const size_t smem = sizeof(float) * n_mats * kMatStride;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grad_forward_kernel, kAdjBlock,
+                                                      smem) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+        || per_sm * sms <= 0)
+      return -1;
+    resident = per_sm * sms;
+  }
+  const int wanted = blocks_for((n + 31) / 32, kAdjWarps);
+  return wanted < resident ? wanted : resident;
+}
+
 }  // namespace fspt
 
 extern "C" {
@@ -1070,11 +1158,25 @@ int fspt_grad_forward(const float* prims, const int* meta, const float* mats,
   using namespace fspt;
   if (int err = check_mats(pp)) return err;
   if (n <= 0) return 0;
+  const int grid = forward_grid(pp.n_mats, n);
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = sizeof(float) * pp.n_mats * kMatStride;
-  grad_forward_kernel<<<blocks_for(n, kAdjBlock), kAdjBlock, smem, (cudaStream_t)stream>>>(
+  grad_forward_kernel<<<grid, kAdjBlock, smem, (cudaStream_t)stream>>>(
       prims, meta, mats, mat_meta, pp, cp, pvec, cells, n_cells, h0, sample0, lane0, n,
       radiance, segcnt);
   return (int)cudaGetLastError();
+}
+
+// Kernel 9's launch for n lanes over n_mats table rows (the launcher's):
+// *grid blocks of 128 threads, and *refill, the idle threads of a warp at
+// which it takes new lanes.  Returns cudaErrorInvalidValue past
+// kMaxAdjMats rows.
+int fspt_grad_forward_plan(int n_mats, int n, int* grid, int* refill) {
+  using namespace fspt;
+  if (n_mats > kMaxAdjMats || n_mats < 0) return (int)cudaErrorInvalidValue;
+  *grid = n > 0 ? forward_grid(n_mats, n) : 0;
+  *refill = kFwdRefill;
+  return *grid < 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
 // The launch plan of the reverse kernels for n_mats table rows, rows

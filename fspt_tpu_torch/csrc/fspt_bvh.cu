@@ -17,14 +17,32 @@
 // F [n_pad, 16] = [d, o×d, o, 1, t0, 0...]; the caller has sorted them by
 // Morton key, so a block's rays share origin and direction.
 //
-// Kernel 5, one CTA of 256 threads per ray block: the block's 64 rays
-// (origin, guarded reciprocal direction, min(t0, 1), liveness) go to shared
-// memory; each thread takes leaves tid, tid+256, ..., reads the leaf's box
-// once and runs the exact slab test against the 64 rays, keeping the
-// minimum entry t.  One float per (block, leaf) is written.  Bound by
-// operations: ~30 per (ray, leaf), against 64 bytes a ray and 24 a leaf read
-// and 4 bytes a (block, leaf) written.
-//
+// Kernel 5, one CTA per ray block, sized to the leaf count: the first warp
+// lists the block's live rays (t0 > 0) in shared memory, two float4s a
+// ray, (origin, min(t0, 1)) and (guarded reciprocal direction, 0), sorted
+// by the octant of the direction; each thread keeps kCullLeaves = 4 leaf
+// boxes in registers (leaves tid + q · blockDim) and runs the exact slab
+// test of every live ray against all four, keeping each leaf's minimum
+// entry t.  One float per (block, leaf) is written.  Bound by operations:
+// ~30 per (live ray, leaf), against 64 bytes a ray and 24 a leaf read and
+// 4 bytes a (block, leaf) written.  With -fmad=false every operation is an
+// instruction, and the fminf / fmaxf and compares set the pace (dropping
+// six of them a test cut the time by 29 %, PERF.md §6); what the design
+// does about it:
+//   - the octant: a loop a direction octant (templated on it; a block's
+//     rays, sorted by Morton key over origin and direction, mostly share
+//     one) takes each axis's near and far plane by the sign of the
+//     direction, dropping the six fminf / fmaxf of the pairs;
+//   - one test: max(t_lo, 0) <= min(t_hi, min(t0, 1)) in place of three
+//     compares (the same set for a live ray);
+//   - loads: a ray's two broadcast LDS.128 serve four tests, and the list
+//     holds live rays only (a block with none writes BIG and tests
+//     nothing);
+//   - the tail: ceil(L / 4) threads rounded up to a warp, at most 256
+//     (224 at the mesh bench scene's 778 leaves: one pass); more leaves
+//     take more passes of the same CTA.
+// Every key equals plain_cull's bit for bit: the same values, rounded alike.
+
 // Kernel 6, one CTA of 256 threads per ray block: each thread holds two of
 // the block's 64 rays, and eight threads share a pair.  The block walks its
 // front-to-back leaf list; each leaf's 128 triangles (20 floats each: 19
@@ -97,7 +115,10 @@ constexpr int kRays = 64;          // rays per block (cuda_bvh.BLOCK_RAYS)
 constexpr int kFeat = 16;          // floats per ray feature row
 constexpr int kTreelet = 128;      // triangles per leaf
 constexpr int kRows = 20;          // floats per triangle
-constexpr int kCullThreads = 256;
+// Kernel 5: leaf boxes a thread holds in registers, and the most threads a
+// CTA (cull_threads sizes it to the leaf count).
+constexpr int kCullLeaves = 4;
+constexpr int kCullMaxThreads = 256;
 // Kernel 6: each thread holds kSweepRays rays and tests every
 // kSweepSlices-th triangle of a leaf against them; kSweepSlices threads
 // share a ray.
@@ -109,6 +130,14 @@ constexpr int kLeafVec = kTreelet * kRows / 4;       // float4s in a leaf: 640
 constexpr int kWalkThreads = 128;
 constexpr float kBig = 3.0e38f;
 constexpr int kNoHit = 0x7FFFFFFF;
+
+// Kernel 5's threads a CTA: one pass over the leaves at kCullLeaves a
+// thread (ceil(n_leaves / kCullLeaves), rounded up to a warp), at most
+// kCullMaxThreads.
+inline int cull_threads(int n_leaves) {
+  const int t = ((n_leaves + kCullLeaves - 1) / kCullLeaves + 31) / 32 * 32;
+  return t < 32 ? 32 : (t > kCullMaxThreads ? kCullMaxThreads : t);
+}
 
 __device__ __forceinline__ float guarded_rcp(float d) {
   const float g = fabsf(d) < 1e-30f ? (d >= 0.0f ? 1e-30f : -1e-30f) : d;
@@ -189,47 +218,121 @@ __device__ __forceinline__ bool slab_entry(const float* __restrict__ lo,
   return tnear <= tfar && tfar >= 0.0f && tnear <= 1.0f;
 }
 
-__global__ void __launch_bounds__(kCullThreads)
+// The live rays j0 .. j1-1 of the block's list, all of direction octant
+// Oct (bit a set: component a negative), against the thread's kCullLeaves
+// leaf boxes: the slab test of plain_cull with its choices made by the
+// octant.  Where a component is positive, (lo - o)·r is the near t and
+// (hi - o)·r the far one (rounding is monotone: fminf / fmaxf of the pair
+// pick the same values), and where negative the other way round; the
+// three overlap tests fold into max(t_lo, 0) <= min(t_hi, min(t0, 1)),
+// the same set for a live ray (min(t0, 1) > 0).  Each leaf keeps its
+// minimum entry t.
+template <int Oct>
+__device__ __forceinline__ void cull_octant(const float4* s_ray, int j0, int j1,
+                                            const float (&lo)[3][kCullLeaves],
+                                            const float (&hi)[3][kCullLeaves],
+                                            float (&k)[kCullLeaves]) {
+  for (int j = j0; j < j1; ++j) {
+    const float4 o = s_ray[2 * j], r = s_ray[2 * j + 1];
+#pragma unroll
+    for (int q = 0; q < kCullLeaves; ++q) {
+      const float nx = ((Oct & 1) ? hi[0][q] : lo[0][q]) - o.x;
+      const float fx = ((Oct & 1) ? lo[0][q] : hi[0][q]) - o.x;
+      const float ny = ((Oct & 2) ? hi[1][q] : lo[1][q]) - o.y;
+      const float fy = ((Oct & 2) ? lo[1][q] : hi[1][q]) - o.y;
+      const float nz = ((Oct & 4) ? hi[2][q] : lo[2][q]) - o.z;
+      const float fz = ((Oct & 4) ? lo[2][q] : hi[2][q]) - o.z;
+      const float t_lo = fmaxf(fmaxf(nx * r.x, ny * r.y), nz * r.z);
+      const float t_hi = fminf(fminf(fminf(fx * r.x, fy * r.y), fz * r.z), o.w);
+      const float entry = fmaxf(t_lo, 0.0f);
+      if (entry <= t_hi) k[q] = fminf(k[q], entry);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kCullMaxThreads)
 treelet_cull_kernel(const float* __restrict__ F, const float* __restrict__ lbmin,
                     const float* __restrict__ lbmax, int n_leaves,
                     float* __restrict__ key) {
-  __shared__ float s_o[3][kRays];
-  __shared__ float s_r[3][kRays];
-  __shared__ float s_t[kRays];
-  __shared__ int s_live[kRays];
+  __shared__ float4 s_ray[2 * kRays];  // the live rays: (o, min(t0, 1)), (r, 0)
+  __shared__ int s_oct[9];             // where each octant's rays start; [8]: count
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  if (tid < kRays) {
-    const float* f = F + ((size_t)b * kRays + tid) * kFeat;
-    for (int c = 0; c < 3; ++c) {
-      s_o[c][tid] = f[6 + c];
-      s_r[c][tid] = guarded_rcp(f[c]);
+  if (tid < 32) {
+    // The first warp lists the live rays (t0 > 0), two rows a thread,
+    // sorted by the octant of their direction (8: dead).
+    float4 ray[kRays / 32][2];
+    int oct[kRays / 32];
+#pragma unroll
+    for (int h = 0; h < kRays / 32; ++h) {
+      const float4* f = reinterpret_cast<const float4*>(
+          F + ((size_t)b * kRays + h * 32 + tid) * kFeat);
+      const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2);
+      // f0 = (d, c0), f1 = (c1, c2, o0, o1), f2 = (o2, 1, t0, 0).
+      ray[h][0] = make_float4(f1.z, f1.w, f2.x, fminf(f2.z, 1.0f));
+      ray[h][1] = make_float4(guarded_rcp(f0.x), guarded_rcp(f0.y), guarded_rcp(f0.z), 0.0f);
+      oct[h] = !(f2.z > 0.0f) ? 8
+               : (ray[h][1].x < 0.0f ? 1 : 0) | (ray[h][1].y < 0.0f ? 2 : 0)
+                     | (ray[h][1].z < 0.0f ? 4 : 0);
     }
-    const float t0 = f[10];
-    s_t[tid] = fminf(t0, 1.0f);
-    s_live[tid] = t0 > 0.0f;
+    const unsigned below = (1u << tid) - 1u;
+    int at = 0;
+    for (int oc = 0; oc < 8; ++oc) {
+      if (tid == 0) s_oct[oc] = at;
+#pragma unroll
+      for (int h = 0; h < kRays / 32; ++h) {
+        const unsigned m = __ballot_sync(0xffffffffu, oct[h] == oc);
+        if (oct[h] == oc) {
+          const int j = at + __popc(m & below);
+          s_ray[2 * j] = ray[h][0];
+          s_ray[2 * j + 1] = ray[h][1];
+        }
+        at += __popc(m);
+      }
+    }
+    if (tid == 0) s_oct[8] = at;
   }
   __syncthreads();
-
-  for (int l = tid; l < n_leaves; l += kCullThreads) {
-    const float x0 = __ldg(lbmin + 3 * l), y0 = __ldg(lbmin + 3 * l + 1),
-                z0 = __ldg(lbmin + 3 * l + 2);
-    const float x1 = __ldg(lbmax + 3 * l), y1 = __ldg(lbmax + 3 * l + 1),
-                z1 = __ldg(lbmax + 3 * l + 2);
-    float k = kBig;
-    for (int r = 0; r < kRays; ++r) {
-      if (!s_live[r]) continue;  // uniform across the warp
-      const float tax = (x0 - s_o[0][r]) * s_r[0][r];
-      const float tbx = (x1 - s_o[0][r]) * s_r[0][r];
-      const float tay = (y0 - s_o[1][r]) * s_r[1][r];
-      const float tby = (y1 - s_o[1][r]) * s_r[1][r];
-      const float taz = (z0 - s_o[2][r]) * s_r[2][r];
-      const float tbz = (z1 - s_o[2][r]) * s_r[2][r];
-      const float t_lo = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
-      const float t_hi = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
-      if (t_lo <= t_hi && t_hi >= 0.0f && t_lo <= s_t[r]) k = fminf(k, fmaxf(t_lo, 0.0f));
+  const int live = s_oct[8];
+  float* row = key + (size_t)b * n_leaves;
+  const int stride = blockDim.x;
+  if (live == 0) {
+    for (int l = tid; l < n_leaves; l += stride) row[l] = kBig;
+    return;
+  }
+  // Passes of blockDim.x * kCullLeaves leaves (one where n_leaves fits);
+  // thread tid holds leaves l0 + tid + q * blockDim.x.
+  for (int l0 = 0; l0 < n_leaves; l0 += stride * kCullLeaves) {
+    float lo[3][kCullLeaves], hi[3][kCullLeaves], k[kCullLeaves];
+#pragma unroll
+    for (int q = 0; q < kCullLeaves; ++q) {
+      const int l = min(l0 + tid + q * stride, n_leaves - 1);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a][q] = __ldg(lbmin + 3 * l + a);
+        hi[a][q] = __ldg(lbmax + 3 * l + a);
+      }
+      k[q] = kBig;
     }
-    key[(size_t)b * n_leaves + l] = k;
+    for (int oc = 0; oc < 8; ++oc) {
+      const int j0 = s_oct[oc], j1 = s_oct[oc + 1];
+      switch (j0 < j1 ? oc : -1) {
+        case 0: cull_octant<0>(s_ray, j0, j1, lo, hi, k); break;
+        case 1: cull_octant<1>(s_ray, j0, j1, lo, hi, k); break;
+        case 2: cull_octant<2>(s_ray, j0, j1, lo, hi, k); break;
+        case 3: cull_octant<3>(s_ray, j0, j1, lo, hi, k); break;
+        case 4: cull_octant<4>(s_ray, j0, j1, lo, hi, k); break;
+        case 5: cull_octant<5>(s_ray, j0, j1, lo, hi, k); break;
+        case 6: cull_octant<6>(s_ray, j0, j1, lo, hi, k); break;
+        case 7: cull_octant<7>(s_ray, j0, j1, lo, hi, k); break;
+        default: break;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kCullLeaves; ++q) {
+      const int l = l0 + tid + q * stride;
+      if (l < n_leaves) row[l] = k[q];
+    }
   }
 }
 
@@ -442,7 +545,7 @@ int fspt_treelet_cull(const float* F, const float* lbmin, const float* lbmax,
                       int n_leaves, int n_blocks, float* key, void* stream) {
   using namespace fspt_bvh;
   if (n_blocks > 0 && n_leaves > 0) {
-    treelet_cull_kernel<<<n_blocks, kCullThreads, 0, (cudaStream_t)stream>>>(
+    treelet_cull_kernel<<<n_blocks, cull_threads(n_leaves), 0, (cudaStream_t)stream>>>(
         F, lbmin, lbmax, n_leaves, key);
   }
   return (int)cudaGetLastError();
@@ -458,6 +561,15 @@ int fspt_treelet_sweep(const int64_t* heavy_first, const int* counts, const int*
         heavy_first, counts, order, tlo, n_leaves, group, F, W, t, best, visits);
   }
   return (int)cudaGetLastError();
+}
+
+// Kernel 5's CTA as launched for n_leaves leaves: threads, leaves a thread
+// in one pass.
+int fspt_cull_shape(int n_leaves, int* shape) {
+  using namespace fspt_bvh;
+  shape[0] = cull_threads(n_leaves);
+  shape[1] = kCullLeaves;
+  return 0;
 }
 
 // Kernel 6's CTA as launched: threads, rays a thread, threads a ray.

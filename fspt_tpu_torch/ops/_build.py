@@ -154,6 +154,8 @@ _SIGNATURES = {
         "fspt_treelet_sweep": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
         # shape: int[3] out (threads, rays a thread, threads a ray)
         "fspt_sweep_shape": [_P],
+        # n_leaves, *shape (threads, leaves a thread)
+        "fspt_cull_shape": [_I, _P],
         # start, seg, t_init, n, bmin, bmax, first, count, miss, n_nodes, v0,
         # e1, e2, area2, tri_id, t, id, u, v, visits, tested, stream
         "fspt_bvh_walk": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -167,6 +169,8 @@ _SIGNATURES = {
         # n_cells, h0, sample0, lane0, n, radiance, segcnt, stream
         "fspt_grad_forward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
                               _I, _I, _P, _P, _P],
+        # n_mats, n, *grid, *refill
+        "fspt_grad_forward_plan": [_I, _I, _P, _P],
         # n_mats, rows, depth, *block, *scratch_words
         "fspt_adjoint_plan": [_I, _I, _I, _P, _P],
         # ... as fspt_grad_forward up to n, then cot, scratch, partial,

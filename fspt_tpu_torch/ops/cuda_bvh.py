@@ -309,6 +309,8 @@ def launch_cull(F, tables: TreeletTables):
     _build.check_cuda_tensor("lbmax", tables.lbmax, torch.float32, (L, 3), dev)
     if n_pad % BLOCK_RAYS:
         raise ValueError(f"F has {n_pad} rows, not a multiple of {BLOCK_RAYS}")
+    if F.data_ptr() % 16:
+        raise ValueError("F must be 16-byte aligned: the kernel reads its rows as float4")
     n_blocks = n_pad // BLOCK_RAYS
     key = torch.empty((n_blocks, L), dtype=torch.float32, device=dev)
     _build.launch(TREELET_CULL, F.data_ptr(), tables.lbmin.data_ptr(),
@@ -426,6 +428,14 @@ def block_order(counts):
     blocks with the longest leaf lists start first.  Outputs are written by
     block id, so the order leaves them unchanged."""
     return torch.argsort(counts, descending=True, stable=True)
+
+
+def cull_shape(n_leaves: int):
+    """Kernel 5's CTA as the built library launches it for ``n_leaves``
+    leaves: ``(threads, leaves a thread)``."""
+    shape = (ctypes.c_int * 2)()
+    _build.library(TREELET_CULL.library).fspt_cull_shape(n_leaves, shape)
+    return tuple(shape)
 
 
 def sweep_shape():

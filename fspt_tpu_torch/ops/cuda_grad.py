@@ -107,6 +107,21 @@ def adjoint_plan(n_mats: int, rows: int, depth: int) -> tuple[int, int]:
     return block.value, words.value
 
 
+def forward_plan(n_mats: int, n: int) -> tuple[int, int]:
+    """Kernel 9's launch for ``n`` lanes over ``n_mats`` table rows
+    (csrc/fspt_adjoint.cu fspt_grad_forward_plan, which the launcher
+    follows): its grid, the card's resident blocks of 128 threads (fewer
+    where the band has fewer 32-lane chunks than they have warps), and the
+    idle threads of a warp at which it takes new lanes.  Loads the kernel
+    library."""
+    grid, refill = ctypes.c_int(), ctypes.c_int()
+    err = _build.library("fspt_adjoint").fspt_grad_forward_plan(
+        n_mats, n, ctypes.byref(grid), ctypes.byref(refill))
+    if err != 0:
+        raise ValueError(f"kernel 9 cannot take {n_mats} material rows (CUDA error {err})")
+    return grid.value, refill.value
+
+
 def loss_plan(n_mats: int, n_slot: int, n: int) -> tuple[int, int]:
     """Kernel 8 affine's launch for ``n_mats`` table rows, ``n_slot`` slots
     a buffer and ``n`` lanes (csrc/fspt_grad.cu fspt_fused_loss_plan, which

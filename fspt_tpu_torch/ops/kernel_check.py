@@ -30,9 +30,12 @@ launches equal bit for bit (a fixed grid, fixed-order sums, no atomics).
 
 Adjoint kernels (9, 10, 8's whole chain).  Kernel 9 against its plain
 version (the body with ``tmats``): 100 % of radiance values at the path bar
-and equal segment counts, as kernel 2 (it is kernel 2's float body over the
-same table values; a last-bit ``sinf``/``cosf`` difference keeps some values
-from equality, never from the bar).  Kernel 10
+and equal segment counts, as kernel 2, and two launches equal bit for bit
+(its regenerating schedule hands lanes to threads in another order each
+time, but a lane's path depends only on its index).  The report also gives
+the bit-equal share of the radiance values; the GPU-marked tests and
+``chip_smoke.py`` phase 21 require it to be 1.0, as the card has shown
+(kernel 9 is kernel 2's float body over the same table values).  Kernel 10
 and kernel 8's gradients against ``torch.autograd.grad`` of the plain
 version, with each lane's gradient summed over lanes in float64: every
 entry within rtol 1e-3, or within 1e-5 of the largest |entry| (the kernel's
@@ -45,7 +48,8 @@ launches equal bit for bit), and two launches of kernel 10 equal bit for
 bit (no atomics).
 
 Treelet kernels (5, 6): equal to their plain versions on 100 % of values —
-the survivor counts, leaf order and entry t after the key sort (kernel 5),
+every key of the cull bit for bit (its float32 bits), and the survivor
+counts, leaf order and entry t after the key sort (kernel 5),
 the packed winner, its t and the leaf visits (kernel 6).  Both sides add
 the same terms in the same order (kernel 6's integer min over packed keys
 does not depend on how its threads split a leaf), so anything less is a
@@ -367,12 +371,24 @@ def _forward_report(rad_k, seg_k, rad_p, seg_p) -> dict:
 
 def check_grad_forward(tracer, pvec, seed: int, sample0: int, lane0: int, n: int) -> dict:
     """Kernel 9 alone against its plain version, with no autograd (so at any
-    size the plain body fits in memory)."""
+    size the plain body fits in memory): radiance at the path bar and every
+    lane's segments equal (the report gives the equal and bit-equal shares
+    of the radiance values), and a second launch bit-equal to the first
+    (the regenerating schedule reaches no result)."""
     rad_k, seg_k = tracer.kernel_forward(pvec, seed, sample0, lane0, n)
+    rad_a, seg_a = tracer.kernel_forward(pvec, seed, sample0, lane0, n)
     with torch.no_grad():
         rad_p, seg_p = tracer.plain(pvec.detach(), seed, sample0, lane0, n)
     torch.cuda.synchronize()
-    return dict(lanes=n, params=tracer.n_params, **_forward_report(rad_k, seg_k, rad_p, seg_p))
+    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params,
+               radiance_bits_equal=_frac_equal(rad_k.view(torch.int32),
+                                               rad_p.view(torch.int32)),
+               relaunch_equal=bool(torch.equal(rad_k.view(torch.int32),
+                                               rad_a.view(torch.int32))
+                                   and torch.equal(seg_k, seg_a)),
+               **_forward_report(rad_k, seg_k, rad_p, seg_p))
+    assert rep["relaunch_equal"], rep
+    return rep
 
 
 def check_grad_path_tracer(scene_pack, camera, cfg, fields, seed: int, sample0: int = 0,
@@ -452,13 +468,30 @@ def check_fused_loss_chain(scene_pack, camera, cfg, target, fields, seed: int,
     return rep
 
 
+def check_cull(F, tables) -> tuple:
+    """Kernel 5 against its plain version on CUDA features ``F``: every key
+    bit-equal (the float32 bits, so a zero's sign counts), two launches
+    too.  Returns the report and both keys."""
+    key_k = cuda_bvh.launch_cull(F, tables)
+    again = cuda_bvh.launch_cull(F, tables)
+    key_p = cuda_bvh.plain_cull(F, tables)
+    torch.cuda.synchronize()
+    bits_k, bits_p = key_k.view(torch.int32), key_p.view(torch.int32)
+    rep = dict(key_equal=_frac_equal(bits_k, bits_p),
+               relaunch_equal=bool(torch.equal(bits_k, again.view(torch.int32))),
+               live_rays=int((F[:, 10] > 0).sum()),
+               culled_fraction=(key_p >= cuda_bvh.BIG).float().mean().item())
+    assert rep["key_equal"] == 1.0 and rep["relaunch_equal"], rep
+    return rep, key_k, key_p
+
+
 def check_treelet_kernels(traverser, start, seg, t_init) -> dict:
     """Kernels 5 and 6 against their plain versions on CUDA rays, as the
-    mesh intersector feeds them (sorted, seeded): every output equal."""
+    mesh intersector feeds them (sorted, seeded): every output equal, every
+    key of the cull bit-equal."""
     tables = traverser.tables
     F = cuda_bvh.ray_features(start, seg, t_init)
-    key_k = cuda_bvh.launch_cull(F, tables)
-    key_p = cuda_bvh.plain_cull(F, tables)
+    cull_rep, key_k, key_p = check_cull(F, tables)
     ck, ok_, tk = cuda_bvh.order_from_key(key_k)
     cp, op, tp = cuda_bvh.order_from_key(key_p)
     t_k, best_k, vis_k = cuda_bvh.launch_sweep(cp, op, tp, F, tables)
@@ -470,6 +503,7 @@ def check_treelet_kernels(traverser, start, seg, t_init) -> dict:
     rep = dict(
         rays=start.shape[0], blocks=int(cp.shape[0]), leaves=n_leaves,
         live_fraction=(t_init > 0).float().mean().item(),
+        key_equal=cull_rep["key_equal"],
         counts_equal=_frac_equal(ck, cp),
         order_equal=_frac_equal(ok_[listed], op[listed]),
         tlo_equal=_frac_equal(tk[listed], tp[listed]),

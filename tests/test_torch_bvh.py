@@ -6,7 +6,8 @@
   Python one;
 * the plain cull (kernel 5's plain version + the key sort) against the
   NumPy formula of tests/test_pallas_bvh.py: same survivor sets, ascending
-  entry t;
+  entry t; every key equal on kernel 5's edge blocks (a dead block, one
+  live ray, 1, 33 and 778 leaves, rays starting on and inside boxes);
 * the plain culled traverser (kernels 5 and 6 plain) against the
   reference's XLA ``traverse_bvh``, at the reference's own bar
   (tests/test_pallas_bvh.py:66-98): t at rtol 1e-4 / atol 1e-6, ids equal on
@@ -44,7 +45,7 @@ from fspt_tpu_torch.scene import samples
 from fspt_tpu_torch.utils import native
 
 from conftest import assert_images_close
-from test_torch_kernels_gpu import sweep_case
+from test_torch_kernels_gpu import CULL_CASES, cull_case, sweep_case
 from test_torch_kernels_gpu import tris as _tris
 
 CPU = torch.device("cpu")
@@ -128,6 +129,27 @@ def test_morton_keys_equal_reference():
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
+def _numpy_cull(sb, gb, tb, lbmin, lbmax, dtype=np.float32):
+    """The cull key ``[B, L]`` by the NumPy formula of the reference's exact
+    per-ray cull (tests/test_pallas_bvh.py; pallas_bvh.make_culled_traverser
+    ``cull``, S == R): the minimum over each block's live rays of the slab
+    entry t of every overlapping leaf, 3e38 elsewhere.  The float32 inputs'
+    differences are float32; the reciprocal and everything after it are in
+    ``dtype``: float32 rounds as ``plain_cull`` does, float64 does not."""
+    f = dtype
+    r = f(1.0) / np.where(np.abs(gb) < np.float32(1e-30),
+                          np.where(gb >= 0, f(1e-30), f(-1e-30)), gb)
+    ta = (lbmin[None] - sb[:, None]) * r[:, None]
+    tbx = (lbmax[None] - sb[:, None]) * r[:, None]
+    t_lo = np.minimum(ta, tbx).max(axis=-1)
+    t_hi = np.maximum(ta, tbx).min(axis=-1)
+    ov = ((t_lo <= t_hi) & (t_hi >= 0.0) & (t_lo <= np.minimum(tb, f(1.0))[:, None])
+          & (tb > 0.0)[:, None])
+    key = np.where(ov, np.maximum(t_lo, f(0.0)), f(3.0e38))
+    assert key.dtype == dtype
+    return key.reshape(sb.shape[0] // cuda_bvh.BLOCK_RAYS, cuda_bvh.BLOCK_RAYS, -1).min(axis=1)
+
+
 def test_plain_cull_matches_numpy_formula():
     v0, v1, v2 = _tris(3000, seed=11)
     coarse = bvh.build_bvh(v0, v1, v2, max_leaf=cuda_bvh.TREELET, device=CPU)
@@ -142,15 +164,7 @@ def test_plain_cull_matches_numpy_formula():
     count = coarse.count.numpy()
     leaves = np.nonzero(count > 0)[0]
     lbmin, lbmax = coarse.bmin.numpy()[leaves], coarse.bmax.numpy()[leaves]
-    r = 1.0 / np.where(np.abs(gb) < 1e-30, np.where(gb >= 0, 1e-30, -1e-30), gb)
-    ta = (lbmin[None] - sb[:, None]) * r[:, None]
-    tbx = (lbmax[None] - sb[:, None]) * r[:, None]
-    t_lo = np.minimum(ta, tbx).max(axis=-1)
-    t_hi = np.maximum(ta, tbx).min(axis=-1)
-    ov = ((t_lo <= t_hi) & (t_hi >= 0.0) & (t_lo <= np.minimum(tb, 1.0)[:, None])
-          & (tb > 0.0)[:, None])
-    key = np.where(ov, np.maximum(t_lo, 0.0), 3.0e38)
-    key = key.reshape(n // cuda_bvh.BLOCK_RAYS, cuda_bvh.BLOCK_RAYS, -1).min(axis=1)
+    key = _numpy_cull(sb, gb, tb, lbmin, lbmax, dtype=np.float64)
     counts_ref = (key < 3.0e38).sum(axis=1)
     np.testing.assert_array_equal(counts.numpy(), counts_ref)
     assert counts_ref.min() > 0
@@ -158,6 +172,32 @@ def test_plain_cull_matches_numpy_formula():
         k = int(counts_ref[b])
         assert set(order[b, :k].tolist()) == set(np.nonzero(key[b] < 3.0e38)[0].tolist())
         assert (np.diff(tlo[b, :k].numpy()) >= 0).all()
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_plain_cull_edge_blocks(case):
+    """Kernel 5's plain version on its edge cases (all rays of a block dead,
+    one live ray, 1, 33 and 778 leaves, rays starting on box faces and
+    inside boxes; test_torch_kernels_gpu.cull_case): every key equal to the
+    NumPy formula's, a dead block's row all 3e38, a ray starting on or in a
+    box entering it at 0."""
+    F, tables = cull_case(case)
+    key = cuda_bvh.plain_cull(F, tables)
+    Fn = F.numpy()
+    ref = _numpy_cull(Fn[:, 6:9], Fn[:, 0:3], Fn[:, 10], tables.lbmin.numpy(),
+                      tables.lbmax.numpy())
+    np.testing.assert_array_equal(key.numpy(), ref)
+    assert key.shape == (4, tables.n_leaves)
+    assert (ref < 3.0e38).any()
+    live = (Fn[:, 10] > 0).reshape(4, -1).sum(axis=1)
+    for b in np.nonzero(live == 0)[0]:
+        assert (ref[b] == np.float32(3.0e38)).all()
+    if case == "all_dead":
+        assert live[1] == 0
+    if case == "one_live":
+        assert live[2] == 1 and (ref[2] < 3.0e38).any()
+    if case in ("on_face", "inside"):
+        assert (ref[0] == 0.0).sum() >= 8
 
 
 def _traverser_vs_xla(n_tris, n_rays, seed, t_init=None):

@@ -281,6 +281,34 @@ def test_grad_image_matches_planar_reference(specular_reference):
                                    atol=1e-7, err_msg=name)
 
 
+@pytest.mark.parametrize("depth", [1, 8])
+def test_grad_forward_ragged_band_is_lane_independent(depth):
+    """Kernel 9's plain forward on a ragged band (lane0 = 5, n = 37: off and
+    across the 32-lane chunks the kernel's warps take) equals the same
+    lanes of the full-frame run bit for bit, radiance and segments: a
+    lane's path depends only on its index, which the kernel's regenerating
+    lanes rely on.  The band also matches the reference's planar forward on
+    those lanes at the path bar, and the frame its segment count."""
+    scene, cam, ps, pc, cfg = _setup(build_cornell_box(with_specular=True),
+                                     width=16, height=12, spp=2, max_depth=depth)
+    fields = ("diffuse", "emissive", "param")
+    tracer = cuda_grad.make_grad_path_tracer(ps, pc, cfg, fields=fields)
+    pvec = cuda_grad.pack_params({f: getattr(ps.materials, f) for f in fields},
+                                 tracer.fields)
+    lane0, n, n_all = 5, 37, cfg.height * cfg.width * cfg.spp
+    with torch.no_grad():
+        full, seg_full = tracer.plain(pvec, 5, 3, 0, n_all)
+        band, seg_band = tracer.plain(pvec, 5, 3, lane0, n)
+    assert torch.equal(band, full[:, lane0:lane0 + n])
+    assert torch.equal(seg_band, seg_full[lane0:lane0 + n])
+    trace = make_diff_path(scene, RefConfig(**vars(cfg)), z_far=float(np.asarray(cam.z_far)))
+    ref = trace(scene.materials, cam, 5, 3)
+    np.testing.assert_allclose(band.t().numpy(), np.asarray(ref.radiance)[lane0:lane0 + n],
+                               rtol=1e-4, atol=1e-5)
+    assert int(seg_full.sum()) == int(ref.segments)
+    assert float(band.abs().max()) > 0
+
+
 def test_grad_tracer_glow_field_and_pack_round_trip():
     """tests/test_pallas_grad.py:82-112: the pack of ``diffuse`` and ``glow``
     round-trips, and the glow sphere's column carries gradient."""

@@ -126,23 +126,52 @@ def test_fused_loss_plan(cuda, n_mats, n_slot, n, block, grid):
 ADJOINT_FIELDS = ("diffuse", "emissive", "glow", "param", "ior", "reflectivity", "frost")
 
 
+#: Kernel 9's ragged bands: (lane0, n) with n off and across the 32-lane
+#: chunks a warp takes.
+RAGGED_BANDS = ((5, 1), (7, 31), (40, 33), (100, 1000))
+
+
 @pytest.mark.parametrize("fields,depth", [
-    (ADJOINT_FIELDS, 4), (ADJOINT_FIELDS[:4], 16), (ADJOINT_FIELDS[:4], 17),
-    (ADJOINT_FIELDS[:4], 18),
+    (ADJOINT_FIELDS, 4), (ADJOINT_FIELDS[:4], 1), (ADJOINT_FIELDS[:4], 8),
+    (ADJOINT_FIELDS[:4], 16), (ADJOINT_FIELDS[:4], 17), (ADJOINT_FIELDS[:4], 18),
 ])
 def test_grad_path_kernels_match_plain(cuda, fields, depth):
     """Kernel 9 against its plain version and kernel 10 (reverse mode)
     against autograd of it, two kernel-10 launches bit for bit, on all nine
     families through a thin-lens camera: every material field (P = 169,
     shared-memory columns above 48 KB), and 16 bounces (the most the
-    per-thread record holds) against 17 and 18 (the device scratch)."""
-    from fspt_tpu_torch.ops import kernel_check
+    per-thread record holds) against 17 and 18 (the device scratch).  Then
+    kernel 9 alone (persistent, regenerating lanes): radiance and segments
+    bit-equal to the plain version and two launches bit-equal, on ragged
+    bands with lane0 ≠ 0 and on the flagship seen from inside the box
+    looking out, where most lanes die at depth 0."""
+    from fspt_tpu_torch.camera import Camera
+    from fspt_tpu_torch.ops import cuda_grad, kernel_check
     from fspt_tpu_torch.scene import samples
 
     b = samples.build("all_families", device=cuda, aperture=1.5, focal_depth=120.0)
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=depth)
-    kernel_check.check_grad_path_tracer(b.compile(device=cuda), b.cameras[0], cfg,
-                                        fields, seed=3, sample0=1)
+    scene = b.compile(device=cuda)
+    kernel_check.check_grad_path_tracer(scene, b.cameras[0], cfg, fields, seed=3, sample0=1)
+
+    tracer = cuda_grad.make_grad_path_tracer(scene, b.cameras[0], cfg, fields=fields)
+    pvec = cuda_grad.pack_params({f: getattr(scene.materials, f) for f in fields},
+                                 tracer.fields)
+    for lane0, n in RAGGED_BANDS:
+        rep = kernel_check.check_grad_forward(tracer, pvec, 3, 1, lane0, n)
+        assert rep["radiance_bits_equal"] == 1.0, rep
+
+    fb = samples.build("flagship", device=cuda)
+    flag = fb.compile(device=cuda)
+    out = Camera.create(origin=(0.0, 20.0, 45.0), target=(0.0, -40.0, -200.0), fov_y=60.0,
+                        aperture_size=0.0, device=cuda)
+    tracer = cuda_grad.make_grad_path_tracer(flag, out, cfg, fields=("diffuse",))
+    pvec = cuda_grad.pack_params({"diffuse": flag.materials.diffuse}, tracer.fields)
+    n = cfg.height * cfg.width * cfg.spp
+    rep = kernel_check.check_grad_forward(tracer, pvec, 3, 1, 0, n)
+    assert rep["radiance_bits_equal"] == 1.0, rep
+    _, seg = tracer.plain(pvec, 3, 1, 0, n)
+    assert float((seg == 1).float().mean()) > 0.5  # most lanes die at depth 0
 
 
 @pytest.mark.parametrize("scene_name,fields,depth", [
@@ -221,6 +250,98 @@ def test_treelet_kernels_match_plain(cuda, heightfield):
     start, seg, _, _ = generate_rays(cam, 64, 48, 2, 3, 0)
     for o, d, alive in ((start, seg, None), calls[1]):
         kernel_check.check_treelet_kernels(inter.traverser, *inter.sweep_inputs(o, d, alive)[:3])
+
+
+#: Kernel 5's edge cases (:func:`cull_case`).
+CULL_CASES = ("all_dead", "one_live", "leaves_1", "leaves_33", "leaves_778", "on_face",
+              "inside")
+
+
+def cull_case(case, device=None):
+    """Kernel 5's inputs for an edge case (numpy, seeded): ray features
+    ``F`` of 4 blocks of 64 rays and ``TreeletTables`` whose leaf boxes
+    (the only part the cull reads) are random, 300 of them unless the case
+    names a count.  Rays start in the boxes' region with random directions
+    (200 long) and ``t0`` in (0, 1.5], some dead; ``all_dead`` kills block
+    1, ``one_live`` leaves one live ray in block 2; ``on_face`` starts each
+    ray of block 0 on a face of a box (a box with a -0.0 face and a flat
+    box of faces -0.0 and +0.0, met by origins at +0.0, so a slab's near
+    and far t are zeros of either sign; axis-aligned directions, ±0
+    components included); ``inside`` starts the rays of block 0 inside
+    boxes.  Shared with
+    tests/test_torch_bvh.py, which holds the plain version against the
+    NumPy formula."""
+    import numpy as np
+
+    from fspt_tpu_torch.ops import cuda_bvh
+
+    rs = np.random.RandomState(CULL_CASES.index(case) + 31)
+    L = int(case.split("_")[1]) if case.startswith("leaves_") else 300
+    R = cuda_bvh.BLOCK_RAYS
+    centre = rs.uniform(-40, 40, (L, 3)).astype(np.float32)
+    half = rs.uniform(1, 10 if L > 1 else 30, (L, 3)).astype(np.float32)
+    lo, hi = centre - half, centre + half
+    start = rs.uniform(-50, 50, (4 * R, 3)).astype(np.float32)
+    d = rs.normal(size=(4 * R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    seg = (d * 200.0).astype(np.float32)
+    t0 = rs.uniform(0.01, 1.5, 4 * R).astype(np.float32)
+    t0[rs.rand(4 * R) < 0.2] = 0.0
+    if case == "all_dead":
+        t0[R:2 * R] = 0.0
+    elif case == "one_live":
+        t0[2 * R:3 * R] = 0.0
+        t0[2 * R + 17] = 0.7
+    elif case == "on_face":
+        lo[0, 0], hi[0, 0] = -0.0, 4.0  # a -0.0 face
+        lo[1, 0], hi[1, 0] = -0.0, 0.0  # a flat box, its faces -0.0 and +0.0
+        for j in range(R):
+            q = j % L
+            axis, side = j % 3, (j // 3) % 2
+            start[j] = rs.uniform(lo[q], hi[q])
+            start[j, axis] = (lo if side == 0 else hi)[q, axis]
+            if j < 16:  # on box 0's -0.0 face or in box 1's plane, at +0.0
+                start[j] = (0.0, centre[j // 8, 1], centre[j // 8, 2])
+            if j % 4 == 0:  # along the axis, the other components ±0
+                seg[j] = 0.0
+                seg[j, axis] = 200.0 if j % 8 == 0 else -200.0
+                if j % 16 == 0:
+                    seg[j, (axis + 1) % 3] = -0.0
+        t0[:R] = 1.0
+    elif case == "inside":
+        for j in range(R):
+            q = rs.randint(L)
+            start[j] = rs.uniform(lo[q], hi[q])
+        t0[:R] = 1.0
+    dev = torch.device("cpu") if device is None else device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    empty = torch.zeros((0, 3), dtype=torch.float32, device=dev)
+    tables = cuda_bvh.TreeletTables(
+        lbmin=t(lo), lbmax=t(hi),
+        weights=torch.zeros((L, cuda_bvh.TREELET, cuda_bvh.W_ROWS), device=dev),
+        leaf_first=torch.zeros((L,), dtype=torch.int32, device=dev), tri_v0=empty,
+        tri_e1=empty, tri_e2=empty, tri_id=torch.zeros((0,), dtype=torch.int32, device=dev))
+    return cuda_bvh.ray_features(t(start), t(seg), t(t0)), tables
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_treelet_cull_edge_blocks(cuda, case):
+    """Kernel 5 against its plain version, every key bit-equal and two
+    launches bit-equal: a block of dead rays (a row of BIG), a block with
+    one live ray, 1, 33 and 778 leaves (its CTA sized to them), rays
+    starting on box faces (a -0.0 face at +0.0 among them) and inside
+    boxes."""
+    from fspt_tpu_torch.ops import cuda_bvh, kernel_check
+
+    F, tables = cull_case(case, device=cuda)
+    _, key, _ = kernel_check.check_cull(F, tables)
+    threads, per_thread = cuda_bvh.cull_shape(tables.n_leaves)
+    assert threads % 32 == 0 and threads <= 256
+    assert threads * per_thread >= min(tables.n_leaves, 256 * per_thread)
+    if case == "all_dead":
+        assert bool((key[1] == cuda_bvh.BIG).all())
+    if case in ("on_face", "inside"):
+        assert bool((key[0] == 0.0).any())
 
 
 def tris(n, seed=0):
