@@ -12,7 +12,8 @@ Phases, each announced by one line:
    (fspt_tpu_torch/ops/kernel_check.py): the intersect kernel on 1 M random
    segments; the rays-in and camera-fused path kernels on an
    all-nine-families scene at 256×256, 4 spp, depth 8 (the latter with
-   depth of field and a lane0 band split that must be bit-exact);
+   depth of field, on 100 % of values, and a lane0 band split and a second
+   launch that must be bit-exact);
 6. main path: ``fspt_tpu_torch.cli`` renders scenes/cornell.scene at
    1024×1024, 4 spp, depth 8, 4 frames; the camera-fused kernel's launch
    count must rise by 4 and the image must be lit;
@@ -21,11 +22,14 @@ Phases, each announced by one line:
    each at 512×512, with their kernels' launch counts checked;
 8. timings at the headline size (flagship Cornell, 1024²×4 spp, depth 8)
    with CUDA events, beside the plain versions (each kernel is also held
-   against its plain version at these shapes) and the bound; then the CLI's
-   frame step end to end, and a profiler window for the device busy share;
-9. kernel 4 (texture-deferred camera-fused) against its plain version on
-   the textured all-families scene at 256×256, 4 spp, depth 8, with DoF:
-   slot planes, folded radiance, the lane0 split;
+   against its plain version at these shapes; kernel 2 on 100 % of values
+   with its bit-equal share, its band split and a second launch bit for
+   bit) and the bound; then the CLI's frame step end to end, and a
+   profiler window for the device busy share;
+9. kernel 4 (texture-deferred camera-fused, the texel fold in the kernel)
+   against the fold of its plain slot planes on the textured all-families
+   scene at 256×256, 4 spp, depth 8, with DoF, fast render off and on: on
+   100 % of values, the lane0 split and a second launch bit for bit;
 10. kernel 7 (affine slot planes) against its plain version on the same
    scene, fast-render off and on, then image and gradients through the
    fold; kernel 8 (fused dual-buffer loss, affine) against its plain version
@@ -39,7 +43,12 @@ Phases, each announced by one line:
    and emissive (kernel 8 affine, one launch per step) — then 3 steps of
    the texture example at 512² (kernel 7); every loss finite and falling;
 13. timings of kernels 4, 7 and 8 at their main-path shapes beside their
-   plain versions and bounds: kernel 8 affine at 1080p×4 against its plain
+   plain versions and bounds: kernel 4 on the textured cornell.scene at
+   1024²×4, depth 8, held first against the fold of its plain planes over
+   every lane (as phase 9) and then timed, with the textured frame step
+   (kernel 4 + accumulate) and its profiler window, which must hold no
+   device kernel beside kernel 4 that the untextured frame step does not
+   run as often (no fold); kernel 8 affine at 1080p×4 against its plain
    version (two launches bit for bit), beside its bound, 2 × kernel 9 on
    the same lanes (the body's trace floor, on kernel 9's regenerating
    lanes); the pool-1 recovery step end to end (ms, device busy share,
@@ -258,14 +267,15 @@ def ptxas_report(log):
     return out
 
 
-def profile_window(fn, label, counters, top=6):
+def profile_window(fn, label, counters, top=6, kernels=None):
     """Profile ``fn()`` once on the card, after one unrecorded warm-up call
     of ``fn`` under the profiler (its CUPTI start-up); print how many of the
     window's launches of each port kernel the trace holds, the device busy
     share of the window (read from the trace only where it holds every
     launch) and the kernels taking the most device time, and keep the table
     in build/chip_smoke/profile_<label>.txt.  Returns the busy share, or
-    None where the trace misses a launch."""
+    None where the trace misses a launch; fills ``kernels`` (a dict), where
+    given, with the window's device kernels and their launch counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -294,6 +304,8 @@ def profile_window(fn, label, counters, top=6):
             traced = sum(e.count for e in dev if KERNELS[key][0] in e.key)
             complete = complete and traced == launched
             print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
+    if kernels is not None:
+        kernels.update({e.key: e.count for e in dev})
     dev_us = sorted(((e.self_device_time_total, e.key) for e in dev), reverse=True)
     busy_us = sum(us for us, _ in dev_us)
     share = busy_us / window_us if complete else None
@@ -987,10 +999,14 @@ def main():
     raygen = cuda_path.build_fused_raygen(cam, cfg)
     core = cuda_path.build_path_core(hs, mats, cfg, int(flag_scene.sky_mat), cam.z_far)
     h0 = rng.seed_hash(0)
+    out2 = tracer2(0, 0)
     full = kernel_check.compare_paths(
-        tracer2(0, 0), cuda_path.planes_to_output(core(h0, *raygen(h0, 0, 0, n, dev))))
+        out2, cuda_path.planes_to_output(core(h0, *raygen(h0, 0, 0, n, dev))), every=True)
+    full.update(kernel_check.check_lane_independence(tracer2, 0, 0, n, out2))
+    del out2
     segments = full["segments"]
-    print(f"camera_path vs plain at 1024x1024x4: {json.dumps(full)}")
+    print(f"camera_path vs plain at 1024x1024x4 (radiance bit-equal on "
+          f"{full['radiance_bits_equal']:.6f} of values): {json.dumps(full)}")
     ms2 = cuda_time_ms(lambda: tracer2(0, 0), iters=10, warmup=2)
     plain2 = cuda_time_ms(lambda: core(h0, *raygen(h0, 0, 0, n, dev)), iters=1)
     b2, by2 = bound_ms(segments * seg_ops, n * 36)
@@ -1070,14 +1086,18 @@ def main():
     assert kernel_us > 0, "the profiler saw no camera_path_kernel time"
 
     # 9. kernel 4 against its plain version
-    phase("kernel 4 (deferred_path) vs plain: textured all families + DoF, "
-          "256x256x4, depth 8")
     famt = samples.build("all_families_textured", device=dev, aperture=1.5,
                          focal_depth=120.0)
     famt_scene = famt.compile(device=dev)
-    report["deferred_path"] = kernel_check.check_deferred_tracer(
-        famt_scene, famt.cameras[0], cfg256, seed=6, sample0=2)
-    print(json.dumps(report["deferred_path"]), flush=True)
+    for fast in (False, True):
+        phase(f"kernel 4 (deferred_path) vs the fold of its plain planes: textured all "
+              f"families + DoF, 256x256x4, depth 8, fast_render={fast}")
+        cfg_f = RenderConfig(width=256, height=256, spp=4, max_depth=8, fast_render=fast)
+        rep4 = kernel_check.check_deferred_tracer(famt_scene, famt.cameras[0], cfg_f,
+                                                  seed=6, sample0=2)
+        print(json.dumps(rep4), flush=True)
+        report["deferred_path"] = max(report.get("deferred_path", rep4), rep4,
+                                      key=lambda r: r["max_abs_err"])
 
     # 10. kernels 7 and 8 against their plain versions
     for fast in (False, True):
@@ -1189,21 +1209,27 @@ def main():
     tb = load_scene(str(tex_scene_file), device=dev)
     tex_scene = tb.compile(device=dev)
     tracer4 = cuda_path.make_camera_path_tracer(tex_scene, tb.cameras[0], cfg)
-    full4 = kernel_check.compare_paths(tracer4(0, 0), tracer4.fold(
-        tracer4.plain_planes(0, 0, 0, n)))
+    out4 = tracer4(0, 0)
+    full4 = kernel_check.compare_paths(
+        out4, tracer4.fold(tracer4.plain_planes(0, 0, 0, n)), every=True)
+    full4.update(kernel_check.check_lane_independence(tracer4, 0, 0, n, out4))
+    del out4
     seg4 = full4["segments"]
-    print(f"deferred_path vs plain at 1024x1024x4: {json.dumps(full4)}")
-    ms4 = cuda_time_ms(lambda: tracer4.planes(0, 0, 0, n), iters=10, warmup=2)
-    plain4 = cuda_time_ms(lambda: tracer4.plain_planes(0, 0, 0, n), iters=1)
+    print(f"deferred_path vs the fold of its plain planes at 1024x1024x4 (radiance "
+          f"bit-equal on {full4['radiance_bits_equal']:.6f} of values): {json.dumps(full4)}")
+    ms4 = cuda_time_ms(lambda: tracer4(0, 0), iters=10, warmup=2)
+    plain4 = cuda_time_ms(lambda: tracer4.fold(tracer4.plain_planes(0, 0, 0, n)), iters=1)
     S = cuda_path.n_slots(cfg)
     hs4 = cuda_trace.HostScene(tex_scene.geometry)
-    b4, by4 = bound_ms(seg4 * hs4.segment_ops(), n * (S * 44 + 28))
+    # The body's walk of every primitive row per segment, and the fold's 21
+    # float operations a slot and lane (L += T·(t·se + ke), T *= t·s + k).
+    b4, by4 = bound_ms(seg4 * hs4.segment_ops() + n * S * 21, n * 36)
     timings["deferred_path"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4,
                                     max_abs_err=full4["max_abs_err"])
-    print(f"deferred_path: {ms4:.3f} ms/frame (planes), {seg4} segments, "
-          f"{seg4 / (ms4 * 1e-3):.4g} segments/s; plain {plain4:.1f} ms; bound {b4:.4f} ms "
-          f"({by4}: {S} slots x 44 B + 28 B per lane, {hs4.segment_ops()} ops/segment)",
-          flush=True)
+    print(f"deferred_path: {ms4:.3f} ms/frame (the trace and its texel fold), {seg4} "
+          f"segments, {seg4 / (ms4 * 1e-3):.4g} segments/s; plain {plain4:.1f} ms; bound "
+          f"{b4:.4f} ms ({by4}: {hs4.segment_ops()} ops/segment, {S} slots x 21 ops and "
+          f"36 B a lane)", flush=True)
     state4 = {"fb": fb_mod.create(cfg.height, cfg.width, device=dev), "frame": 0}
 
     def textured_step():
@@ -1214,8 +1240,29 @@ def main():
         state4["frame"] += 1
 
     tstep_ms = cuda_time_ms(textured_step, iters=10, warmup=2)
-    print(f"textured frame step (kernel 4 + fold + accumulate): {tstep_ms:.3f} ms, "
+    print(f"textured frame step (kernel 4 + accumulate): {tstep_ms:.3f} ms, "
           f"{seg4 / (tstep_ms * 1e-3):.4g} segments/s end to end", flush=True)
+    # No fold runs after kernel 4: beside it the step launches the device
+    # kernels of the untextured frame step (phase 8b) beside kernel 2, the
+    # accumulate's, as often.
+    state2 = {"fb": fb_mod.create(cfg.height, cfg.width, device=dev), "frame": 0}
+
+    def flagship_step():
+        out = tracer2(0, state2["frame"] * cfg.spp)
+        state2["fb"] = fb_mod.accumulate(state2["fb"], out.radiance, out.aov_normal,
+                                         out.aov_depth, out.aov_mat, cfg.height,
+                                         cfg.width, cfg.spp)
+        state2["frame"] += 1
+
+    tex_kernels, flag_kernels = {}, {}
+    busy4 = profile_window(textured_step, "textured_step", counters, kernels=tex_kernels)
+    profile_window(flagship_step, "frame_step", counters, kernels=flag_kernels)
+    k4 = {k: c for k, c in tex_kernels.items() if KERNELS["deferred_path"][0] in k}
+    rest4 = {k: c for k, c in tex_kernels.items() if k not in k4}
+    rest2 = {k: c for k, c in flag_kernels.items() if KERNELS["camera_path"][0] not in k}
+    print(f"textured frame step: device busy {busy4}; kernel 4 {k4}; other device "
+          f"kernels {rest4} (untextured step: {rest2})")
+    assert busy4 is not None and list(k4.values()) == [1] and rest4 == rest2, (k4, rest4)
 
     phase("timing: kernels 7 and 8 on the flagship 1920x1080x4, depth 8")
     planes7 = cuda_grad.make_affine_planes(train_scene, train_cam, cfg_t)

@@ -90,8 +90,8 @@ def main(argv=None):
     tracer = make_camera_path_tracer(scene, camera, cfg)
     cstep = None
     if tracer is not None:
-        # A textured scene takes the texture-deferred kernel (slot planes +
-        # a torch fold that gathers the texels).
+        # A textured scene takes the texture-deferred kernel, which fetches
+        # and folds the texels itself.
         kind = "texture-deferred camera-fused" if hasattr(tracer, "fold") else "camera-fused"
         print(f"render path: {kind} cuda megakernel" if device.type == "cuda"
               else f"render path: {kind} plain torch")

@@ -110,6 +110,7 @@ grad_forward_kernel(const float* __restrict__ prims, const int* __restrict__ met
   extern __shared__ float smem[];
   load_table(smem, nullptr, mats, pp.n_mats, pvec, cells, n_cells);
   const SmemMats tab{smem};
+  const TableRows rows{prims, meta};
   const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
   const int n_warps = gridDim.x * kAdjWarps;
   const int n_chunks = (n + 31) >> 5;
@@ -153,7 +154,7 @@ grad_forward_kernel(const float* __restrict__ prims, const int* __restrict__ met
     }
     if (idle == 0xffffffffu) break;  // every lane of the warp's chunks written
     if (i >= 0 && st.alive && depth < pp.depth)
-      path_bounce<kDirect>(st, depth++, prims, meta, tab, mat_meta, pp, none);
+      path_bounce<kDirect>(st, depth++, rows, tab, mat_meta, pp, none);
   }
 }
 
@@ -837,8 +838,8 @@ __device__ __forceinline__ PathOut trace_recorded(const float* __restrict__ prim
                                                   const CameraRayT<float>& r,
                                                   Recorder<Store>& rec) {
   rec.absorbed = false;
-  return trace_path_t<kDirect, float>(prims, meta, mats, mat_meta, pp, r.hs, r.sx, r.sy,
-                                      r.sz, r.dx, r.dy, r.dz, rec);
+  return trace_path_t<kDirect, float>(TableRows{prims, meta}, mats, mat_meta, pp, r.hs, r.sx,
+                                      r.sy, r.sz, r.dx, r.dy, r.dz, rec);
 }
 
 // The adjoint of traced_camera_ray (csrc/fspt_kernels.cuh) for the

@@ -27,12 +27,6 @@ __host__ __device__ constexpr int column_block(size_t fixed, size_t per_thread) 
   return 0;
 }
 
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);

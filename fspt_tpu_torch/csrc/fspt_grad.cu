@@ -199,8 +199,8 @@ fused_loss_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
   int segs = 0;
   if (active) {
     const CameraRay r = camera_ray(cp, h0, second ? sample0_b : sample0_a, lane0 + i);
-    const PathOut o = trace_path<kDeferAll>(prims, meta, mats, mat_meta, pp, r.hs, r.sx,
-                                            r.sy, r.sz, r.dx, r.dy, r.dz, rec);
+    const PathOut o = trace_path<kDeferAll>(TableRows{prims, meta}, mats, mat_meta, pp, r.hs,
+                                            r.sx, r.sy, r.sz, r.dx, r.dy, r.dz, rec);
     segs = o.segcnt;
     f = fold_slots(rec, n_slot, tc_tab, te_tab, M, o.p_light, pp.light_clamp);
   }

@@ -14,15 +14,17 @@
 // 128 (path) threads.  All three are bound by arithmetic, not bytes: the
 // only device-memory traffic is each lane's ray in (or nothing, for the
 // camera-fused kernel) and its outputs, while the intersect walks every
-// primitive of the scene for every segment.  The tables are read as warp
-// broadcasts; per-lane state stays in registers.
+// primitive of the scene for every segment.  The path kernels stage the
+// primitive table in shared memory once per block and run seven blocks an
+// SM (kPathMinBlocks); the walk of every row per segment takes most of
+// their time, and a row from shared memory comes sooner than one from L1.
+// Per-lane state stays in registers.
 
 #include "fspt_kernels.cuh"
 
 namespace fspt {
 
 constexpr int kIntersectBlock = 256;
-constexpr int kPathBlock = 128;
 
 __global__ void __launch_bounds__(kIntersectBlock)
 intersect_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
@@ -33,7 +35,7 @@ intersect_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Hit h = intersect_lanes<true>(
-      prims, meta, n_prims, start[3 * i], start[3 * i + 1], start[3 * i + 2],
+      TableRows{prims, meta}, n_prims, start[3 * i], start[3 * i + 1], start[3 * i + 2],
       seg[3 * i], seg[3 * i + 1], seg[3 * i + 2]);
   t[i] = h.t;
   normal[3 * i] = h.nx;
@@ -45,24 +47,7 @@ intersect_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
   uv[2 * i + 1] = h.v;
 }
 
-__device__ __forceinline__ void write_path(const PathOut& o, int i,
-                                           float* __restrict__ radiance,
-                                           float* __restrict__ normal,
-                                           float* __restrict__ depth,
-                                           int* __restrict__ aov_mat,
-                                           int* __restrict__ segcnt) {
-  radiance[3 * i] = o.L[0];
-  radiance[3 * i + 1] = o.L[1];
-  radiance[3 * i + 2] = o.L[2];
-  normal[3 * i] = o.aov_n[0];
-  normal[3 * i + 1] = o.aov_n[1];
-  normal[3 * i + 2] = o.aov_n[2];
-  depth[i] = o.aov_d;
-  aov_mat[i] = o.aov_m;
-  segcnt[i] = o.segcnt;
-}
-
-__global__ void __launch_bounds__(kPathBlock)
+__global__ void __launch_bounds__(kPathBlock, kPathMinBlocks)
 camera_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                    const float* __restrict__ mats,
                    const int* __restrict__ mat_meta, const PathParams pp,
@@ -70,16 +55,18 @@ camera_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta
                    int n, float* __restrict__ radiance,
                    float* __restrict__ normal, float* __restrict__ depth,
                    int* __restrict__ aov_mat, int* __restrict__ segcnt) {
+  extern __shared__ float4 smem[];
+  const SmemRows rows = stage_rows(smem, prims, meta, pp.n_prims);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
   NoSlots none;
-  const PathOut o = trace_path<kDirect>(prims, meta, mats, mat_meta, pp, r.hs,
-                                        r.sx, r.sy, r.sz, r.dx, r.dy, r.dz, none);
+  const PathOut o = trace_path<kDirect>(rows, mats, mat_meta, pp, r.hs, r.sx, r.sy, r.sz,
+                                        r.dx, r.dy, r.dz, none);
   write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
 }
 
-__global__ void __launch_bounds__(kPathBlock)
+__global__ void __launch_bounds__(kPathBlock, kPathMinBlocks)
 ray_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                 const float* __restrict__ mats, const int* __restrict__ mat_meta,
                 const PathParams pp, const float* __restrict__ start,
@@ -88,13 +75,15 @@ ray_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                 float* __restrict__ radiance, float* __restrict__ normal,
                 float* __restrict__ depth, int* __restrict__ aov_mat,
                 int* __restrict__ segcnt) {
+  extern __shared__ float4 smem[];
+  const SmemRows rows = stage_rows(smem, prims, meta, pp.n_prims);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t hs = sample_hash(h0, (uint32_t)pixel[i], (uint32_t)sample[i]);
   NoSlots none;
-  const PathOut o = trace_path<kDirect>(prims, meta, mats, mat_meta, pp, hs,
-                                        start[3 * i], start[3 * i + 1], start[3 * i + 2],
-                                        seg[3 * i], seg[3 * i + 1], seg[3 * i + 2], none);
+  const PathOut o = trace_path<kDirect>(rows, mats, mat_meta, pp, hs, start[3 * i],
+                                        start[3 * i + 1], start[3 * i + 2], seg[3 * i],
+                                        seg[3 * i + 1], seg[3 * i + 2], none);
   write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
 }
 
@@ -121,12 +110,13 @@ int fspt_camera_path(const float* prims, const int* meta, const float* mats,
                      int lane0, int n, float* radiance, float* normal,
                      float* depth, int* aov_mat, int* segcnt, void* stream) {
   using namespace fspt;
-  if (n > 0) {
-    camera_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, 0,
-                         (cudaStream_t)stream>>>(
-        prims, meta, mats, mat_meta, pp, cp, h0, sample0, lane0, n, radiance,
-        normal, depth, aov_mat, segcnt);
-  }
+  if (n <= 0) return 0;
+  const size_t smem = rows_smem(pp.n_prims);
+  cudaError_t err = allow_smem(camera_path_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  camera_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, smem, (cudaStream_t)stream>>>(
+      prims, meta, mats, mat_meta, pp, cp, h0, sample0, lane0, n, radiance, normal, depth,
+      aov_mat, segcnt);
   return (int)cudaGetLastError();
 }
 
@@ -136,12 +126,13 @@ int fspt_ray_path(const float* prims, const int* meta, const float* mats,
                   unsigned int h0, int n, float* radiance, float* normal,
                   float* depth, int* aov_mat, int* segcnt, void* stream) {
   using namespace fspt;
-  if (n > 0) {
-    ray_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, 0,
-                      (cudaStream_t)stream>>>(
-        prims, meta, mats, mat_meta, pp, start, seg, pixel, sample, h0, n,
-        radiance, normal, depth, aov_mat, segcnt);
-  }
+  if (n <= 0) return 0;
+  const size_t smem = rows_smem(pp.n_prims);
+  cudaError_t err = allow_smem(ray_path_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  ray_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, smem, (cudaStream_t)stream>>>(
+      prims, meta, mats, mat_meta, pp, start, seg, pixel, sample, h0, n, radiance, normal,
+      depth, aov_mat, segcnt);
   return (int)cudaGetLastError();
 }
 

@@ -111,6 +111,20 @@ class TracedCamParams(ctypes.Structure):
     ]
 
 
+class TexPack(ctypes.Structure):
+    """Kernel 4's texture pack and per-row tiling scales (mirrors ``TexPack``
+    in csrc/fspt_deferred.cu, passed by value)."""
+
+    _fields_ = [
+        ("texels", ctypes.c_void_p),  # [K,3] float32
+        ("offset", ctypes.c_void_p),  # [T] int32
+        ("width", ctypes.c_void_p),   # [T] int32
+        ("height", ctypes.c_void_p),  # [T] int32
+        ("scale", ctypes.c_void_p),   # [M] float32, the rows' tex_scale
+        ("n_texels", ctypes.c_int),
+    ]
+
+
 # library → exported symbol → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "fspt_kernels": {
@@ -126,11 +140,10 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P],
     },
     "fspt_deferred": {
-        # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
-        # lane0, n, fields, mat, p_light, normal, depth, aov_mat, segcnt,
-        # stream
+        # prims, meta, mats, mat_meta, PathParams, CamParams, TexPack, h0,
+        # sample0, lane0, n, radiance, normal, depth, aov_mat, segcnt, stream
         "fspt_deferred_camera_path": [_P, _P, _P, _P, PathParams, CamParams,
-                                      _U, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                      TexPack, _U, _I, _I, _I, _P, _P, _P, _P,
                                       _P, _P],
         # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
         # lane0, n, fields, n_fields, mat, mat_e, p_light, segcnt, stream

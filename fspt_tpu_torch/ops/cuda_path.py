@@ -14,21 +14,20 @@ rays):
 * ``ray_path_kernel`` replaces ``pallas_path.py:make_path_tracer``
   (``build_path_kernel`` ``:770``): the same body with rays read from memory.
 * ``deferred_camera_kernel`` replaces
-  ``pallas_path.py:_make_deferred_camera_tracer`` (kernel ``:996``): the
-  same body in texture-deferred mode, for textured scenes.  It emits each
-  depth's affine transfer as slot planes; :func:`fold_deferred_radiance`
-  gathers the texels and folds them in torch.
+  ``pallas_path.py:_make_deferred_camera_tracer`` (kernel ``:996``) and the
+  XLA fold after it (``fold_deferred_radiance``, ``:867``): the same body in
+  texture-deferred mode, for textured scenes.  Each depth's affine transfer
+  is folded in the kernel as it is made, its texel fetched from the texture
+  pack there; the reference emits slot planes and folds them outside only
+  because a TPU kernel has no per-lane gather.
 
-What bounds kernels 2-3 on the H100: arithmetic.  A 1024²×4 spp Cornell
+What bounds kernels 2-4 on the H100: arithmetic.  A 1024²×4 spp Cornell
 frame writes 36 bytes per lane but traces ~5 segments per lane, each testing
-every primitive.  Kernel 4 writes 44 bytes per lane and slot (10 float
-fields and the material row) plus 32 bytes of lane planes, for every one of
-the ``depth + fast_render`` slots whether the lane is still alive or not:
-bytes bound it.  Its writes are planar (``[field, slot, lane]``), so a warp
-stores 128 contiguous bytes per field.  What the design does about the
-arithmetic: the TPU version baked geometry and materials into the
-instruction stream and evaluated every material row under a mask; here both
-are tables read as warp broadcasts, and a lane switches on its hit
+every primitive.  What the design does about the arithmetic: the TPU
+version baked geometry and materials into the instruction stream and
+evaluated every material row under a mask; here both are tables read as
+warp broadcasts (the primitive rows from a block's copy in shared memory,
+walked one kind at a time), and a lane switches on its hit
 material's family (the reference's masks are disjoint, so this is the same
 function), skipping dead lanes' work after they count.  Branch regimes the
 reference fixed at trace time (glass ``|ior−1| < EPS``, frost at π or 0,
@@ -1044,9 +1043,9 @@ def stack_slots(slots, names):
 
 
 class DeferredPlanes(NamedTuple):
-    """Kernel 4's outputs: ``fields [10, S, N]`` float32 in
-    :data:`DEFERRED_TEX_FIELDS` order, ``mat [S, N]`` int32, and the lane
-    planes."""
+    """The plain version of kernel 4 before its fold: ``fields [10, S, N]``
+    float32 in :data:`DEFERRED_TEX_FIELDS` order, ``mat [S, N]`` int32, and
+    the lane planes."""
 
     fields: torch.Tensor
     mat: torch.Tensor
@@ -1118,21 +1117,24 @@ def make_camera_path_tracer(scene_pack, camera, cfg):
 
 
 def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
-    """Texture-deferred camera-fused tracer (kernel 4): the kernel traces
-    the exact path and emits per-depth slot planes; the texel gathers and
-    the fold (:func:`fold_deferred_radiance`) run in torch.
+    """Texture-deferred camera-fused tracer (kernel 4).
 
-    ``trace.planes(seed, sample0, lane0, n) → DeferredPlanes`` is the
-    kernel (on the CPU, its plain version), ``trace.plain_planes`` the plain
-    version on any device, and ``trace.fold`` turns planes into the
-    ``TraceOutput``.
+    On the card ``trace`` is one launch: the kernel traces the exact path,
+    fetches each depth's texel and folds it in (the order of
+    :func:`fold_deferred_radiance`), then applies the light clamp.  It
+    gives no texel gradient: texels that require grad are refused, since
+    texel recovery goes through ``cuda_grad.make_affine_grad_image_fn``
+    (kernel 7).  ``trace.plain_planes(seed, sample0, lane0, n) →
+    DeferredPlanes`` (the per-depth slot planes) and ``trace.fold`` (planes
+    → ``TraceOutput``) are the plain version, run on any device; on the CPU
+    ``trace`` is ``fold(plain_planes(...))``.
     """
     sky_idx = int(scene_pack.sky_mat)
     cam = HostCamera(camera, cfg.width, cfg.height)
     dev = _device_of(scene_pack)
     raygen = build_fused_raygen(cam, cfg)
     core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, deferred_tex=True)
-    S = n_slots(cfg)
+    tex_scale = torch.from_numpy(mats.tex_scale.astype(np.float32)).to(dev)
 
     def plain_planes(seed, sample0, lane0, n) -> DeferredPlanes:
         h0 = rng.seed_hash(seed)
@@ -1144,39 +1146,42 @@ def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
             normal=torch.stack([anx, any_, anz], dim=-1), depth=ad, aov_mat=am,
             segcnt=segc)
 
-    def planes(seed, sample0, lane0, n) -> DeferredPlanes:
-        if dev.type == "cpu":
-            return plain_planes(seed, sample0, lane0, n)
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
-        fields = torch.empty((len(DEFERRED_TEX_FIELDS), S, n), dtype=torch.float32,
-                             device=dev)
-        mat = torch.empty((S, n), dtype=torch.int32, device=dev)
-        p_light = torch.empty((n,), dtype=torch.int32, device=dev)
-        _, normal, depth, aov_mat, segcnt = _path_outputs(n, dev)
-        _build.launch(DEFERRED_PATH, prims.data_ptr(), meta.data_ptr(),
-                      mtab.data_ptr(), mmeta.data_ptr(),
-                      _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                      _cam_params(cam, cfg), rng.seed_hash(seed), int(sample0),
-                      int(lane0), n, fields.data_ptr(), mat.data_ptr(),
-                      p_light.data_ptr(), normal.data_ptr(), depth.data_ptr(),
-                      aov_mat.data_ptr(), segcnt.data_ptr(),
-                      torch.cuda.current_stream(dev).cuda_stream)
-        return DeferredPlanes(fields=fields, mat=mat, p_light=p_light != 0,
-                              normal=normal, depth=depth, aov_mat=aov_mat,
-                              segcnt=segcnt)
-
     def fold(p: DeferredPlanes) -> TraceOutput:
         Lx, Ly, Lz = fold_deferred_radiance(scene_pack.materials, scene_pack.textures,
                                             cfg, *p.fields, p.mat, p.p_light)
         return _trace_output(torch.stack([Lx, Ly, Lz], dim=-1), p.normal, p.depth,
                              p.aov_mat, p.segcnt)
 
+    def tex_pack() -> _build.TexPack:
+        tex = scene_pack.textures
+        if tex.texels.requires_grad:
+            raise ValueError(
+                "kernel 4 folds the texels inside the kernel and gives them no gradient; "
+                "recover texels through cuda_grad.make_affine_grad_image_fn (kernel 7)")
+        k, t = tex.texels.shape[0], tex.offset.shape[0]
+        _build.check_cuda_tensor("texels", tex.texels, torch.float32, (k, 3), dev)
+        for name in ("offset", "width", "height"):
+            _build.check_cuda_tensor(name, getattr(tex, name), torch.int32, (t,), dev)
+        return _build.TexPack(texels=tex.texels.data_ptr(), offset=tex.offset.data_ptr(),
+                              width=tex.width.data_ptr(), height=tex.height.data_ptr(),
+                              scale=tex_scale.data_ptr(), n_texels=k)
+
     def trace(seed, sample0, lane0=0, n_lanes=None):
         n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
-        return fold(planes(seed, sample0, lane0, n))
+        if dev.type == "cpu":
+            return fold(plain_planes(seed, sample0, lane0, n))
+        pack = tex_pack()
+        prims, meta = scene.tables(dev)
+        mtab, mmeta = mats.tables(dev)
+        outs = _path_outputs(n, dev)
+        _build.launch(DEFERRED_PATH, prims.data_ptr(), meta.data_ptr(),
+                      mtab.data_ptr(), mmeta.data_ptr(),
+                      _path_params(scene, mats, cfg, sky_idx, cam.z_far),
+                      _cam_params(cam, cfg), pack, rng.seed_hash(seed), int(sample0),
+                      int(lane0), n, *(o.data_ptr() for o in outs),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        return _trace_output(*outs)
 
-    trace.planes = planes
     trace.plain_planes = plain_planes
     trace.fold = fold
     return trace

@@ -146,6 +146,9 @@ class HostScene:
             for p, (kind, mat, row) in enumerate(self.rows):
                 prims[p] = row
                 meta[p] = (kind, mat)
+            if (np.diff(meta[:self.prim_count, 0]) < 0).any():
+                # The path kernels walk the rows one kind at a time.
+                raise ValueError("the primitive rows are not sorted by kind")
             self._device_tables[key] = (torch.from_numpy(prims).to(device),
                                         torch.from_numpy(meta).to(device))
         return self._device_tables[key]

@@ -1,0 +1,163 @@
+"""The CUDA sources of kernels 1-4 compiled as host code, against their
+plain versions on the CPU.
+
+g++ builds fspt_tpu_torch/csrc/fspt_kernels.cu and fspt_deferred.cu against
+tests/host_shim/cuda_runtime.h, where a launch runs every thread of the grid
+in turn, and the tests call the kernels' C launchers on CPU tensors.  So the
+kernels' arithmetic and control flow (the primitive walk over the rows a
+block stages one kind at a time, the material switch, kernel 4's texel fold)
+run here, where there is no card; the card runs the same comparisons in
+tests/test_torch_kernels_gpu.py and chip_smoke.py.  Bars: radiance at rtol
+1e-4 / atol 1e-5, material AOVs and segment counts equal, on every value
+(the host's sinf / cosf round some lanes' last bit otherwise than torch's);
+kernel 1's t, normal and texcoords at rtol 1e-5 / atol 1e-6, material and
+kind equal.  Building both libraries takes a few seconds.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fspt_tpu_torch.camera import generate_rays
+from fspt_tpu_torch.config import RenderConfig
+from fspt_tpu_torch.ops import _build, cuda_path, cuda_trace, rng
+from fspt_tpu_torch.ops.kernel_check import random_segments
+from fspt_tpu_torch.scene import samples
+
+SHIM = Path(__file__).resolve().parent / "host_shim"
+PROLOGUE = """#include "cuda_runtime.h"
+uint3 threadIdx, blockIdx;
+dim3 blockDim, gridDim;
+namespace fspt { float4 smem[16384]; }
+void shim_reset() { __builtin_memset(fspt::smem, 0, sizeof(fspt::smem)); }
+"""
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel sources as host code")
+    out = tmp_path_factory.mktemp("host_kernels")
+    built = {}
+    for lib in ("fspt_kernels", "fspt_deferred"):
+        src = _build.LIBRARIES[lib]
+        text = re.sub(r"(\w+)\s*<<<(.*?)>>>",
+                      lambda m: f"host_launch({m.group(1)}, {m.group(2)})",
+                      src.read_text(), flags=re.S)
+        cpp = out / f"{lib}.cpp"
+        cpp.write_text(PROLOGUE + text)
+        so = out / f"lib{lib}.so"
+        subprocess.run(["g++", "-std=c++17", "-O1", "-fPIC", "-shared", "-ffp-contract=off",
+                        "-Wno-attributes", "-I", str(SHIM), "-I", str(src.parent), "-o",
+                        str(so), str(cpp)], check=True)
+        cdll = ctypes.CDLL(str(so))
+        for sym, argtypes in _build._SIGNATURES[lib].items():
+            fn = getattr(cdll, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        built[lib] = cdll
+    return built
+
+
+def _close(a, b, rtol, atol):
+    return bool(torch.isclose(a, b, rtol=rtol, atol=atol).all())
+
+
+def _held(k, p):
+    assert _close(k.radiance, p.radiance, 1e-4, 1e-5)
+    assert torch.equal(k.aov_mat, p.aov_mat)
+    assert int(k.segments) == int(p.segments)
+
+
+#: (scene, width, height, spp, fast_render, seed, aperture): every material
+#: family (textured walls and sky for kernel 4) through a thin-lens camera,
+#: the flagship, and every primitive kind.
+CASES = [("all_families", 32, 24, 2, False, 5, 1.5), ("all_families", 32, 24, 2, True, 5, 1.5),
+         ("all_families_textured", 32, 24, 2, False, 6, 1.5),
+         ("all_families_textured", 32, 24, 2, True, 6, 1.5),
+         ("flagship", 48, 32, 2, False, 0, 0.0), ("all_primitives", 31, 23, 2, False, 0, 0.0)]
+
+
+def _setup(name, w, h, spp, fast, aperture):
+    b = samples.build(name, device=CPU, aperture=aperture, focal_depth=120.0)
+    sp = b.compile(device=CPU)
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=8, fast_render=fast)
+    scene, mats = cuda_trace.HostScene(sp.geometry), cuda_path.HostMaterials(sp.materials)
+    return b, sp, cfg, scene, mats
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_camera_kernels_on_host(libs, case):
+    """Kernel 2, or kernel 4 for a textured scene, against the tracer's plain
+    version (for kernel 4, the fold of its plain slot planes)."""
+    name, w, h, spp, fast, seed, aperture = case
+    b, sp, cfg, scene, mats = _setup(name, w, h, spp, fast, aperture)
+    cam = cuda_path.HostCamera(b.cameras[0], w, h)
+    n = w * h * spp
+    prims, meta = scene.tables(CPU)
+    mtab, mmeta = mats.tables(CPU)
+    head = (prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
+            cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
+            cuda_path._cam_params(cam, cfg))
+    outs = cuda_path._path_outputs(n, CPU)
+    tail = (rng.seed_hash(seed), 2, 0, n, *(o.data_ptr() for o in outs), None)
+    if mats.any_textured:
+        tex = sp.textures
+        scale = torch.from_numpy(mats.tex_scale.astype(np.float32))
+        pack = _build.TexPack(texels=tex.texels.data_ptr(), offset=tex.offset.data_ptr(),
+                              width=tex.width.data_ptr(), height=tex.height.data_ptr(),
+                              scale=scale.data_ptr(), n_texels=tex.texels.shape[0])
+        assert libs["fspt_deferred"].fspt_deferred_camera_path(*head, pack, *tail) == 0
+    else:
+        assert libs["fspt_kernels"].fspt_camera_path(*head, *tail) == 0
+    _held(cuda_path._trace_output(*outs),
+          cuda_path.make_camera_path_tracer(sp, b.cameras[0], cfg)(seed, 2))
+
+
+@pytest.mark.parametrize("name", ["all_families", "all_primitives"])
+def test_ray_path_kernel_on_host(libs, name):
+    """Kernel 3 against its plain version on rays from generate_rays."""
+    b, sp, cfg, scene, mats = _setup(name, 31, 23, 2, False, 0.0)
+    cam = b.cameras[0]
+    start, seg, pix, smp = generate_rays(cam, cfg.width, cfg.height, cfg.spp, 4, 0)
+    n = start.shape[0]
+    prims, meta = scene.tables(CPU)
+    mtab, mmeta = mats.tables(CPU)
+    outs = cuda_path._path_outputs(n, CPU)
+    assert libs["fspt_kernels"].fspt_ray_path(
+        prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
+        cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), float(cam.z_far)),
+        start.data_ptr(), seg.data_ptr(), pix.data_ptr(), smp.data_ptr(), rng.seed_hash(4), n,
+        *(o.data_ptr() for o in outs), None) == 0
+    tracer = cuda_path.make_path_tracer(sp, cfg, z_far=float(cam.z_far))
+    _held(cuda_path._trace_output(*outs), tracer(start, seg, pix, smp, 4))
+
+
+def test_intersect_kernel_on_host(libs):
+    """Kernel 1 (the walk with the kind switch over the table in device
+    memory) against its plain version on seeded random segments."""
+    sp = samples.build("all_primitives", device=CPU).compile(device=CPU)
+    scene = cuda_trace.HostScene(sp.geometry)
+    start, seg = random_segments(2048, seed=3, device=CPU)
+    n = start.shape[0]
+    prims, meta = scene.tables(CPU)
+    t = torch.empty((n,), dtype=torch.float32)
+    normal = torch.empty((n, 3), dtype=torch.float32)
+    mat = torch.empty((n,), dtype=torch.int32)
+    kind = torch.empty((n,), dtype=torch.int32)
+    uv = torch.empty((n, 2), dtype=torch.float32)
+    assert libs["fspt_kernels"].fspt_intersect(
+        prims.data_ptr(), meta.data_ptr(), scene.prim_count, start.data_ptr(), seg.data_ptr(),
+        n, t.data_ptr(), normal.data_ptr(), mat.data_ptr(), kind.data_ptr(), uv.data_ptr(),
+        None) == 0
+    p = cuda_trace.plain_intersect(scene, start, seg)
+    assert _close(t, p[0], 1e-5, 1e-6) and _close(normal, p[1], 1e-5, 1e-6)
+    assert _close(uv, p[4], 1e-5, 1e-6)
+    assert torch.equal(mat, p[2]) and torch.equal(kind, p[3])

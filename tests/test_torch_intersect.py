@@ -102,3 +102,18 @@ def test_large_scene_gets_no_intersector():
     for i in range(cuda_trace.MAX_SPECIALIZED_PRIMS + 1):
         b.add_sphere((float(i), 0.0, 0.0), 0.25, white)
     assert cuda_trace.make_cuda_intersector(b.compile(device="cpu").geometry) is None
+
+
+def test_host_scene_rows_sorted_by_kind(scenes):
+    """The path kernels walk the table one kind at a time (csrc
+    stage_rows), so its rows must be sorted by kind: the merge order of
+    every kind does that, and a table whose rows are not is refused."""
+    hs = cuda_trace.HostScene(scenes[1].geometry)
+    _, meta = hs.tables("cpu")
+    kinds = meta[:, 0].numpy()
+    assert sorted(set(kinds.tolist())) == list(range(6))  # every kind
+    assert (np.diff(kinds) >= 0).all()
+    hs.rows.reverse()
+    hs._device_tables = {}
+    with pytest.raises(ValueError, match="not sorted by kind"):
+        hs.tables("cpu")

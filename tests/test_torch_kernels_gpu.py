@@ -40,25 +40,106 @@ def test_ray_path_kernel_matches_plain(cuda):
     kernel_check.check_path_tracer(b.compile(device=cuda), b.cameras[0], cfg, seed=4)
 
 
-def test_camera_path_kernel_matches_plain(cuda):
+#: Kernel 2's and kernel 4's cases: (width, height, spp, fast_render); 61×37×3
+#: is a ragged lane count (6,771, not a multiple of a block).
+CAMERA_CASES = ((64, 48, 2, False), (64, 48, 2, True), (61, 37, 3, False))
+
+
+@pytest.mark.parametrize("case", CAMERA_CASES)
+def test_camera_path_kernel_matches_plain(cuda, case):
+    """Kernel 2 against its plain version on 100 % of values, with the band
+    split and a second launch bit for bit: all families through a thin-lens
+    camera, fast render off and on, a ragged lane count."""
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
+    w, h, spp, fast = case
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=8, fast_render=fast)
     b = samples.build("all_families", device=cuda, aperture=1.5, focal_depth=120.0)
-    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
     kernel_check.check_camera_tracer(b.compile(device=cuda), b.cameras[0], cfg, seed=5,
                                      sample0=2)
 
 
-def test_deferred_camera_kernel_matches_plain(cuda):
+def test_camera_path_kernel_lanes_dying_at_depth_0(cuda):
+    """Kernel 2 as above on the flagship seen from inside the box looking
+    out, where most lanes die at depth 0."""
+    from fspt_tpu_torch.camera import Camera
+    from fspt_tpu_torch.ops import cuda_path, cuda_trace, kernel_check, rng
+    from fspt_tpu_torch.scene import samples
+
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    flag = samples.build("flagship", device=cuda).compile(device=cuda)
+    out = Camera.create(origin=(0.0, 20.0, 45.0), target=(0.0, -40.0, -200.0), fov_y=60.0,
+                        aperture_size=0.0, device=cuda)
+    kernel_check.check_camera_tracer(flag, out, cfg, seed=3, sample0=1)
+    cam = cuda_path.HostCamera(out, cfg.width, cfg.height)
+    core = cuda_path.build_path_core(cuda_trace.HostScene(flag.geometry),
+                                     cuda_path.HostMaterials(flag.materials), cfg,
+                                     int(flag.sky_mat), cam.z_far)
+    h0 = rng.seed_hash(3)
+    segcnt = core(h0, *cuda_path.build_fused_raygen(cam, cfg)(
+        h0, 1, 0, cfg.width * cfg.height * cfg.spp, cuda))[-1]
+    assert float((segcnt == 1).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("scene_name", ["all_primitives", "414_rows"])
+def test_path_kernels_staged_rows(cuda, scene_name):
+    """Kernels 2 and 3 walk the rows a block stages in shared memory one
+    kind at a time: every primitive kind (all_primitives, with triangles),
+    and 414 rows, whose 56 KB of staged rows need the kernels to ask for
+    more than 48 KB of shared memory."""
+    from fspt_tpu_torch import materials as M
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
+    cfg = RenderConfig(width=48, height=32, spp=2, max_depth=6)
+    if scene_name == "all_primitives":
+        b = samples.build("all_primitives", device=cuda)
+    else:
+        b = samples.build("flagship", device=cuda)
+        metal = b.add_material(M.MaterialSpec(M.METAL, diffuse=(0.8, 0.7, 0.6), param=0.3))
+        for i in range(20):
+            for j in range(20):
+                b.add_sphere((-45.0 + 4.7 * i, -45.0 + 4.7 * j, 30.0), 1.5, metal)
+    scene = b.compile(device=cuda)
+    kernel_check.check_camera_tracer(scene, b.cameras[0], cfg, seed=5)
+    kernel_check.check_path_tracer(scene, b.cameras[0], cfg, seed=4)
+
+
+@pytest.mark.parametrize("case", CAMERA_CASES)
+def test_deferred_camera_kernel_matches_plain(cuda, case):
+    """Kernel 4 (the texel fold in the kernel) against the fold of its plain
+    slot planes on 100 % of values, with the band split and a second launch
+    bit for bit: all families with textured walls and a textured sky,
+    through a thin-lens camera, fast render off and on, a ragged lane
+    count."""
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    w, h, spp, fast = case
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=8, fast_render=fast)
     b = samples.build("all_families_textured", device=cuda, aperture=1.5,
                       focal_depth=120.0)
-    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
-    kernel_check.check_deferred_tracer(b.compile(device=cuda), b.cameras[0], cfg,
-                                       seed=6, sample0=2)
+    scene = b.compile(device=cuda)
+    assert int(scene.materials.tex_id[int(scene.sky_mat)]) >= 0  # the sky is textured
+    kernel_check.check_deferred_tracer(scene, b.cameras[0], cfg, seed=6, sample0=2)
+
+
+def test_deferred_camera_kernel_refuses_texel_grad(cuda):
+    """Kernel 4 gives the texels no gradient, so on the card it refuses
+    texels that require grad and names kernel 7's route."""
+    from fspt_tpu_torch.ops import cuda_path
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families_textured", device=cuda)
+    scene = b.compile(device=cuda)
+    tex = scene.textures._replace(texels=scene.textures.texels.clone().requires_grad_(True))
+    tracer = cuda_path.make_camera_path_tracer(scene._replace(textures=tex), b.cameras[0],
+                                               RenderConfig(width=16, height=8, spp=1))
+    launches = cuda_path.DEFERRED_PATH.launches
+    with pytest.raises(ValueError, match="make_affine_grad_image_fn"):
+        tracer(0, 0)
+    assert cuda_path.DEFERRED_PATH.launches == launches
 
 
 @pytest.mark.parametrize("fast", [False, True])
