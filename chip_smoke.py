@@ -24,8 +24,14 @@ Phases, each announced by one line:
    with CUDA events, beside the plain versions (each kernel is also held
    against its plain version at these shapes; kernel 2 on 100 % of values
    with its bit-equal share, its band split and a second launch bit for
-   bit) and the bound; then the CLI's frame step end to end, and a
-   profiler window for the device busy share;
+   bit) and the bound (kernel 1 on 4,194,304 random segments, on the
+   flagship and on all_primitives, with its grid); then the CLI's frame
+   step end to end, and a profiler window for the device busy share;
+8c. the 512-row limit (``samples.flagship_rows``: the flagship and 498
+   spheres, 69.6 KB of staged rows): kernels 1 and 7's registers, spill,
+   stack and shared memory; kernel 1 against its plain version on the 4 M
+   segments, timed beside its bound; kernel 7 against its plain version
+   at 128×128, 2 spp, depth 4;
 9. kernel 4 (texture-deferred camera-fused, the texel fold in the kernel)
    against the fold of its plain slot planes on the textured all-families
    scene at 256×256, 4 spp, depth 8, with DoF, fast render off and on: on
@@ -54,10 +60,12 @@ Phases, each announced by one line:
    lanes); the pool-1 recovery step end to end (ms, device busy share,
    fwd+bwd segments/s, both buffers counted); kernel 8 affine at 64
    material rows and 16 slots (``samples.many_materials``, 512²×4, depth
-   16) against its plain version, timed, with its plan's block; kernel 7 at
-   its launch shape, the texture example's 512²×4, depth 3 (its device time
-   a launch from the profiler: its wrapper's host work takes as long), and
-   at 1080p;
+   16) against its plain version, timed, with its plan's block; kernel 7,
+   each against its plain version and timed beside its bound: at 1080p, on
+   its 270-row band (2,073,600 lanes, the reference's affine_image
+   operating point), at 64 rows and 16 slots, and at its launch shape, the
+   texture example's 512²×4, depth 3 (its device time a launch from the
+   profiler, and its wrapper call by CUDA events);
 14. kernels 5 (treelet cull) and 6 (treelet sweep) against their plain
    versions on the mesh bench scene (``samples.heightfield``, 99,458
    triangles in 778 treelets): 65,536 camera primaries and one queue
@@ -120,8 +128,9 @@ Phases, each announced by one line:
    versions on a 65,536-ray strided sample, against kernel 6's recorded
    winners on every live ray, and timed at the full count beside their
    bounds (from the nodes and triangles each ray tested);
-25. one JSON line of per-kernel numbers; then the card line; the last
-   line is ``{"ok": true, "device": {...}}``.
+25. kernel 1's launches on every path (dispatch, mesh frame, vertex
+   step); one JSON line of per-kernel numbers; then the card line; the
+   last line is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
@@ -172,27 +181,30 @@ def kernel_device_ms(fn, symbol, iters, warmup=2):
     ``symbol`` over ``iters`` calls of ``fn``, from the profiler's trace:
     for a kernel shorter than its wrapper's host work, where CUDA events
     around the calls time the host.  ``warmup`` calls run under the
-    profiler unrecorded first (its CUPTI start-up can drop a launch)."""
+    profiler unrecorded first (its CUPTI start-up can drop a launch).  A
+    trace that misses launches is taken again, three times at most."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(warmup):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        prof.step()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
-    found = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and symbol in e.key]
-    count = sum(e.count for e in found)
-    assert count == iters, f"the trace holds {count} of {iters} {symbol} launches"
-    return sum(e.self_device_time_total for e in found) / count / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        found = [v for k, v in recorded_kernels(prof)[0].items() if symbol in k]
+        count = sum(n for n, _ in found)
+        if count == iters:
+            return sum(us for _, us in found) / count / 1e3
+        print(f"the trace holds {count} of {iters} {symbol} launches: profiled again",
+              flush=True)
+    raise AssertionError(f"the trace holds {count} of {iters} {symbol} launches")
 
 
 def bound_ms(ops, nbytes):
@@ -267,6 +279,32 @@ def ptxas_report(log):
     return out
 
 
+def recorded_kernels(prof):
+    """The device kernels of a profile's recorded step, ``{name: (launches,
+    device us)}``, and how many earlier ones it left out: a kernel counts
+    where it starts after the step does.  A kernel of a warm-up call ended
+    before that (the calls are synchronized), but its record can reach the
+    profiler late and land in the recorded step.  Device-side spans of
+    annotations (the schedule's ProfilerStep*, the optimizer's step) cover
+    kernels that are counted on their own."""
+    from torch.autograd import DeviceType
+
+    recorded = prof.events()
+    t_step = min((e.time_range.start for e in recorded if e.name.startswith("ProfilerStep")
+                  and e.device_type == DeviceType.CPU), default=float("-inf"))
+    dev, late = {}, 0
+    for e in recorded:
+        if (e.device_type != DeviceType.CUDA or e.is_user_annotation
+                or e.name.startswith("ProfilerStep")):
+            continue
+        if e.time_range.start < t_step:
+            late += 1
+            continue
+        count, us = dev.get(e.name, (0, 0.0))
+        dev[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    return dev, late
+
+
 def profile_window(fn, label, counters, top=6, kernels=None):
     """Profile ``fn()`` once on the card, after one unrecorded warm-up call
     of ``fn`` under the profiler (its CUPTI start-up); print how many of the
@@ -277,7 +315,6 @@ def profile_window(fn, label, counters, top=6, kernels=None):
     None where the trace misses a launch; fills ``kernels`` (a dict), where
     given, with the window's device kernels and their launch counts."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -293,20 +330,19 @@ def profile_window(fn, label, counters, top=6, kernels=None):
         window_us = (time.perf_counter() - t0) * 1e6
         prof.step()
     events = prof.key_averages()
-    # Device-side spans of annotations (the schedule's ProfilerStep*, the
-    # optimizer's step) cover kernels that are counted on their own.
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.is_user_annotation and not e.key.startswith("ProfilerStep")]
+    dev, late = recorded_kernels(prof)
+    if late:
+        print(f"profile {label}: {late} device kernels of the warm-up call left out")
     complete = True
     for key, c in counters.items():
         launched = c.launches - before[key]
         if launched:
-            traced = sum(e.count for e in dev if KERNELS[key][0] in e.key)
+            traced = sum(n for k, (n, _) in dev.items() if KERNELS[key][0] in k)
             complete = complete and traced == launched
             print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
     if kernels is not None:
-        kernels.update({e.key: e.count for e in dev})
-    dev_us = sorted(((e.self_device_time_total, e.key) for e in dev), reverse=True)
+        kernels.update({k: n for k, (n, _) in dev.items()})
+    dev_us = sorted(((us, k) for k, (_, us) in dev.items()), reverse=True)
     busy_us = sum(us for us, _ in dev_us)
     share = busy_us / window_us if complete else None
     print(f"profile {label}: window {window_us:.0f} us, device busy {busy_us:.0f} us "
@@ -634,7 +670,8 @@ def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, e
     """Phases 22-24: vertex recovery at ``cfg_v`` on the heightfield (the
     mesh intersector ``inter`` serves phase 1), the BVH vertex example with
     ``example_argv``, and kernels 11 and 12 on the recorded segments.
-    Returns ``(report, timings, launches)`` entries of the kernels line."""
+    Returns ``(report, timings, launches)`` entries of the kernels line and
+    the launches of each kernel in one vertex step."""
     import dataclasses
 
     import numpy as np
@@ -722,6 +759,7 @@ def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, e
         segs += segs_it
     check_launches(launches, {k: 2 * steps for k in ("intersect", "treelet_cull",
                                                      "treelet_sweep")}, "vertex recovery")
+    step_launches = {k: v / steps for k, v in launches.items()}
     assert all(np.isfinite(v) for v in losses) and all(
         bool(torch.isfinite(v).all()) for v in params.values())
     segs /= steps
@@ -828,7 +866,7 @@ def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, e
             timings["treelet_walk"] = dict(ms=ms12, plain_ms=p12, bound_ms=b12, bound_by=by12,
                                            max_abs_err=0.0,
                                            plain_shape=f"{idx.numel()}-ray sample")
-    return report, timings, path_launches
+    return report, timings, path_launches, step_launches
 
 
 def main():
@@ -1038,15 +1076,30 @@ def main():
 
     n1 = 1 << 22
     s1, d1 = kernel_check.random_segments(n1, seed=2, device=dev)
-    full1 = kernel_check.check_intersect(flag_scene.geometry, s1, d1)
-    print(f"intersect vs plain at 4M segments: {json.dumps(full1)}")
-    ms1 = cuda_time_ms(lambda: cuda_trace.launch_intersect(hs, s1, d1), iters=20, warmup=2)
-    plain1 = cuda_time_ms(lambda: cuda_trace.plain_intersect(hs, s1, d1), iters=2)
-    b1, by1 = bound_ms(n1 * seg_ops, n1 * (24 + 32))
-    timings["intersect"] = dict(ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
-                                max_abs_err=full1["max_abs_err"])
-    print(f"intersect: {ms1:.3f} ms for {n1} segments, {n1 / (ms1 * 1e-3):.4g} "
-          f"segments/s; plain {plain1:.1f} ms; bound {b1:.4f} ms ({by1})", flush=True)
+
+    def intersect_timing(label, geometry):
+        """Kernel 1 against its plain version on the 4M segments, then both
+        timed beside the bound (24 B in and 32 B out a segment; the walk's
+        operations)."""
+        hs1 = cuda_trace.HostScene(geometry)
+        full1 = kernel_check.check_intersect(geometry, s1, d1)
+        print(f"intersect vs plain at 4M segments, {label} ({hs1.prim_count} rows): "
+              f"{json.dumps(full1)}")
+        ms1 = cuda_time_ms(lambda: cuda_trace.launch_intersect(hs1, s1, d1), iters=20, warmup=2)
+        plain1 = cuda_time_ms(lambda: cuda_trace.plain_intersect(hs1, s1, d1), iters=2)
+        b1, by1 = bound_ms(n1 * hs1.segment_ops(), n1 * (24 + 32))
+        grid1, tile1 = cuda_trace.intersect_plan(hs1.prim_count, n1)
+        print(f"intersect, {label}: {ms1:.4f} ms for {n1} segments, {n1 / (ms1 * 1e-3):.4g} "
+              f"segments/s; plain {plain1:.1f} ms; bound {b1:.4f} ms ({by1}: "
+              f"{hs1.segment_ops()} ops/segment); grid {grid1} blocks x {tile1} segments a "
+              f"stride; card {smi}", flush=True)
+        return dict(ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+                    max_abs_err=full1["max_abs_err"], t_close=full1["t_close"],
+                    normal_close=full1["normal_close"], uv_close=full1["uv_close"])
+
+    timings["intersect"] = intersect_timing("flagship", flag_scene.geometry)
+    k1_prim = intersect_timing("all_primitives", prim.geometry)
+    timings["intersect"].update({f"{k}_all_primitives": v for k, v in k1_prim.items()})
 
     # 8b. the CLI's frame step end to end: kernel 2 + framebuffer.accumulate
     phase("end to end: CLI frame step (camera_path + accumulate), flagship 1024x1024x4")
@@ -1084,6 +1137,30 @@ def main():
     (OUT / "profile_frame_step.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=15))
     assert kernel_us > 0, "the profiler saw no camera_path_kernel time"
+
+    # 8c. kernels 1 and 7 at the 512-row limit
+    phase("kernels 1 and 7 vs plain at the 512-row limit: the flagship and 498 spheres")
+    rows512 = samples.build("flagship_rows", device=dev, rows=512)
+    scene512 = rows512.compile(device=dev)
+    n512 = cuda_trace.HostScene(scene512.geometry).prim_count
+    assert n512 == cuda_trace.MAX_SPECIALIZED_PRIMS, n512
+    # csrc rows_smem: the rows, their (kind, material) pairs, the first row
+    # of each of the 6 kinds and the end.
+    staged = n512 * (4 * cuda_trace.PRIM_STRIDE + 8) + 7 * 4
+    for fn in (KERNELS["intersect"][0], KERNELS["affine_planes"][0]):
+        r = regs[fn]
+        print(f"ptxas {fn}: {r.get('registers')} registers, spill stores/loads "
+              f"{r.get('spill')} bytes, stack frame {r.get('stack')} bytes, static shared "
+              f"memory {r.get('smem', 0)} bytes; dynamic shared memory at {n512} rows "
+              f"{staged} bytes")
+    k1_512 = intersect_timing("512 rows", scene512.geometry)
+    timings["intersect"].update({f"{k}_512_rows": v for k, v in k1_512.items()})
+    cfg_r512 = RenderConfig(width=128, height=128, spp=2, max_depth=4)
+    report["affine_planes"] = kernel_check.check_affine_planes(scene512, rows512.cameras[0],
+                                                               cfg_r512, seed=7)
+    print(f"affine_planes vs plain at 512 rows, 128x128x2, depth 4: "
+          f"{json.dumps(report['affine_planes'])}", flush=True)
+    del scene512
 
     # 9. kernel 4 against its plain version
     famt = samples.build("all_families_textured", device=dev, aperture=1.5,
@@ -1264,14 +1341,39 @@ def main():
           f"kernels {rest4} (untextured step: {rest2})")
     assert busy4 is not None and list(k4.values()) == [1] and rest4 == rest2, (k4, rest4)
 
-    phase("timing: kernels 7 and 8 on the flagship 1920x1080x4, depth 8")
+    def affine_bound(planes, segments, n_x, cfg_x):
+        """Kernel 7's bound: the walk's operations, or the bytes it writes a
+        lane (each slot's field planes, mat and mat_e; p_light's byte and the
+        segment count)."""
+        slot_bytes = 4 * ((5 if planes.mats.any_textured else 3) + 2)
+        S_x = cuda_path.n_slots(cfg_x)
+        b7, by7 = bound_ms(segments * planes.scene.segment_ops(), n_x * (S_x * slot_bytes + 5))
+        return b7, by7, f"{S_x} slots x {slot_bytes} B + 5 B a lane"
+
+    phase("timing: kernels 7 and 8 on the flagship 1920x1080x4, depth 8, and kernel 7 on a "
+          "270-row band of it")
     planes7 = cuda_grad.make_affine_planes(train_scene, train_cam, cfg_t)
     full7 = kernel_check.check_affine_planes(train_scene, train_cam, cfg_t, seed=9)
     print(f"affine_planes vs plain at 1920x1080x4: {json.dumps(full7)}")
     ms7_1080 = cuda_time_ms(lambda: planes7(9, 0, 0, n_t), iters=10, warmup=2)
+    b7_1080, by7_1080, how7 = affine_bound(planes7, full7["segments"], n_t, cfg_t)
     hs_t = cuda_trace.HostScene(train_scene.geometry)
     print(f"affine_planes: {ms7_1080:.3f} ms/frame at 1920x1080x4, {full7['segments']} "
-          f"segments", flush=True)
+          f"segments; bound {b7_1080:.4f} ms ({by7_1080}: {how7}); card {smi}", flush=True)
+    # The reference's affine_image operating point (bench.py:321-331): one
+    # band of 270 rows, 2,073,600 lanes.
+    band_rows, band_y0 = 270, 270
+    n_band = band_rows * cfg_t.width * cfg_t.spp
+    rep7_band = kernel_check.check_affine_planes(train_scene, train_cam, cfg_t, seed=9,
+                                                 y0=band_y0, rows=band_rows)
+    print(f"affine_planes vs plain on rows {band_y0}-{band_y0 + band_rows - 1} of 1920x1080x4: "
+          f"{json.dumps(rep7_band)}")
+    ms7_band = cuda_time_ms(lambda: planes7(9, 0, band_y0 * cfg_t.width * cfg_t.spp, n_band),
+                            iters=10, warmup=2)
+    b7_band, by7_band, how7 = affine_bound(planes7, rep7_band["segments"], n_band, cfg_t)
+    print(f"affine_planes: {ms7_band:.4f} ms on the {band_rows}-row band ({n_band} lanes, "
+          f"{rep7_band['segments']} segments); bound {b7_band:.4f} ms ({by7_band}: {how7}); "
+          f"card {smi}", flush=True)
 
     fused = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t)
     full8 = kernel_check.check_fused_loss(train_scene, train_cam, cfg_t, target_t,
@@ -1346,6 +1448,14 @@ def main():
           f"segments, {rep_mm['segments'] / (ms_mm * 1e-3):.4g} segments/s; block {block_mm}, "
           f"grid {grid_mm}; card {smi}", flush=True)
     timings["fused_loss"].update(ms_64_rows_16_slots=ms_mm, block_64_rows_16_slots=block_mm)
+    # Kernel 7 on the same table, where a walk code once cost kernel 8.
+    rep7_mm = kernel_check.check_affine_planes(mm_scene, mm_cam, cfg_mm, seed=5)
+    print(f"affine_planes vs plain at 64 rows, 16 slots: {json.dumps(rep7_mm)}", flush=True)
+    planes_mm = cuda_grad.make_affine_planes(mm_scene, mm_cam, cfg_mm)
+    ms7_mm = cuda_time_ms(lambda: planes_mm(5, 0, 0, n_mm), iters=10, warmup=2)
+    b7_mm, by7_mm, how7 = affine_bound(planes_mm, rep7_mm["segments"], n_mm, cfg_mm)
+    print(f"affine_planes at 64 rows, 16 slots: {ms7_mm:.4f} ms, {rep7_mm['segments']} "
+          f"segments; bound {b7_mm:.4f} ms ({by7_mm}: {how7}); card {smi}", flush=True)
     report["fused_loss"]["max_abs_err"] = max(report["fused_loss"]["max_abs_err"],
                                               rep_mm["max_abs_err"])
 
@@ -1368,21 +1478,22 @@ def main():
                            iters=100)
     ms7_call = cuda_time_ms(lambda: planes_tx(9, 0, 0, n_tx), iters=100, warmup=2)
     plain7 = cuda_time_ms(lambda: planes_tx.plain(9, 0, 0, n_tx), iters=1)
-    S7 = cuda_path.n_slots(cfg_tx)
-    slot_bytes = 4 * ((5 if planes_tx.mats.any_textured else 3) + 2)  # planes, mat, mat_e
-    b7, by7 = bound_ms(rep_tx["segments"] * cuda_trace.HostScene(tx_scene.geometry)
-                       .segment_ops(), n_tx * (S7 * slot_bytes + 8))
-    timings["affine_planes"] = dict(ms=ms7, plain_ms=plain7, bound_ms=b7, bound_by=by7,
-                                    max_abs_err=max(full7["max_abs_err"],
-                                                    rep_tx["max_abs_err"]),
-                                    ms_1080p_flagship=ms7_1080, ms_call=ms7_call)
+    b7, by7, how7 = affine_bound(planes_tx, rep_tx["segments"], n_tx, cfg_tx)
+    timings["affine_planes"] = dict(
+        ms=ms7, plain_ms=plain7, bound_ms=b7, bound_by=by7,
+        max_abs_err=max(full7["max_abs_err"], rep_tx["max_abs_err"],
+                        rep7_band["max_abs_err"], rep7_mm["max_abs_err"]),
+        ms_call=ms7_call, ms_1080p_flagship=ms7_1080, bound_ms_1080p_flagship=b7_1080,
+        ms_band_270_rows=ms7_band, bound_ms_band_270_rows=b7_band, ms_64_rows_16_slots=ms7_mm,
+        bound_ms_64_rows_16_slots=b7_mm)
     print(f"affine_planes: {ms7:.4f} ms/frame at the texture example's shape (device time "
           f"a launch from the profiler, 100 launches; {ms7_call:.4f} ms a wrapper call by "
           f"CUDA events), {rep_tx['segments']} segments, "
           f"{rep_tx['segments'] / (ms7 * 1e-3):.4g} segments/s; "
-          f"plain {plain7:.1f} ms; bound {b7:.4f} ms ({by7}: {S7} slots x {slot_bytes} B + 8 B "
-          f"per lane); {ms7_1080:.3f} ms at 1920x1080x4 on the flagship; card {smi}",
-          flush=True)
+          f"plain {plain7:.1f} ms; bound {b7:.4f} ms ({by7}: {how7}); "
+          f"{ms7_1080:.3f} ms at 1920x1080x4 on the flagship (bound {b7_1080:.4f}), "
+          f"{ms7_band:.4f} on its 270-row band (bound {b7_band:.4f}), {ms7_mm:.4f} at 64 rows "
+          f"(bound {b7_mm:.4f}); card {smi}", flush=True)
 
     # 14. kernels 5 and 6 against their plain versions on the mesh scene
     from fspt_tpu_torch.render.queue import DEFAULT_QUEUE, render_queued
@@ -1474,6 +1585,7 @@ def main():
         if not cached:
             for key in ("treelet_cull", "treelet_sweep"):
                 path_launches[key] = launches[key]
+            k1_mesh = launches["intersect"]
             uncached_mean = fb.mean.mean().item()
         else:
             # Same scene, another estimator (frozen jitter): close means.
@@ -1609,7 +1721,7 @@ def main():
     path_launches.update(launches_adj)
 
     # 22-24. vertex recovery and kernels 11 and 12
-    rep_v, t_v, launches_v = vertex_phases(
+    rep_v, t_v, launches_v, step_v = vertex_phases(
         dev, counters, reset_counts, hf_scene, hf_cam, inter,
         RenderConfig(width=512, height=512, spp=2, max_depth=2, edge_eps=0.05), [])
     for key, rep in rep_v.items():
@@ -1620,6 +1732,15 @@ def main():
 
     # 25. the kernels line, the card line, the result
     phase("kernels")
+    # Kernel 1 on each path: the dispatch path's camera-dynamic frames (the
+    # kernels line's count), the mesh frame's queue seeds, the vertex step's
+    # record.
+    print(f"kernel 1 launches: dispatch path {path_launches['intersect']} (2 frames x depth "
+          f"{cfg512.max_depth}); mesh CLI {k1_mesh} ({k1_mesh / mesh_frames:g} a frame, one a "
+          f"queue iteration, uncached, {mesh_frames} frames); vertex step "
+          f"{step_v['intersect']:g} a step (its record, one a depth)", flush=True)
+    timings["intersect"].update(launches_mesh_cli=k1_mesh,
+                                launches_vertex_step=step_v["intersect"])
     # The ptxas lines of the reverse kernels' instantiations at the timed depth:
     # <0> with the per-thread record, <1> with the device scratch.
     record = int(cuda_grad.adjoint_plan(1, 1, cfg_t.effective_depth)[1] > 0)

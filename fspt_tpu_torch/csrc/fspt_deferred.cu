@@ -8,9 +8,12 @@
 //   fspt_affine_planes         kDeferAll  replaces pallas_path.py
 //                                          make_affine_grad_image_fn
 //
-// One thread per lane, blocks of 128, a masked ragged tail.
+// One thread per lane, kernel 2's blocks of 128 and launch bounds (eight
+// blocks an SM), a masked ragged tail; both stage the primitive rows in
+// shared memory once per block and walk them one kind at a time
+// (stage_rows), as kernel 2 does.
 //
-// Kernel 4 (kernel 2's block, launch bounds and shared-memory rows) folds
+// Kernel 4 folds
 // each depth's slot as the body hands it over: it fetches the slot's texel
 // (nearest neighbour, tiled; materials.sample_texture_p) from the texture
 // pack, which sits in L2, and folds L += T·(t·se + ke), T *= t·s + k in
@@ -28,13 +31,14 @@
 // scene) plus 8; they feed the differentiable torch fold of the texel and
 // albedo gradients.  What bounds it: those bytes (chip_smoke.py computes
 // both bounds).  The design keeps every store coalesced and reads nothing
-// but the scene tables.
+// but the scene tables; the walk of every row per segment, the same as
+// kernel 2's, is what it spends its time on (PERF.md §6).  It writes
+// p_light as one byte a lane, the layout of the bool tensor the wrapper
+// hands out.
 
 #include "fspt_kernels.cuh"
 
 namespace fspt {
-
-constexpr int kDeferredBlock = 128;
 
 // The texture pack (materials.TexturePack: texels[offset[t] + y*width[t] +
 // x]) and each material row's tiling scale (mirrors TexPack in
@@ -146,21 +150,23 @@ deferred_camera_kernel(const float* __restrict__ prims, const int* __restrict__ 
   write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
 }
 
-__global__ void __launch_bounds__(kDeferredBlock)
+__global__ void __launch_bounds__(kPathBlock, kPathMinBlocks)
 affine_planes_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
                      const float* __restrict__ mats,
                      const int* __restrict__ mat_meta, const PathParams pp,
                      const CamParams cp, uint32_t h0, int sample0, int lane0,
                      int n, float* __restrict__ fields, int n_fields,
                      int* __restrict__ mat, int* __restrict__ mat_e,
-                     int* __restrict__ p_light, int* __restrict__ segcnt) {
+                     bool* __restrict__ p_light, int* __restrict__ segcnt) {
+  extern __shared__ float4 smem[];
+  const SmemRows rows = stage_rows(smem, prims, meta, pp.n_prims);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
   AllPlanes sink{fields, n_fields, mat, mat_e, (size_t)n, (size_t)slot_count(pp) * n, i};
-  const PathOut o = trace_path<kDeferAll>(TableRows{prims, meta}, mats, mat_meta, pp, r.hs,
-                                          r.sx, r.sy, r.sz, r.dx, r.dy, r.dz, sink);
-  p_light[i] = o.p_light ? 1 : 0;
+  const PathOut o = trace_path<kDeferAll>(rows, mats, mat_meta, pp, r.hs, r.sx, r.sy, r.sz,
+                                          r.dx, r.dy, r.dz, sink);
+  p_light[i] = o.p_light;
   segcnt[i] = o.segcnt;
 }
 
@@ -187,18 +193,21 @@ int fspt_deferred_camera_path(const float* prims, const int* meta,
   return (int)cudaGetLastError();
 }
 
+// fields: [n_fields][slots][n] float; mat, mat_e: [slots][n] int; p_light:
+// [n] bool (one byte); segcnt: [n] int.
 int fspt_affine_planes(const float* prims, const int* meta, const float* mats,
                        const int* mat_meta, fspt::PathParams pp,
                        fspt::CamParams cp, unsigned int h0, int sample0,
                        int lane0, int n, float* fields, int n_fields, int* mat,
-                       int* mat_e, int* p_light, int* segcnt, void* stream) {
+                       int* mat_e, bool* p_light, int* segcnt, void* stream) {
   using namespace fspt;
-  if (n > 0) {
-    affine_planes_kernel<<<blocks_for(n, kDeferredBlock), kDeferredBlock, 0,
-                           (cudaStream_t)stream>>>(
-        prims, meta, mats, mat_meta, pp, cp, h0, sample0, lane0, n, fields,
-        n_fields, mat, mat_e, p_light, segcnt);
-  }
+  if (n <= 0) return 0;
+  const size_t smem = rows_smem(pp.n_prims);
+  cudaError_t err = allow_smem(affine_planes_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  affine_planes_kernel<<<blocks_for(n, kPathBlock), kPathBlock, smem, (cudaStream_t)stream>>>(
+      prims, meta, mats, mat_meta, pp, cp, h0, sample0, lane0, n, fields, n_fields, mat,
+      mat_e, p_light, segcnt);
   return (int)cudaGetLastError();
 }
 

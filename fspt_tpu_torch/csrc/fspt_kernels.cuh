@@ -4,7 +4,7 @@
 // when its path ends: path_init, path_bounce and path_finish are the steps
 // of trace_path_t).  The scene and the material table are packed
 // tables in device memory (ops/cuda_trace.py HostScene, ops/cuda_path.py
-// HostMaterials); the path kernels 2-4 copy the primitive rows into shared
+// HostMaterials); kernels 1-4 and 7 copy the primitive rows into shared
 // memory once per block (stage_rows).  Every thread of a warp walks the same
 // primitive row at the same time, so each row load is a broadcast.  Nothing
 // is baked per scene.
@@ -46,6 +46,7 @@ enum { DIFFUSE = 0, LIGHT = 1, METAL = 2, MIRROR = 3, GLASS = 4, LIQUID = 5,
 
 // Table layouts (must match ops/cuda_trace.py and ops/cuda_path.py).
 constexpr int kPrimStride = 32;   // floats per primitive row
+constexpr int kMaxPrims = 512;    // rows at most (MAX_SPECIALIZED_PRIMS)
 constexpr int kMatStride = 16;    // floats per material row
 constexpr int kMetaStride = 3;    // ints per material meta row
 // Material row: diffuse 0..2, emissive 3..5, glow 6..8, param 9, ior 10,
@@ -154,13 +155,32 @@ __device__ __forceinline__ void merge(Hit& h, float t, bool valid, float nx,
   }
 }
 
+// The closest hit so far as its row alone (kernel 1's walk): its t, its
+// row and, for a triangle, the barycentrics.  merge() and the row tests
+// then keep nothing else, and winner_hit() reads the normal, material,
+// kind and texcoords from the winning row after the walk, with the
+// operations the tests would have done.
+struct RowHit {
+  float t;
+  int prim;  // -1 on a miss
+  float ub, vb;
+};
+
+__device__ __forceinline__ void merge(RowHit& h, float t, bool valid, float, float, float,
+                                      int, int, int prim) {
+  if (valid && t < h.t) {
+    h.t = t;
+    h.prim = prim;
+  }
+}
+
 // Where the body reads the primitive table, and how it walks it (every
 // thread of a warp reads the same row at the same time, so each load is a
 // broadcast).  TableRows: the table in device memory, each row's floats
 // loaded one at a time through the read-only cache, a switch on each row's
-// kind (kernels 1, 7-10).  SmemRows: a block's own copy in shared memory
+// kind (kernels 8-10).  SmemRows: a block's own copy in shared memory
 // (stage_rows), 16-byte loads, and the first row of each kind, so the walk
-// runs one loop a kind with no switch (kernels 2-4): the rows are in merge
+// runs one loop a kind with no switch (kernels 1-4, 7): the rows are in merge
 // order (ops/cuda_trace.py HostScene), which sorts them by kind.  The
 // factored row tests below, tried on the table in device memory, made
 // kernel 8 slower on a table of many spheres (PERF.md §6), so that table
@@ -184,9 +204,10 @@ struct SmemRows {
 };
 
 // The closest-hit test of row p of each kind (pallas_trace.py:189), merged
-// into h.  kTex adds the texcoords of a triangle winner.
-template <class Rows>
-__device__ __forceinline__ void test_sphere(Hit& h, const Rows& rows, int p, int mat,
+// into h (a Hit, or a RowHit).  kTex adds the texcoords of a triangle
+// winner.
+template <class H, class Rows>
+__device__ __forceinline__ void test_sphere(H& h, const Rows& rows, int p, int mat,
                                             float sx, float sy, float sz, float dx,
                                             float dy, float dz) {
   const float4 q0 = rows.row(p, 0);
@@ -210,8 +231,27 @@ __device__ __forceinline__ void test_sphere(Hit& h, const Rows& rows, int p, int
   }
 }
 
+// A triangle winner's texcoords (kTex; texcoords at 19..24), or, for a
+// RowHit, its barycentrics.
 template <bool kTex, class Rows>
-__device__ __forceinline__ void test_triangle(Hit& h, const Rows& rows, int p, int mat,
+__device__ __forceinline__ void tri_texcoords(Hit& h, const Rows& rows, int p,
+                                              const float4& q4, float ub, float vb) {
+  if (kTex) {
+    const float4 q5 = rows.row(p, 5), q6 = rows.row(p, 6);
+    h.u = q4.w + q5.y * ub + q5.w * vb;
+    h.v = q5.x + q5.z * ub + q6.x * vb;
+  }
+}
+
+template <bool kTex, class Rows>
+__device__ __forceinline__ void tri_texcoords(RowHit& h, const Rows&, int, const float4&,
+                                              float ub, float vb) {
+  h.ub = ub;
+  h.vb = vb;
+}
+
+template <bool kTex, class H, class Rows>
+__device__ __forceinline__ void test_triangle(H& h, const Rows& rows, int p, int mat,
                                               float sx, float sy, float sz, float dx,
                                               float dy, float dz) {
   const float4 q0 = rows.row(p, 0), q1 = rows.row(p, 1), q2 = rows.row(p, 2);
@@ -235,23 +275,19 @@ __device__ __forceinline__ void test_triangle(Hit& h, const Rows& rows, int p, i
   bool valid = np && (ub >= 0.0f) && (vb >= 0.0f) && (ub + vb <= 1.0f)
                && (tc >= 0.0f) && (tc <= 1.0f);
   if (valid && tc < h.t) {
-    // Vertex normals n0, n1 - n0, n2 - n0 at 10..18, texcoords at 19..24.
+    // Vertex normals n0, n1 - n0, n2 - n0 at 10..18.
     const float4 q3 = rows.row(p, 3), q4 = rows.row(p, 4);
     float inx = q2.z + q3.y * ub + q4.x * vb;
     float iny = q2.w + q3.z * ub + q4.y * vb;
     float inz = q3.x + q3.w * ub + q4.z * vb;
     merge(h, tc, true, inx, iny, inz, mat, TRIANGLE, p);
-    if (kTex) {
-      const float4 q5 = rows.row(p, 5), q6 = rows.row(p, 6);
-      h.u = q4.w + q5.y * ub + q5.w * vb;
-      h.v = q5.x + q5.z * ub + q6.x * vb;
-    }
+    tri_texcoords<kTex>(h, rows, p, q4, ub, vb);
   }
 }
 
 // Plane-based kinds: plane, disc, quad, cuboid face.
-template <class Rows>
-__device__ __forceinline__ void test_planar(Hit& h, const Rows& rows, int p, int kind,
+template <class H, class Rows>
+__device__ __forceinline__ void test_planar(H& h, const Rows& rows, int p, int kind,
                                             int mat, float sx, float sy, float sz,
                                             float dx, float dy, float dz) {
   const float4 q0 = rows.row(p, 0);
@@ -295,6 +331,107 @@ __device__ __forceinline__ void test_planar(Hit& h, const Rows& rows, int p, int
   merge(h, tc, valid, p0, p1, p2, mat, kind, p);
 }
 
+// A segment start + seg*t, t in [0, 1].
+struct Seg {
+  float sx, sy, sz, dx, dy, dz;
+};
+
+__device__ __forceinline__ Hit no_hit() {
+  return Hit{kInvalid, 0.0f, 0.0f, 0.0f, -1, -1, 0.0f, 0.0f, -1};
+}
+
+// Kernel 1's walk of staged rows one kind at a time (rows in merge order,
+// so row order and ties are kept), for K segments at once: each row's
+// material and the loads its tests share are read once for all K.
+template <bool kTex, int K, class H>
+__device__ __forceinline__ void walk_kinds(const SmemRows& rows, const Seg (&s)[K],
+                                           H (&h)[K]) {
+  const int* f = rows.first;
+  for (int p = f[SPHERE]; p < f[PLANE]; ++p) {
+    const int mat = rows.kind_mat(p).y;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      test_sphere(h[k], rows, p, mat, s[k].sx, s[k].sy, s[k].sz, s[k].dx, s[k].dy, s[k].dz);
+  }
+#pragma unroll
+  for (int kind = PLANE; kind <= CUBOID; ++kind) {
+    for (int p = f[kind]; p < f[kind + 1]; ++p) {
+      const int mat = rows.kind_mat(p).y;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        test_planar(h[k], rows, p, kind, mat, s[k].sx, s[k].sy, s[k].sz, s[k].dx, s[k].dy,
+                    s[k].dz);
+    }
+  }
+  for (int p = f[TRIANGLE]; p < f[TRIANGLE + 1]; ++p) {
+    const int mat = rows.kind_mat(p).y;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      test_triangle<kTex>(h[k], rows, p, mat, s[k].sx, s[k].sy, s[k].sz, s[k].dx, s[k].dy,
+                          s[k].dz);
+  }
+}
+
+// The Hit of a RowHit: the winning row's normal (a sphere's at the hit
+// point, a plane's own, a triangle's interpolated), material and kind, and
+// a triangle's texcoords (kTex), by the operations of the row tests.
+template <bool kTex>
+__device__ __forceinline__ Hit winner_hit(const SmemRows& rows, const RowHit& r,
+                                          const Seg& s) {
+  Hit h = no_hit();
+  const int p = r.prim;
+  if (p < 0) return h;
+  const int2 km = rows.kind_mat(p);
+  const float4 q0 = rows.row(p, 0);
+  h.t = r.t;
+  h.mat = km.y;
+  h.kind = km.x;
+  h.prim = p;
+  if (km.x == SPHERE) {
+    const float inv_r = rows.row(p, 1).x;
+    float px = s.sx + s.dx * r.t, py = s.sy + s.dy * r.t, pz = s.sz + s.dz * r.t;
+    h.nx = (px - q0.x) * inv_r;
+    h.ny = (py - q0.y) * inv_r;
+    h.nz = (pz - q0.z) * inv_r;
+  } else if (km.x == TRIANGLE) {
+    const float4 q2 = rows.row(p, 2), q3 = rows.row(p, 3), q4 = rows.row(p, 4);
+    h.nx = q2.z + q3.y * r.ub + q4.x * r.vb;
+    h.ny = q2.w + q3.z * r.ub + q4.y * r.vb;
+    h.nz = q3.x + q3.w * r.ub + q4.z * r.vb;
+    tri_texcoords<kTex>(h, rows, p, q4, r.ub, r.vb);
+  } else {
+    h.nx = q0.x;
+    h.ny = q0.y;
+    h.nz = q0.z;
+  }
+  return h;
+}
+
+// The texcoords of the winner (kTex: sphere map, planar map, cuboid x0.1;
+// a triangle's are merged in the walk), and a miss's material 0.
+template <bool kTex>
+__device__ __forceinline__ void finish_hit(Hit& h, float sx, float sy, float sz, float dx,
+                                           float dy, float dz) {
+  if (kTex) {
+    float px = sx + dx * h.t, py = sy + dy * h.t, pz = sz + dz * h.t;
+    float su = atan2_poly(h.nx, h.nz) / kTwoPi + 0.5f;
+    float sv = 1.0f - (h.ny * 0.5f + 0.5f);
+    bool use_x = (h.nx > h.ny) && (h.nx > h.nz);
+    bool use_y = (h.ny > h.nx) && (h.ny > h.nz) && !use_x;
+    float pu = use_x ? py : px;
+    float pv = use_x ? pz : (use_y ? pz : py);
+    float scale = h.kind == CUBOID ? 0.1f : 1.0f;
+    if (h.kind == SPHERE) {
+      h.u = su;
+      h.v = sv;
+    } else if (h.kind != TRIANGLE) {
+      h.u = pu * scale;
+      h.v = pv * scale;
+    }
+  }
+  h.mat = h.mat > 0 ? h.mat : 0;
+}
+
 // intersect_lanes (pallas_trace.py:189): closest hit of the segment
 // start + seg*t, t in [0,1], over n_prims packed rows, in row order.  kTex
 // adds the texcoords of the winner (sphere map, planar map, cuboid x0.1,
@@ -303,8 +440,10 @@ template <bool kTex, class Rows>
 __device__ __forceinline__ Hit intersect_lanes(const Rows& rows, int n_prims,
                                float sx, float sy, float sz,
                                float dx, float dy, float dz) {
-  Hit h{kInvalid, 0.0f, 0.0f, 0.0f, -1, -1, 0.0f, 0.0f, -1};
+  Hit h = no_hit();
   if constexpr (Rows::kByKind) {
+    // The path body's own loops: through walk_kinds<kTex, 1> kernels 2-4
+    // ran 3 % slower (PERF.md §6).
     const int* f = rows.first;
     for (int p = f[SPHERE]; p < f[PLANE]; ++p)
       test_sphere(h, rows, p, rows.kind_mat(p).y, sx, sy, sz, dx, dy, dz);
@@ -408,24 +547,7 @@ __device__ __forceinline__ Hit intersect_lanes(const Rows& rows, int n_prims,
       }
     }
   }
-  if (kTex) {
-    float px = sx + dx * h.t, py = sy + dy * h.t, pz = sz + dz * h.t;
-    float su = atan2_poly(h.nx, h.nz) / kTwoPi + 0.5f;
-    float sv = 1.0f - (h.ny * 0.5f + 0.5f);
-    bool use_x = (h.nx > h.ny) && (h.nx > h.nz);
-    bool use_y = (h.ny > h.nx) && (h.ny > h.nz) && !use_x;
-    float pu = use_x ? py : px;
-    float pv = use_x ? pz : (use_y ? pz : py);
-    float scale = h.kind == CUBOID ? 0.1f : 1.0f;
-    if (h.kind == SPHERE) {
-      h.u = su;
-      h.v = sv;
-    } else if (h.kind != TRIANGLE) {
-      h.u = pu * scale;
-      h.v = pv * scale;
-    }
-  }
-  h.mat = h.mat > 0 ? h.mat : 0;
+  finish_hit<kTex>(h, sx, sy, sz, dx, dy, dz);
   return h;
 }
 
@@ -1005,7 +1127,8 @@ __device__ __forceinline__ PathOutT<T> trace_path_t(const Rows& rows, const Mats
 }
 
 // The float body over the material table in device memory: kernels 2-4
-// (the primitive rows in shared memory, stage_rows), 7 and 8 (TableRows).
+// and 7 (the primitive rows in shared memory, stage_rows) and 8
+// (TableRows).
 template <int kMode, class Rows, class Sink>
 __device__ __forceinline__ PathOut trace_path(const Rows& rows, const float* __restrict__ mats,
                                               const int* __restrict__ mat_meta,
@@ -1016,13 +1139,18 @@ __device__ __forceinline__ PathOut trace_path(const Rows& rows, const float* __r
                                     dy, dz, sink);
 }
 
-// A block's copy of the primitive table in shared memory (kernels 2-4): the
-// n_prims rows as float4s, their (kind, material) pairs, then the first row
-// of each kind (the rows are sorted by kind); rows_smem bytes of dynamic
-// shared memory, sized from the scene.  Every thread of the block calls it
-// before any returns.  The walk of every row per segment takes most of a
-// path kernel's time (PERF.md §6); a row comes sooner from shared
-// memory than from L1, and one loop a kind needs no switch.
+// A block's copy of the primitive table in shared memory (kernels 1-4 and
+// 7): the n_prims rows as float4s, their (kind, material) pairs, then the
+// first row of each kind (the rows are sorted by kind); rows_smem bytes of
+// dynamic shared memory, sized from the scene.  Every thread of the block
+// calls it before any returns.  The walk of every row per segment takes
+// most of a kernel's time (PERF.md §6); a row comes sooner from shared
+// memory than from L1, and one loop a kind needs no switch.  Each kind's
+// first row (the first row of a kind >= k) is written by the row that
+// starts it, for the kinds after the previous row's up to its own, and by
+// the table's end for the kinds after the last row's: every thread reads
+// the kinds it needs from the table in device memory, in parallel with the
+// staging, so nothing staged is read before the block's one barrier.
 __device__ __forceinline__ SmemRows stage_rows(float4* smem, const float* __restrict__ prims,
                                                const int* __restrict__ meta, int n_prims) {
   constexpr int kRow4 = kPrimStride / 4;
@@ -1030,25 +1158,20 @@ __device__ __forceinline__ SmemRows stage_rows(float4* smem, const float* __rest
   int* first = reinterpret_cast<int*>(smeta + n_prims);
   for (int j = threadIdx.x; j < n_prims * kRow4; j += blockDim.x)
     smem[j] = __ldg(reinterpret_cast<const float4*>(prims) + j);
-  for (int j = threadIdx.x; j < n_prims; j += blockDim.x)
-    smeta[j] = __ldg(reinterpret_cast<const int2*>(meta) + j);
-  __syncthreads();
-  for (int k = threadIdx.x; k < TRIANGLE + 2; k += blockDim.x) {
-    int lo = 0, hi = n_prims;  // the first row of a kind >= k
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (smeta[mid].x < k) lo = mid + 1;
-      else hi = mid;
-    }
-    first[k] = lo;
+  for (int j = threadIdx.x; j <= n_prims; j += blockDim.x) {
+    const int2 km = j < n_prims ? __ldg(reinterpret_cast<const int2*>(meta) + j)
+                                : make_int2(TRIANGLE + 1, 0);
+    if (j < n_prims) smeta[j] = km;
+    const int after = j > 0 ? __ldg(meta + 2 * (j - 1)) + 1 : 0;
+    for (int k = after; k <= km.x; ++k) first[k] = j;
   }
   __syncthreads();
   return SmemRows{smem, smeta, first};
 }
 
-// The path kernels' block (kernels 2-4) and their launch bounds: eight
-// blocks an SM (64 registers, a few hundred bytes of spill), faster on an
-// H100 than the compiler's free choice of five (PERF.md §6).
+// The path kernels' block (kernels 2-4 and 7) and their launch bounds:
+// eight blocks an SM (64 registers, a few hundred bytes of spill), faster
+// on an H100 than the compiler's free choice of five (PERF.md §6).
 constexpr int kPathBlock = 128;
 constexpr int kPathMinBlocks = 8;
 

@@ -128,6 +128,8 @@ class TexPack(ctypes.Structure):
 # library → exported symbol → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "fspt_kernels": {
+        # n_prims, n, *grid, *tile
+        "fspt_intersect_plan": [_I, _I, _P, _P],
         # prims, meta, n_prims, start, seg, n, t, normal, mat, kind, uv, stream
         "fspt_intersect": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
         # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,

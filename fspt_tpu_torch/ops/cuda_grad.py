@@ -427,26 +427,27 @@ def make_affine_planes(scene_pack, camera, cfg):
         return AffinePlanes({k: stack(k) for k in fkeys}, stack("mat"),
                             stack("mat_e"), p_light, segcnt.sum())
 
+    if dev.type == "cuda":
+        # Fixed for the renderer's life: only the seed and the lanes change
+        # from call to call.
+        tables = (*scene.tables(dev), *mats.tables(dev))
+        table_ptrs = tuple(t.data_ptr() for t in tables)
+        pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
+        cp = _cam_params(cam, cfg)
+
     def planes(seed, sample0, lane0, n) -> AffinePlanes:
         if dev.type == "cpu":
             return plain(seed, sample0, lane0, n)
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
         fields = torch.empty((len(fkeys), S, n), dtype=torch.float32, device=dev)
-        mat = torch.empty((S, n), dtype=torch.int32, device=dev)
-        mat_e = torch.empty((S, n), dtype=torch.int32, device=dev)
-        p_light = torch.empty((n,), dtype=torch.int32, device=dev)
-        segcnt = torch.empty((n,), dtype=torch.int32, device=dev)
-        _build.launch(AFFINE_PLANES, prims.data_ptr(), meta.data_ptr(),
-                      mtab.data_ptr(), mmeta.data_ptr(),
-                      _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                      _cam_params(cam, cfg), rng.seed_hash(seed), int(sample0),
-                      int(lane0), n, fields.data_ptr(), len(fkeys), mat.data_ptr(),
-                      mat_e.data_ptr(),
-                      p_light.data_ptr(), segcnt.data_ptr(),
+        rows = torch.empty((2 * S + 1, n), dtype=torch.int32, device=dev)  # mat, mat_e, segcnt
+        p_light = torch.empty((n,), dtype=torch.bool, device=dev)
+        at = rows.data_ptr()
+        _build.launch(AFFINE_PLANES, *table_ptrs, pp, cp, rng.seed_hash(seed), int(sample0),
+                      int(lane0), n, fields.data_ptr(), len(fkeys), at, at + 4 * S * n,
+                      p_light.data_ptr(), at + 8 * S * n,
                       torch.cuda.current_stream(dev).cuda_stream)
-        return AffinePlanes(dict(zip(fkeys, fields)), mat, mat_e, p_light != 0,
-                            segcnt.sum())
+        return AffinePlanes(dict(zip(fkeys, fields)), rows[:S], rows[S:2 * S], p_light,
+                            rows[2 * S].sum())
 
     planes.scene, planes.mats = scene, mats
     planes.plain = plain

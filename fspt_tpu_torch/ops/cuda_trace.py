@@ -8,14 +8,19 @@ Counterpart of fspt_tpu/ops/pallas_trace.py.  The CUDA kernel
   hit over every valid primitive (sphere, plane, disc, quad, cuboid faces,
   triangles), merged in the reference's order with a strict ``<`` so the
   first primitive wins ties; normal, material, winning kind and texcoords.
-* What bounds it on the H100: arithmetic.  Per segment it reads 24 bytes and
-  writes 32, but evaluates every primitive (about 20-60 float operations
-  each), so at Cornell size the operations outweigh the bytes by two orders.
+* What bounds it on the H100: at the flagship's 14 rows, bytes: per
+  segment it reads 24 and writes 32, and evaluates every row (about 20-60
+  float operations each); past a few dozen rows, those operations.
 * What its design does about it: the TPU kernel baked each primitive into
   the instruction stream; here the scene is a table of 32-float rows
-  (:class:`HostScene`) walked by every thread of a warp in lockstep, so each
-  row load is one broadcast and no compile is needed per scene.  One thread
-  per segment, no shared memory, no padding to tiles.
+  (:class:`HostScene`) that each block copies into shared memory and walks
+  one primitive kind at a time, every thread of a warp on the same row, so
+  each row load is one broadcast and no compile is needed per scene.  Its
+  grid (:func:`intersect_plan`) is at most eight waves of the blocks the card
+  holds at once, each staging the table once and striding over the
+  segments, two segments a thread sharing each row read; the walk keeps
+  each segment's winning row alone, and the hit's normal, material and
+  texcoords are read from that row after it.  No padding to tiles.
 
 :func:`intersect_lanes` is the plain PyTorch version of the kernel, on the
 same table rows and in the same order of operations.  The wrapper made by
@@ -24,6 +29,8 @@ tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -334,6 +341,20 @@ def intersect_lanes(scene: HostScene, sx, sy, sz, dx, dy, dz,
     vv = torch.where(kind == KIND_SPHERE, sv,
                      torch.where(kind == KIND_TRIANGLE, vv, pv * scale))
     return t, nx, ny, nz, mat, kind, uu, vv
+
+
+def intersect_plan(n_prims: int, n: int) -> tuple[int, int]:
+    """Kernel 1's launch over ``n`` segments and ``n_prims`` rows
+    (csrc/fspt_kernels.cu fspt_intersect_plan, which the launcher follows):
+    its grid, eight waves of the card's resident blocks (fewer where the
+    segments fill fewer tiles), and the segments a block takes a stride.
+    Loads the kernel library."""
+    grid, tile = ctypes.c_int(), ctypes.c_int()
+    err = _build.library("fspt_kernels").fspt_intersect_plan(
+        n_prims, n, ctypes.byref(grid), ctypes.byref(tile))
+    if err != 0:
+        raise RuntimeError(f"intersect plan failed: CUDA error {err}")
+    return grid.value, tile.value
 
 
 def launch_intersect(scene: HostScene, start, seg):

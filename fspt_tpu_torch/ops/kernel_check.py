@@ -264,14 +264,18 @@ def _grad_close(g, g_ref, rtol=1e-4):
     return err / max(scale, 1e-30)
 
 
-def check_affine_planes(scene_pack, camera, cfg, seed: int, sample0: int = 0) -> dict:
-    """Kernel 7 against its plain version on the card: the slot planes, then
-    the image through the fold and its gradients with respect to diffuse and
-    emissive (and texels on a textured scene) by torch autograd."""
+def check_affine_planes(scene_pack, camera, cfg, seed: int, sample0: int = 0, y0: int = 0,
+                        rows=None) -> dict:
+    """Kernel 7 against its plain version on the card over the frame rows
+    ``y0 .. y0+rows-1`` (all by default): the slot planes, then the image
+    through the fold and its gradients with respect to diffuse and emissive
+    (and texels on a textured scene) by torch autograd."""
     planes = cuda_grad.make_affine_planes(scene_pack, camera, cfg)
-    n = cfg.height * cfg.width * cfg.spp
-    k = planes(seed, sample0, 0, n)
-    p = planes.plain(seed, sample0, 0, n)
+    rows = cfg.height - y0 if rows is None else rows
+    n = rows * cfg.width * cfg.spp
+    lane0 = y0 * cfg.width * cfg.spp
+    k = planes(seed, sample0, lane0, n)
+    p = planes.plain(seed, sample0, lane0, n)
     torch.cuda.synchronize()
     rep = {"lanes": n}
     for name in k.fields:
@@ -298,7 +302,7 @@ def check_affine_planes(scene_pack, camera, cfg, seed: int, sample0: int = 0) ->
             planes.mats, cfg, leaves["diffuse"], leaves["emissive"], table.glow, tex,
             pl.fields["s"], pl.fields["k"], pl.fields["se"], pl.mat, pl.mat_e,
             pl.fields.get("u", zero), pl.fields.get("v", zero), pl.p_light), dim=-1)
-        img = rad.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)
+        img = rad.reshape(rows, cfg.width, cfg.spp, 3).mean(dim=2)
         grads = torch.autograd.grad((img ** 2).mean(), [leaves[nm] for nm in names])
         return img.detach(), dict(zip(names, grads))
 

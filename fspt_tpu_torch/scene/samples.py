@@ -185,6 +185,21 @@ def many_materials(b, M, rows=64, seed=13):
         b.add_sphere((x, y, 30.0), 0.35 * 80.0 / side, b.add_material(spec))
 
 
+def flagship_rows(b, M, rows=512):
+    """The flagship (14 primitive rows) and small metal spheres on a grid in
+    front of the back wall, ``rows`` primitive rows in all: the widest
+    table the analytic kernels take at 512 (MAX_SPECIALIZED_PRIMS, 69.6 KB
+    of staged rows)."""
+    flagship(b, M)
+    metal = b.add_material(M.MaterialSpec(M.METAL, diffuse=(0.8, 0.7, 0.6), param=0.3))
+    extra = rows - 14
+    side = int(np.ceil(np.sqrt(extra)))
+    for j in range(extra):
+        x = -45.0 + 90.0 * (j % side + 0.5) / side
+        y = -45.0 + 90.0 * (j // side + 0.5) / side
+        b.add_sphere((x, y, 30.0), 0.3 * 90.0 / side, metal)
+
+
 HEIGHTFIELD_CAMERA = dict(origin=(0.0, 25.0, -110.0), target=(0.0, -15.0, 0.0),
                           aperture_size=1.5, focal_depth=95.0)
 
@@ -309,7 +324,8 @@ mesh
 SCENES = {"flagship": flagship, "all_primitives": all_primitives,
           "all_families": all_families, "textured": textured,
           "all_families_textured": lambda b, M: all_families(b, M, textured=True),
-          "many_materials": many_materials, "heightfield": heightfield}
+          "many_materials": many_materials, "flagship_rows": flagship_rows,
+          "heightfield": heightfield}
 CAMERAS = {"heightfield": HEIGHTFIELD_CAMERA}
 
 

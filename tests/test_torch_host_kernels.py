@@ -26,7 +26,7 @@ import torch
 
 from fspt_tpu_torch.camera import generate_rays
 from fspt_tpu_torch.config import RenderConfig
-from fspt_tpu_torch.ops import _build, cuda_path, cuda_trace, rng
+from fspt_tpu_torch.ops import _build, cuda_grad, cuda_path, cuda_trace, rng
 from fspt_tpu_torch.ops.kernel_check import random_segments
 from fspt_tpu_torch.scene import samples
 
@@ -140,12 +140,8 @@ def test_ray_path_kernel_on_host(libs, name):
     _held(cuda_path._trace_output(*outs), tracer(start, seg, pix, smp, 4))
 
 
-def test_intersect_kernel_on_host(libs):
-    """Kernel 1 (the walk with the kind switch over the table in device
-    memory) against its plain version on seeded random segments."""
-    sp = samples.build("all_primitives", device=CPU).compile(device=CPU)
-    scene = cuda_trace.HostScene(sp.geometry)
-    start, seg = random_segments(2048, seed=3, device=CPU)
+def _intersect_held(libs, scene, start, seg):
+    """Kernel 1's C launcher against its plain version on CPU segments."""
     n = start.shape[0]
     prims, meta = scene.tables(CPU)
     t = torch.empty((n,), dtype=torch.float32)
@@ -161,3 +157,65 @@ def test_intersect_kernel_on_host(libs):
     assert _close(t, p[0], 1e-5, 1e-6) and _close(normal, p[1], 1e-5, 1e-6)
     assert _close(uv, p[4], 1e-5, 1e-6)
     assert torch.equal(mat, p[2]) and torch.equal(kind, p[3])
+
+
+def _host_scene(name, **kw):
+    return cuda_trace.HostScene(samples.build(name, device=CPU, **kw).compile(device=CPU).geometry)
+
+
+def test_intersect_kernel_on_host(libs):
+    """Kernel 1 (the staged rows walked one kind at a time) against its
+    plain version on seeded random segments."""
+    scene = _host_scene("all_primitives")
+    _intersect_held(libs, scene, *random_segments(2048, seed=3, device=CPU))
+
+
+@pytest.mark.parametrize("case", [("all_primitives", {}, 50021), ("flagship_rows", {}, 3001)])
+def test_intersect_kernel_grid_and_rows_on_host(libs, case):
+    """Kernel 1 on more segments than its grid takes in one stride, so
+    that every block loops (all_primitives), and at the 512-row limit (the
+    flagship and 498 spheres: 69.6 KB of staged rows); ragged counts."""
+    name, kw, n = case
+    scene = _host_scene(name, **kw)
+    grid, tile = ctypes.c_int(), ctypes.c_int()
+    assert libs["fspt_kernels"].fspt_intersect_plan(
+        scene.prim_count, n, ctypes.byref(grid), ctypes.byref(tile)) == 0
+    if name == "flagship_rows":
+        assert scene.prim_count == cuda_trace.MAX_SPECIALIZED_PRIMS
+    else:
+        assert n > 2 * grid.value * tile.value, (grid.value, tile.value)
+    _intersect_held(libs, scene, *random_segments(n, seed=4, device=CPU))
+
+
+@pytest.mark.parametrize("name", ["all_families", "all_families_textured"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_affine_planes_kernel_on_host(libs, name, fast):
+    """Kernel 7 (the slot planes of every depth, on staged rows) against its
+    plain version: 3 field planes, or 5 with the texcoords of a textured
+    scene, fast render off and on, over a ragged frame from lane 0 and over
+    a band from a later lane.  Fields at check_affine_planes's bar on every
+    value; the material rows, p_light and the segment count equal."""
+    b, sp, cfg, scene, mats = _setup(name, 31, 23, 2, fast, 1.5)
+    planes = cuda_grad.make_affine_planes(sp, b.cameras[0], cfg)
+    cam = cuda_path.HostCamera(b.cameras[0], cfg.width, cfg.height)
+    S = cuda_path.n_slots(cfg)
+    prims, meta = scene.tables(CPU)
+    mtab, mmeta = mats.tables(CPU)
+    for lane0, n in ((0, cfg.width * cfg.height * cfg.spp), (301, 555)):
+        p = planes.plain(8, 2, lane0, n)
+        assert len(p.fields) == (5 if name.endswith("textured") else 3)
+        fields = torch.empty((len(p.fields), S, n), dtype=torch.float32)
+        rows = torch.empty((2, S, n), dtype=torch.int32)
+        p_light = torch.empty((n,), dtype=torch.bool)
+        segcnt = torch.empty((n,), dtype=torch.int32)
+        assert libs["fspt_deferred"].fspt_affine_planes(
+            prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
+            cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
+            cuda_path._cam_params(cam, cfg), rng.seed_hash(8), 2, lane0, n,
+            fields.data_ptr(), len(p.fields), rows[0].data_ptr(), rows[1].data_ptr(),
+            p_light.data_ptr(), segcnt.data_ptr(), None) == 0
+        for f, key in enumerate(p.fields):
+            assert _close(fields[f], p.fields[key], 1e-4, 1e-5), key
+        assert torch.equal(rows[0], p.mat) and torch.equal(rows[1], p.mat_e)
+        assert torch.equal(p_light, p.p_light)
+        assert int(segcnt.sum()) == int(p.segments)

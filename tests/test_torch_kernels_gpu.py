@@ -82,28 +82,30 @@ def test_camera_path_kernel_lanes_dying_at_depth_0(cuda):
     assert float((segcnt == 1).float().mean()) > 0.5
 
 
-@pytest.mark.parametrize("scene_name", ["all_primitives", "414_rows"])
+@pytest.mark.parametrize("scene_name", ["all_primitives", "414_rows", "512_rows"])
 def test_path_kernels_staged_rows(cuda, scene_name):
-    """Kernels 2 and 3 walk the rows a block stages in shared memory one
-    kind at a time: every primitive kind (all_primitives, with triangles),
-    and 414 rows, whose 56 KB of staged rows need the kernels to ask for
-    more than 48 KB of shared memory."""
-    from fspt_tpu_torch import materials as M
-    from fspt_tpu_torch.ops import kernel_check
+    """Kernels 1, 2, 3 and 7 walk the rows a block stages in shared memory
+    one kind at a time: every primitive kind (all_primitives, with
+    triangles), 414 rows, whose 56 KB of staged rows need the kernels to ask
+    for more than 48 KB of shared memory, and the 512-row limit
+    (MAX_SPECIALIZED_PRIMS: the flagship and 498 spheres, 69.6 KB)."""
+    from fspt_tpu_torch.ops import cuda_trace, kernel_check
     from fspt_tpu_torch.scene import samples
 
     cfg = RenderConfig(width=48, height=32, spp=2, max_depth=6)
     if scene_name == "all_primitives":
         b = samples.build("all_primitives", device=cuda)
     else:
-        b = samples.build("flagship", device=cuda)
-        metal = b.add_material(M.MaterialSpec(M.METAL, diffuse=(0.8, 0.7, 0.6), param=0.3))
-        for i in range(20):
-            for j in range(20):
-                b.add_sphere((-45.0 + 4.7 * i, -45.0 + 4.7 * j, 30.0), 1.5, metal)
+        rows = int(scene_name.split("_")[0])
+        b = samples.build("flagship_rows", device=cuda, rows=rows)
     scene = b.compile(device=cuda)
+    if scene_name != "all_primitives":
+        assert cuda_trace.HostScene(scene.geometry).prim_count == rows
     kernel_check.check_camera_tracer(scene, b.cameras[0], cfg, seed=5)
     kernel_check.check_path_tracer(scene, b.cameras[0], cfg, seed=4)
+    kernel_check.check_intersect(scene.geometry,
+                                 *kernel_check.random_segments(100_003, seed=6, device=cuda))
+    kernel_check.check_affine_planes(scene, b.cameras[0], cfg, seed=7)
 
 
 @pytest.mark.parametrize("case", CAMERA_CASES)
