@@ -125,11 +125,20 @@ Phases, each announced by one line:
    on all of them, as the record fed them; kernels 11 (bvh_walk, the
    scene's fine BVH) and 12 (treelet_walk, a tree of 128-triangle leaves
    over the same triangles), seeded as kernel 6 is, against their plain
-   versions on a 65,536-ray strided sample, against kernel 6's recorded
-   winners on every live ray, and timed at the full count beside their
-   bounds (from the nodes and triangles each ray tested);
+   versions on a 262,144-ray strided sample (every output bit-equal),
+   against kernel 6's recorded winners on every live ray, and timed at the
+   full count beside their bounds (from the nodes and triangles each ray
+   tested), on the Morton-sorted rays and on the same rays unsorted; then
+   the walks against the culled sweep on the same rays, at both depths and
+   on phase 17's mid-frame queue iteration: the culled route (kernel 5,
+   the key sort, kernel 6, post), kernel 11 and kernel 12 (with the ray
+   features and post), each from the sorted, seeded rays to (t, id), the
+   two walk routes from the same rays unsorted, and the Morton sort alone,
+   by CUDA events, with each walk's ids against kernel 6's winners on the
+   live rays;
 25. kernel 1's launches on every path (dispatch, mesh frame, vertex
-   step); one JSON line of per-kernel numbers; then the card line; the
+   step); one JSON line of per-kernel numbers, with phase 24's route times
+   under ``walk_routes``; then the card line; the
    last line is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
@@ -244,7 +253,7 @@ BAND_ROWS = 4
 MESH_QUEUE = 1 << 17
 #: Rays of the strided sample on which kernels 11 and 12 are held against
 #: their plain versions (per-iteration torch walks) at the full-width shape.
-WALK_SAMPLE = 65536
+WALK_SAMPLE = 262144
 
 
 def ptxas_report(log):
@@ -666,12 +675,16 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     return report, timings, path_launches
 
 
-def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, example_argv):
+def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, example_argv,
+                  frame_rays):
     """Phases 22-24: vertex recovery at ``cfg_v`` on the heightfield (the
     mesh intersector ``inter`` serves phase 1), the BVH vertex example with
-    ``example_argv``, and kernels 11 and 12 on the recorded segments.
-    Returns ``(report, timings, launches)`` entries of the kernels line and
-    the launches of each kernel in one vertex step."""
+    ``example_argv``, and kernels 11 and 12 on the recorded segments, then
+    against the culled sweep on those and on ``frame_rays``, the ``(o, d,
+    alive)`` of one mid-frame mesh queue iteration.
+    Returns ``(report, timings, launches)`` entries of the kernels line,
+    the launches of each kernel in one vertex step, and the routes' times
+    on each ray set (the kernels line's ``walk_routes``)."""
     import dataclasses
 
     import numpy as np
@@ -798,9 +811,11 @@ def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, e
     print(f"kernel 11 tree: {hf_scene.bvh.n_nodes} nodes, max leaf "
           f"{int(hf_scene.bvh.count.max())}; kernel 12 tree: {coarse.n_nodes} nodes, "
           f"{wt.tables.n_leaves} leaves of at most {cuda_bvh.TREELET}", flush=True)
-    fine_bytes = hf_scene.bvh.n_nodes * 36 + n_tris * 44
-    coarse_bytes = coarse.n_nodes * 36 + wt.tables.weights.numel() * 4
-    timings, path_launches = {}, {}
+    # The records the kernels read: packed nodes (32 bytes), kernel 11's
+    # triangles (48), kernel 12's leaf weights.
+    fine_bytes = (k11.tables.nodes.numel() + k11.tables.tris.numel()) * 4
+    coarse_bytes = (wt.nodes.numel() + wt.tables.weights.numel()) * 4
+    timings, path_launches, routes = {}, {}, {}
     for depth in (0, 1):
         o, d, alive, ids = recorded[depth]
         start, seg, t_init, perm = inter.sweep_inputs(o, d, alive)
@@ -843,6 +858,13 @@ def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, e
         ms11 = cuda_time_ms(lambda: k11.walk(start, seg, t_init), iters=5)
         F = cuda_bvh.ray_features(start, seg, t_init)
         ms12 = cuda_time_ms(lambda: cuda_bvh.launch_treelet_walk(F, wt), iters=5)
+        # The same rays in their recorded order, before the Morton sort.
+        t_rec = torch.empty_like(t_init)
+        t_rec[perm] = t_init
+        o_rec, d_rec = o.contiguous(), d.contiguous()
+        ms11_u = cuda_time_ms(lambda: k11.walk(o_rec, d_rec, t_rec), iters=5)
+        F_rec = cuda_bvh.ray_features(o_rec, d_rec, t_rec)
+        ms12_u = cuda_time_ms(lambda: cuda_bvh.launch_treelet_walk(F_rec, wt), iters=5)
         p11 = cuda_time_ms(lambda: bvh.walk_bvh(hf_scene.bvh, *sample, bvh.MAX_LEAF_TRIS),
                            iters=1, warmup=0)
         p12 = cuda_time_ms(lambda: cuda_bvh.plain_treelet_walk(
@@ -859,14 +881,73 @@ def vertex_phases(dev, counters, reset_counts, hf_scene, hf_cam, inter, cfg_v, e
               f"{p11:.1f} ms on the {idx.numel()}-ray sample); treelet_walk {ms12:.4f} ms "
               f"(nodes/ray {vis12.float().mean().item():.1f}, triangles/ray "
               f"{tst12.float().mean().item():.1f}; bound {b12:.4f} ms {by12}; plain {p12:.1f} "
-              f"ms on the sample)", flush=True)
+              f"ms on the sample); the same rays unsorted (recorded order): bvh_walk "
+              f"{ms11_u:.4f} ms, treelet_walk {ms12_u:.4f} ms", flush=True)
         if depth == 0:  # the full count: the kernels line
             timings["bvh_walk"] = dict(ms=ms11, plain_ms=p11, bound_ms=b11, bound_by=by11,
-                                       max_abs_err=0.0, plain_shape=f"{idx.numel()}-ray sample")
+                                       max_abs_err=0.0, plain_shape=f"{idx.numel()}-ray sample",
+                                       unsorted_ms=ms11_u)
             timings["treelet_walk"] = dict(ms=ms12, plain_ms=p12, bound_ms=b12, bound_by=by12,
                                            max_abs_err=0.0,
-                                           plain_shape=f"{idx.numel()}-ray sample")
-    return report, timings, path_launches, step_launches
+                                           plain_shape=f"{idx.numel()}-ray sample",
+                                           unsorted_ms=ms12_u)
+        routes[f"depth {depth}"] = walk_against_sweep(inter, k11, k12, o, d, alive)
+
+    # The walks against the culled sweep on one mid-frame iteration of the
+    # mesh frame, and the table of all three ray sets.
+    routes["mesh frame iteration"] = walk_against_sweep(inter, k11, k12, *frame_rays)
+    phase("the walks against the culled sweep, from the sorted, seeded rays to (t, id), ms by "
+          "CUDA events")
+    for label, r in routes.items():
+        print(f"{label}: {r['rays']} rays ({r['live']} live): culled route (kernel 5, key "
+              f"sort, kernel 6, post) {r['culled']:.4f} ms; bvh_walk route {r['bvh_walk']:.4f} "
+              f"ms; treelet_walk route (features, kernel 12, post) {r['treelet_walk']:.4f} ms; "
+              f"Morton sort alone {r['morton_sort']:.4f} ms; the walk routes from the same "
+              f"rays unsorted (recorded order, seeded): bvh_walk {r['bvh_walk_unsorted']:.4f} "
+              f"ms, treelet_walk {r['treelet_walk_unsorted']:.4f} ms; ids equal to kernel 6's "
+              f"winners on the live rays: bvh_walk {r['agree_bvh_walk']:.6f}, treelet_walk "
+              f"{r['agree_treelet_walk']:.6f}", flush=True)
+    return report, timings, path_launches, step_launches, routes
+
+
+def walk_against_sweep(inter, k11, k12, o, d, alive):
+    """Three routes from the same sorted, seeded rays (``inter.sweep_inputs``)
+    to ``(t, id)``, each timed by CUDA events: the culled route (kernel 5,
+    the key sort, kernel 6, then ``post``), kernel 11 on the scene's fine
+    BVH, and kernel 12 on its tree of 128-triangle leaves with
+    ``ray_features`` and ``post``; both walk routes again from the same
+    rays unsorted (recorded order, same seeds); the Morton sort alone; and
+    each walk's ids against kernel 6's winners on the live rays (at least
+    0.999)."""
+    import torch
+
+    from fspt_tpu_torch.ops import cuda_bvh
+
+    start, seg, t_init, perm0 = inter.sweep_inputs(o, d, alive)
+    trav, live = inter.traverser, t_init > 0
+    t_rec = torch.empty_like(t_init)  # the seeds in the recorded order
+    t_rec[perm0] = t_init
+    o_rec, d_rec = o.contiguous(), d.contiguous()
+    fns = {"culled": lambda: trav.post(start, seg, *trav.raw(start, seg, t_init))[:2],
+           "bvh_walk": lambda: k11(start, seg, t_init)[:2],
+           "treelet_walk": lambda: k12(start, seg, t_init)[:2],
+           "bvh_walk_unsorted": lambda: k11(o_rec, d_rec, t_rec)[:2],
+           "treelet_walk_unsorted": lambda: k12(o_rec, d_rec, t_rec)[:2]}
+    out = {"rays": start.shape[0], "live": int(live.sum())}
+    ids6 = fns["culled"]()[1]
+    for key in ("bvh_walk", "treelet_walk"):
+        ids = fns[key]()[1]
+        out[f"agree_{key}"] = int((ids[live] == ids6[live]).sum()) / max(1, out["live"])
+        assert out[f"agree_{key}"] >= 0.999, (key, out)
+    for key, fn in fns.items():
+        out[key] = cuda_time_ms(fn, iters=5)
+
+    def morton_sort():
+        perm = torch.argsort(cuda_bvh.morton_keys(o, d, alive, *inter.box), stable=True)
+        return o[perm], d[perm], t_rec[perm]
+
+    out["morton_sort"] = cuda_time_ms(morton_sort, iters=5)
+    return out
 
 
 def main():
@@ -1721,9 +1802,10 @@ def main():
     path_launches.update(launches_adj)
 
     # 22-24. vertex recovery and kernels 11 and 12
-    rep_v, t_v, launches_v, step_v = vertex_phases(
+    rep_v, t_v, launches_v, step_v, walk_routes = vertex_phases(
         dev, counters, reset_counts, hf_scene, hf_cam, inter,
-        RenderConfig(width=512, height=512, spp=2, max_depth=2, edge_eps=0.05), [])
+        RenderConfig(width=512, height=512, spp=2, max_depth=2, edge_eps=0.05), [],
+        calls[mid])
     for key, rep in rep_v.items():
         report[key] = {"max_abs_err": max(report.get(key, rep)["max_abs_err"],
                                           rep["max_abs_err"])}
@@ -1759,7 +1841,11 @@ def main():
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None, ported=True, registers=reg.get("registers"),
             spill_bytes=reg.get("spill"), stack_bytes=reg.get("stack"), **extra))
-    print(json.dumps({"kernels": kernels}))
+    # The routes of phase 24: ms from the same rays to (t, id), a ray set each.
+    routes = {label: {m: r[m] for m in ("culled", "bvh_walk", "treelet_walk", "morton_sort",
+                                        "bvh_walk_unsorted", "treelet_walk_unsorted")}
+              for label, r in walk_routes.items()}
+    print(json.dumps({"kernels": kernels, "walk_routes": routes}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

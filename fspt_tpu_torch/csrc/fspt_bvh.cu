@@ -82,26 +82,53 @@
 // not carried over: an FMA-contracted or TF32 product would change which
 // triangle wins a near tie against the plain version.
 //
-// Kernels 11 and 12, one thread per ray (128 a CTA), walk a miss-link BVH
+// Kernels 11 and 12, one thread per ray (CTAs of 128), walk a miss-link BVH
 // without a stack, in the order of ops/bvh.traverse_bvh: node + 1 on a
 // descend, miss[node] after a leaf or a missed box; a node is pruned when its
 // slab entry t exceeds the ray's best t.  The TPU kernels walked a block of
 // rays in lockstep behind an interval frustum and read node records with
 // one-hot lane reductions, because Mosaic has no per-lane gather; Hopper
-// gathers, so each ray walks alone and reads the node and triangle rows
-// ([M,3] / [T,3] as the FlatBVH holds them) through the read-only path.
-// Kernel 11 tests each leaf triangle with the cross-product Möller–Trumbore
-// of traverse_bvh, term for term.  Kernel 12 walks a tree of 128-triangle
-// leaves and tests a leaf with kernel 6's sign-folded 19-weight form (the
-// same per-column device function, tri_key, reading the leaf's weights
-// from global memory),
-// keeping the quantized packed key; ops/cuda_bvh.post recovers exact t, u,
-// v.  Both write per ray the nodes and the triangles it tested (kernel 12:
-// the real triangles of the leaves it swept, not their pad columns), from
-// which the bound is counted.  Bound by operations: ~30 per
-// node test, ~58 per cross-form triangle test, ~51 per weight-form one;
-// divergence between the rays of a warp is the cost of this simple form.
-//
+// gathers, so each ray walks its own path.  Every ray visits the same nodes
+// in the same order as the plain walk, with the same prune, so t, the
+// winner, and the nodes and triangles each ray tested (kernel 12: the real
+// triangles of the leaves it swept, not their pad columns) equal the plain
+// version's, and the bound is counted from them.  Bound by operations: ~30
+// per node test, ~58 per cross-form triangle test, ~51 per weight-form one;
+// by bytes where the rays are many and their walks short.  The one-thread
+// form lost most of its warp-cycles to divergence: lanes waiting while
+// others tested a leaf (kernel 11: 62-70 % of the cycles in leaf tests at
+// 8-10 % lane activity; kernel 12: 96-99 %, one lane sweeping a 128-column
+// leaf alone, every row read from L2 once a ray; PERF.md §6).  What
+// the design does about it:
+//   - packed records (ops/cuda_bvh.walk_nodes / walk_tris, built once a
+//     tree): a node is two float4, (bmin, bits(miss)) and (bmax,
+//     bits(payload << 8 | count)), read with two 16-byte loads; kernel 11's
+//     triangle is three, (v0, area2), (e1, bits(tri_id)), (e2, 0);
+//   - leaves postponed (Aila and Laine, "Understanding the efficiency of
+//     ray traversal on GPUs", HPG 2009): node steps (node_step) and leaf
+//     tests alternate as warp-wide phases.  A lane that takes a leaf stops
+//     walking until the warp has tested it, so its best t prunes its next
+//     node exactly as in the plain walk;
+//   - kernel 11 leaves its node steps once at most 32 - kWalkFree lanes
+//     are still walking (measured against 32, the while-while form, and
+//     other counts), then tests each taken leaf's few triangles lane by
+//     lane with the cross-product Möller–Trumbore of traverse_bvh, term
+//     for term.  Its warps are persistent: a grid of resident CTAs, each
+//     warp taking its next 32 rays from an atomic counter until none is
+//     left (bvh_walk_grid; the launcher zeroes the counter);
+//   - kernel 12's lanes walk until each holds a leaf or is done, then the
+//     warp tests its taken leaves cooperatively (warp_leaf): the lanes at
+//     one leaf form a group (__match_any_sync on the record); lane l holds
+//     the weight rows of columns l, l + 32, l + 64, l + 96 below the leaf's
+//     count in registers (five coalesced 16-byte loads each, once a group:
+//     the pad columns never hit) and tests them against the group's rays
+//     two at a time, their features and best t by __shfl_sync; the packed
+//     keys (bits(t) & ~127) | column, from tri_key (kernel 6's per-column
+//     function), are joined by __reduce_min_sync, the same key as a serial
+//     min since the column breaks ties.  A leaf is read once a warp-visit,
+//     not once a ray; ops/cuda_bvh.post recovers exact t, u, v.  The rows
+//     re-read from L1 for each ray, or staged in shared memory, were
+//     slower.
 // All four kernels equal their plain versions bit for bit: the same terms
 // are added in the same order, built with -fmad=false, and fminf/fmaxf
 // match torch.fmin/fmax (and torch.minimum/maximum on finite values).
@@ -128,6 +155,15 @@ constexpr int kSweepThreads = kRays / kSweepRays * kSweepSlices;  // 256
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kLeafVec = kTreelet * kRows / 4;       // float4s in a leaf: 640
 constexpr int kWalkThreads = 128;
+// Kernels 11-12: the low bits of a packed node's last word hold a leaf's
+// triangle count (0: internal node), the high bits its first triangle
+// (kernel 11) or leaf ordinal (kernel 12); cuda_bvh.COUNT_BITS.
+constexpr int kCountBits = 8;
+constexpr unsigned kCountMask = (1u << kCountBits) - 1u;
+constexpr unsigned kFullMask = 0xffffffffu;
+// Kernel 11: a warp leaves its node steps for its leaf tests once at most
+// 32 - kWalkFree lanes are still walking (the others hold a leaf or are done).
+constexpr int kWalkFree = 24;
 constexpr float kBig = 3.0e38f;
 constexpr int kNoHit = 0x7FFFFFFF;
 
@@ -176,16 +212,6 @@ __device__ __forceinline__ int tri_key(const float* __restrict__ wj, const RayF&
   return kNoHit;
 }
 
-// One ray against the 128 triangles of a leaf in global memory (kernel 12):
-// the smallest packed key, kNoHit where none is closer than tb.
-__device__ __forceinline__ int leaf_min_key(const float* __restrict__ w, const RayF& r,
-                                            float tb) {
-  int kmin = kNoHit;
-#pragma unroll 2
-  for (int j = 0; j < kTreelet; ++j) kmin = min(kmin, tri_key(w + j * kRows, r, tb, j));
-  return kmin;
-}
-
 // Kernel 6's staging: the 640 float4s of leaf `leaf` into dst, 16-byte
 // cp.async copies through L2, one commit group per leaf.
 __device__ __forceinline__ void stage_leaf(float4* dst, const float* __restrict__ W, int leaf,
@@ -204,18 +230,112 @@ __device__ __forceinline__ void staged_wait() {
 }
 
 // Slab test of the ray (origin o, guarded reciprocal direction r) against
-// node box [lo, hi] (ops/bvh._slab_entry): hit, and the entry t clamped at 0.
-__device__ __forceinline__ bool slab_entry(const float* __restrict__ lo,
-                                           const float* __restrict__ hi, float o0, float o1,
-                                           float o2, float r0, float r1, float r2,
+// a packed node's box [lo.xyz, hi.xyz] (ops/bvh._slab_entry): hit, and the
+// entry t clamped at 0.
+__device__ __forceinline__ bool slab_entry(const float4& lo, const float4& hi, float o0,
+                                           float o1, float o2, float r0, float r1, float r2,
                                            float& entry) {
-  const float t0x = (__ldg(lo) - o0) * r0, t1x = (__ldg(hi) - o0) * r0;
-  const float t0y = (__ldg(lo + 1) - o1) * r1, t1y = (__ldg(hi + 1) - o1) * r1;
-  const float t0z = (__ldg(lo + 2) - o2) * r2, t1z = (__ldg(hi + 2) - o2) * r2;
+  const float t0x = (lo.x - o0) * r0, t1x = (hi.x - o0) * r0;
+  const float t0y = (lo.y - o1) * r1, t1y = (hi.y - o1) * r1;
+  const float t0z = (lo.z - o2) * r2, t1z = (hi.z - o2) * r2;
   const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   entry = fmaxf(tnear, 0.0f);
   return tnear <= tfar && tfar >= 0.0f && tnear <= 1.0f;
+}
+
+// One node step of a walking lane (node < n_nodes, no leaf held): test the
+// node's box, count it, take the node's leaf (its packed word payload <<
+// kCountBits | count, with its triangles counted) where the ray enters the
+// box no later than tb, and move on: node + 1 into an entered internal
+// node, else the miss link, where the walk goes on once a taken leaf is
+// tested.
+__device__ __forceinline__ void node_step(const float4* __restrict__ nodes, float o0, float o1,
+                                          float o2, float r0, float r1, float r2, float tb,
+                                          int& node, unsigned& leaf, int& n_visit,
+                                          int& n_test) {
+  const float4 lo = __ldg(nodes + 2 * node), hi = __ldg(nodes + 2 * node + 1);
+  ++n_visit;
+  float entry;
+  const bool box = slab_entry(lo, hi, o0, o1, o2, r0, r1, r2, entry) && entry <= tb;
+  const unsigned meta = __float_as_uint(hi.w);
+  const unsigned cnt = meta & kCountMask;
+  if (box && cnt > 0) {
+    leaf = meta;
+    n_test += (int)cnt;
+  }
+  node = (box && cnt == 0) ? node + 1 : __float_as_int(lo.w);
+}
+
+// Lane r's ray, to every lane of the warp.
+__device__ __forceinline__ RayF shfl_ray(const RayF& ray, int r) {
+  return RayF{__shfl_sync(kFullMask, ray.d0, r), __shfl_sync(kFullMask, ray.d1, r),
+              __shfl_sync(kFullMask, ray.d2, r), __shfl_sync(kFullMask, ray.c0, r),
+              __shfl_sync(kFullMask, ray.c1, r), __shfl_sync(kFullMask, ray.c2, r),
+              __shfl_sync(kFullMask, ray.o0, r), __shfl_sync(kFullMask, ray.o1, r),
+              __shfl_sync(kFullMask, ray.o2, r)};
+}
+
+// Kernel 12's leaf test: the rays of the lanes in `grp`, all pending at the
+// leaf `meta` (ordinal << kCountBits | count), each against the leaf's
+// triangles with its own tb.  Lane l holds columns l + 32 q below the count
+// and tests them against the rays two at a time (two independent chains);
+// the warp's integer min of a ray's packed keys is its key at this leaf,
+// taken by the ray's own lane.
+__device__ __forceinline__ void warp_leaf(const float* __restrict__ W, unsigned meta,
+                                          unsigned grp, int lane, const RayF& ray, float& tb,
+                                          int& best) {
+  constexpr int kQ = kTreelet / 32;
+  const int leaf = (int)(meta >> kCountBits), cnt = (int)(meta & kCountMask);
+  const float4* w = reinterpret_cast<const float4*>(W + (size_t)leaf * kTreelet * kRows);
+  float wq[kQ][kRows];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    if (lane + 32 * q < cnt) {
+      const float4* p = w + (lane + 32 * q) * (kRows / 4);
+#pragma unroll
+      for (int c = 0; c < kRows / 4; ++c) {
+        const float4 v = __ldg(p + c);
+        wq[q][4 * c] = v.x;
+        wq[q][4 * c + 1] = v.y;
+        wq[q][4 * c + 2] = v.z;
+        wq[q][4 * c + 3] = v.w;
+      }
+    }
+  }
+  const auto take = [&](int k, int r) {
+    if (lane == r && k != kNoHit) {
+      best = leaf * kTreelet + (k & (kTreelet - 1));
+      tb = __int_as_float(k & ~(kTreelet - 1));
+    }
+  };
+  for (unsigned g = grp; g != 0;) {
+    const int ra = __ffs(g) - 1;
+    g &= g - 1;
+    const int rb = __ffs(g) - 1;  // -1: ra is the group's last ray
+    g &= g - 1;
+    const RayF a = shfl_ray(ray, ra);
+    const float ta = __shfl_sync(kFullMask, tb, ra);
+    int ka = kNoHit;
+    if (rb >= 0) {
+      const RayF b = shfl_ray(ray, rb);
+      const float tbb = __shfl_sync(kFullMask, tb, rb);
+      int kb = kNoHit;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        if (lane + 32 * q < cnt) {
+          ka = min(ka, tri_key(wq[q], a, ta, lane + 32 * q));
+          kb = min(kb, tri_key(wq[q], b, tbb, lane + 32 * q));
+        }
+      }
+      take(__reduce_min_sync(kFullMask, kb), rb);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        if (lane + 32 * q < cnt) ka = min(ka, tri_key(wq[q], a, ta, lane + 32 * q));
+    }
+    take(__reduce_min_sync(kFullMask, ka), ra);
+  }
 }
 
 // The live rays j0 .. j1-1 of the block's list, all of direction octant
@@ -427,114 +547,117 @@ treelet_sweep_kernel(const int64_t* __restrict__ heavy_first, const int* __restr
 
 __global__ void __launch_bounds__(kWalkThreads)
 bvh_walk_kernel(const float* __restrict__ start, const float* __restrict__ seg,
-                const float* __restrict__ t_init, int n, const float* __restrict__ bmin,
-                const float* __restrict__ bmax, const int* __restrict__ first,
-                const int* __restrict__ count, const int* __restrict__ miss, int n_nodes,
-                const float* __restrict__ v0, const float* __restrict__ e1,
-                const float* __restrict__ e2, const float* __restrict__ area2,
-                const int* __restrict__ tri_id, float* __restrict__ t_out,
-                int* __restrict__ id_out, float* __restrict__ u_out,
-                float* __restrict__ v_out, int* __restrict__ visits,
-                int* __restrict__ tested) {
-  const int i = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (i >= n) return;
-  const float sx = start[3 * i], sy = start[3 * i + 1], sz = start[3 * i + 2];
-  const float dx = seg[3 * i], dy = seg[3 * i + 1], dz = seg[3 * i + 2];
-  const float rx = guarded_rcp(dx), ry = guarded_rcp(dy), rz = guarded_rcp(dz);
-  float tb = t_init[i];
-  int best = -1, n_visit = 0, n_test = 0;
-  float bu = 0.0f, bv = 0.0f;
-  int node = tb > 0.0f ? 0 : n_nodes;  // a dead lane walks nothing
-  while (node < n_nodes) {
-    ++n_visit;
-    float entry;
-    const bool box =
-        slab_entry(bmin + 3 * node, bmax + 3 * node, sx, sy, sz, rx, ry, rz, entry) &&
-        entry <= tb;
-    const int cnt = __ldg(count + node);
-    if (box && cnt > 0) {
-      n_test += cnt;
-      const int f = __ldg(first + node);
+                const float* __restrict__ t_init, int n, const float4* __restrict__ nodes,
+                int n_nodes, const float4* __restrict__ tris, float* __restrict__ t_out,
+                int* __restrict__ id_out, float* __restrict__ u_out, float* __restrict__ v_out,
+                int* __restrict__ visits, int* __restrict__ tested, int* __restrict__ next) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    // The warp's next 32 rays.
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next, 32);
+    base = __shfl_sync(kFullMask, base, 0);
+    if (base >= n) return;
+    const int i = base + lane;
+    const bool has_ray = i < n;  // lanes past n walk nothing but take part in the votes
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, tb = 0.0f;
+    if (has_ray) {
+      sx = start[3 * i], sy = start[3 * i + 1], sz = start[3 * i + 2];
+      dx = seg[3 * i], dy = seg[3 * i + 1], dz = seg[3 * i + 2];
+      tb = t_init[i];
+    }
+    const float rx = guarded_rcp(dx), ry = guarded_rcp(dy), rz = guarded_rcp(dz);
+    int best = -1, n_visit = 0, n_test = 0;
+    float bu = 0.0f, bv = 0.0f;
+    int node = tb > 0.0f ? 0 : n_nodes;  // a dead lane walks nothing
+    unsigned leaf = 0;
+    while (__any_sync(kFullMask, node < n_nodes)) {
+      // Node steps until at most 32 - kWalkFree lanes are still walking.
+      for (;;) {
+        if (node < n_nodes && leaf == 0)
+          node_step(nodes, sx, sy, sz, rx, ry, rz, tb, node, leaf, n_visit, n_test);
+        if (__popc(__ballot_sync(kFullMask, node < n_nodes && leaf == 0)) <= 32 - kWalkFree)
+          break;
+      }
+      const int f = (int)(leaf >> kCountBits), cnt = (int)(leaf & kCountMask);
       for (int k = 0; k < cnt; ++k) {
-        const int t = f + k;
-        const float e1x = __ldg(e1 + 3 * t), e1y = __ldg(e1 + 3 * t + 1),
-                    e1z = __ldg(e1 + 3 * t + 2);
-        const float e2x = __ldg(e2 + 3 * t), e2y = __ldg(e2 + 3 * t + 1),
-                    e2z = __ldg(e2 + 3 * t + 2);
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const bool np = fabsf(det) >= 1e-5f * __ldg(area2 + t);
+        const float4* q = tris + 3 * (f + k);
+        const float4 a = __ldg(q), e1 = __ldg(q + 1), e2 = __ldg(q + 2);
+        const float pvx = dy * e2.z - dz * e2.y;
+        const float pvy = dz * e2.x - dx * e2.z;
+        const float pvz = dx * e2.y - dy * e2.x;
+        const float det = e1.x * pvx + e1.y * pvy + e1.z * pvz;
+        const bool np = fabsf(det) >= 1e-5f * a.w;
         const float inv = 1.0f / (np ? det : 1.0f);
-        const float tx = sx - __ldg(v0 + 3 * t), ty = sy - __ldg(v0 + 3 * t + 1),
-                    tz = sz - __ldg(v0 + 3 * t + 2);
+        const float tx = sx - a.x, ty = sy - a.y, tz = sz - a.z;
         const float u = (tx * pvx + ty * pvy + tz * pvz) * inv;
-        const float qvx = ty * e1z - tz * e1y;
-        const float qvy = tz * e1x - tx * e1z;
-        const float qvz = tx * e1y - ty * e1x;
+        const float qvx = ty * e1.z - tz * e1.y;
+        const float qvy = tz * e1.x - tx * e1.z;
+        const float qvz = tx * e1.y - ty * e1.x;
         const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
-        const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+        const float tt = (e2.x * qvx + e2.y * qvy + e2.z * qvz) * inv;
         if (np && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tt >= 0.0f && tt <= 1.0f &&
             tt < tb) {
           tb = tt;
-          best = __ldg(tri_id + t);
+          best = __float_as_int(e1.w);
           bu = u;
           bv = v;
         }
       }
-      node = __ldg(miss + node);
-    } else {
-      node = (box && cnt == 0) ? node + 1 : __ldg(miss + node);
+      leaf = 0;
+    }
+    if (has_ray) {
+      t_out[i] = tb;
+      id_out[i] = best;
+      u_out[i] = bu;
+      v_out[i] = bv;
+      visits[i] = n_visit;
+      tested[i] = n_test;
     }
   }
-  t_out[i] = tb;
-  id_out[i] = best;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  visits[i] = n_visit;
-  tested[i] = n_test;
 }
 
 __global__ void __launch_bounds__(kWalkThreads)
-treelet_walk_kernel(const float* __restrict__ F, int n_pad, const float* __restrict__ bmin,
-                    const float* __restrict__ bmax, const int* __restrict__ count,
-                    const int* __restrict__ leaf_of, const int* __restrict__ miss,
+treelet_walk_kernel(const float* __restrict__ F, int n_pad, const float4* __restrict__ nodes,
                     int n_nodes, const float* __restrict__ W, float* __restrict__ t_out,
                     int* __restrict__ best_out, int* __restrict__ visits,
                     int* __restrict__ tested) {
+  const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (i >= n_pad) return;
-  const float* f = F + (size_t)i * kFeat;
-  const RayF ray = load_ray(f);
+  const bool has_ray = i < n_pad;  // lanes past n_pad take part in the warp's votes
+  float4 f0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), f1 = f0, f2 = f0;
+  if (has_ray) {
+    const float4* f = reinterpret_cast<const float4*>(F + (size_t)i * kFeat);
+    f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2);
+  }
+  // f0 = (d, c0), f1 = (c1, c2, o0, o1), f2 = (o2, 1, t0, 0).
+  const RayF ray{f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w, f2.x};
   const float rx = guarded_rcp(ray.d0), ry = guarded_rcp(ray.d1), rz = guarded_rcp(ray.d2);
-  float tb = f[10];
+  float tb = f2.z;
   int best = -1, n_visit = 0, n_test = 0;
   int node = tb > 0.0f ? 0 : n_nodes;  // dead and pad rows walk nothing
-  while (node < n_nodes) {
-    ++n_visit;
-    float entry;
-    const bool box = slab_entry(bmin + 3 * node, bmax + 3 * node, ray.o0, ray.o1, ray.o2,
-                                rx, ry, rz, entry) &&
-                     entry <= tb;
-    const int cnt = __ldg(count + node);
-    if (box && cnt > 0) {
-      n_test += cnt;
-      const int leaf = __ldg(leaf_of + node);
-      const int kmin = leaf_min_key(W + (size_t)leaf * kTreelet * kRows, ray, tb);
-      if (kmin != kNoHit) {
-        best = leaf * kTreelet + (kmin & (kTreelet - 1));
-        tb = __int_as_float(kmin & ~(kTreelet - 1));
-      }
-      node = __ldg(miss + node);
-    } else {
-      node = (box && cnt == 0) ? node + 1 : __ldg(miss + node);
-    }
+  unsigned leaf = 0;
+  for (;;) {
+    // Each lane walks until it holds a leaf or is done.
+    while (node < n_nodes && leaf == 0)
+      node_step(nodes, ray.o0, ray.o1, ray.o2, rx, ry, rz, tb, node, leaf, n_visit, n_test);
+    unsigned pend = __ballot_sync(kFullMask, leaf != 0);
+    if (pend == 0) break;
+    const unsigned same = __match_any_sync(kFullMask, leaf);
+    do {
+      const int lead = __ffs(pend) - 1;
+      const unsigned grp = __shfl_sync(kFullMask, same, lead);
+      warp_leaf(W, __shfl_sync(kFullMask, leaf, lead), grp, lane, ray, tb, best);
+      pend &= ~grp;
+    } while (pend != 0);
+    leaf = 0;
   }
-  t_out[i] = tb;
-  best_out[i] = best;
-  visits[i] = n_visit;
-  tested[i] = n_test;
+  if (has_ray) {
+    t_out[i] = tb;
+    best_out[i] = best;
+    visits[i] = n_visit;
+    tested[i] = n_test;
+  }
 }
 
 }  // namespace fspt_bvh
@@ -581,29 +704,53 @@ int fspt_sweep_shape(int* shape) {
   return 0;
 }
 
+// Kernel 11's grid: the CTAs resident on the card at once (occupancy times
+// the SMs, computed once a device), or fewer where the rays fill fewer; -1
+// where CUDA fails.
+static int bvh_walk_resident[64];
+
+static int bvh_walk_grid(int n) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
+  int& resident = bvh_walk_resident[dev];
+  if (resident == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fspt_bvh::bvh_walk_kernel,
+                                                      fspt_bvh::kWalkThreads, 0) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+        || per_sm * sms <= 0)
+      return -1;
+    resident = per_sm * sms;
+  }
+  const int wanted = (n + fspt_bvh::kWalkThreads - 1) / fspt_bvh::kWalkThreads;
+  return wanted < resident ? wanted : resident;
+}
+
+// next: one int of scratch, the warps' batch counter (zeroed here).
 int fspt_bvh_walk(const float* start, const float* seg, const float* t_init, int n,
-                  const float* bmin, const float* bmax, const int* first, const int* count,
-                  const int* miss, int n_nodes, const float* v0, const float* e1,
-                  const float* e2, const float* area2, const int* tri_id, float* t, int* id,
-                  float* u, float* v, int* visits, int* tested, void* stream) {
+                  const float* nodes, int n_nodes, const float* tris, float* t, int* id,
+                  float* u, float* v, int* visits, int* tested, int* next, void* stream) {
   using namespace fspt_bvh;
   if (n > 0) {
-    bvh_walk_kernel<<<(n + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
-                      (cudaStream_t)stream>>>(start, seg, t_init, n, bmin, bmax, first, count,
-                                              miss, n_nodes, v0, e1, e2, area2, tri_id, t, id,
-                                              u, v, visits, tested);
+    const int grid = bvh_walk_grid(n);
+    if (grid < 0) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    bvh_walk_kernel<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
+        start, seg, t_init, n, reinterpret_cast<const float4*>(nodes), n_nodes,
+        reinterpret_cast<const float4*>(tris), t, id, u, v, visits, tested, next);
   }
   return (int)cudaGetLastError();
 }
 
-int fspt_treelet_walk(const float* F, int n_pad, const float* bmin, const float* bmax,
-                      const int* count, const int* leaf_of, const int* miss, int n_nodes,
+int fspt_treelet_walk(const float* F, int n_pad, const float* nodes, int n_nodes,
                       const float* W, float* t, int* best, int* visits, int* tested,
                       void* stream) {
   using namespace fspt_bvh;
   if (n_pad > 0) {
     treelet_walk_kernel<<<(n_pad + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
-                          (cudaStream_t)stream>>>(F, n_pad, bmin, bmax, count, leaf_of, miss,
+                          (cudaStream_t)stream>>>(F, n_pad,
+                                                  reinterpret_cast<const float4*>(nodes),
                                                   n_nodes, W, t, best, visits, tested);
   }
   return (int)cudaGetLastError();

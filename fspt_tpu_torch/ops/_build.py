@@ -171,13 +171,11 @@ _SIGNATURES = {
         "fspt_sweep_shape": [_P],
         # n_leaves, *shape (threads, leaves a thread)
         "fspt_cull_shape": [_I, _P],
-        # start, seg, t_init, n, bmin, bmax, first, count, miss, n_nodes, v0,
-        # e1, e2, area2, tri_id, t, id, u, v, visits, tested, stream
-        "fspt_bvh_walk": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P],
-        # F, n_pad, bmin, bmax, count, leaf_of, miss, n_nodes, weights, t,
-        # best, visits, leaves, stream
-        "fspt_treelet_walk": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+        # start, seg, t_init, n, nodes, n_nodes, tris, t, id, u, v, visits,
+        # tested, next (scratch int), stream
+        "fspt_bvh_walk": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # F, n_pad, nodes, n_nodes, weights, t, best, visits, tested, stream
+        "fspt_treelet_walk": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     },
     "fspt_adjoint": {
         # prims, meta, mats, mat_meta, PathParams, CamParams, pvec, cells,

@@ -39,9 +39,10 @@ same non-zero terms in the same order (the kernels build with
 only on its block: which 64 rays share a block (the Morton sort, kept
 stable as ``jnp.argsort`` is) decides near-tie winners.
 
-Two tree walks, one thread per ray in csrc/fspt_bvh.cu, replace the
-reference's other two Pallas traversers (its callers are tests only; the
-port's are chip_smoke.py and the tests):
+Two tree walks in csrc/fspt_bvh.cu, one thread a ray over packed node
+records (:func:`walk_nodes`), leaves postponed until the warp tests them
+together, replace the reference's other two Pallas traversers (its callers
+are tests only; the port's are chip_smoke.py and the tests):
 
 * kernel 11, ``bvh_walk_kernel`` (:func:`make_bvh_traverser`), replaces
   ``pallas_bvh.make_bvh_traverser``: the miss-link walk of
@@ -50,8 +51,9 @@ port's are chip_smoke.py and the tests):
   :func:`ops.bvh.walk_bvh`;
 * kernel 12, ``treelet_walk_kernel`` (:func:`make_treelet_traverser`),
   replaces ``pallas_bvh.make_treelet_traverser``: the same walk over a tree
-  of 128-triangle leaves, each leaf tested with kernel 6's weight form
-  (plain version :func:`plain_treelet_walk`, per ray :func:`_leaf_test`).
+  of 128-triangle leaves, each leaf tested with kernel 6's weight form, by
+  the warp's lanes together on the card (plain version
+  :func:`plain_treelet_walk`, per ray :func:`_leaf_test`).
 
 The plain versions (:func:`plain_cull`, :func:`plain_sweep`,
 :func:`ops.bvh.walk_bvh`, :func:`plain_treelet_walk`) take the same inputs
@@ -560,7 +562,8 @@ def make_mesh_intersector(scene_pack, plain: bool = False):
     recovers the winner and the TriShade gathers its shading attributes.
     ``plain=True`` takes the plain versions of kernels 1, 5 and 6 on any
     device.  ``fn.sweep_inputs(start, seg, alive)`` gives the sorted rays,
-    their seeds and the permutation, as the sweep sees them.
+    their seeds and the permutation, as the sweep sees them; ``fn.box`` the
+    mesh box ``(lo, hi)`` of their Morton keys.
     """
     from fspt_tpu_torch.ops.cuda_trace import make_cuda_intersector
     from fspt_tpu_torch.render.integrator import merge_triangle_hit
@@ -617,38 +620,90 @@ def make_mesh_intersector(scene_pack, plain: bool = False):
     intersect.accepts_alive = True
     intersect.traverser = trav
     intersect.sweep_inputs = sweep_inputs
+    intersect.box = (box_lo, box_hi)
     return intersect
+
+
+# ---------------------------------------------------------------------------
+# The walks' packed records (kernels 11 and 12)
+
+#: Low bits of a packed node's last word that hold a leaf's triangle count
+#: (0 on an internal node); the high bits hold its first triangle (kernel 11)
+#: or its leaf ordinal (kernel 12).  csrc kCountBits.
+COUNT_BITS = 8
+
+
+def walk_nodes(bmin, bmax, count, miss, payload):
+    """``[M, 8]`` float32 node records of the walks, from the same float
+    values: per node ``(bmin, bits(miss))`` and ``(bmax, bits(payload <<
+    COUNT_BITS | count))``; ``payload`` is taken on leaves only (0 on
+    internal nodes).  Raises unless every miss link points forward in
+    preorder (``i < miss[i] <= M``), which both walks rely on."""
+    m = bmin.shape[0]
+    miss64, count64 = miss.long(), count.long()
+    pay = torch.where(count64 > 0, payload.long(), 0)
+    if not bool(((miss64 > torch.arange(m, device=bmin.device)) & (miss64 <= m)).all()):
+        raise ValueError("the walks need preorder miss links: i < miss[i] <= M on every node")
+    if m and int(count64.max()) >= 1 << COUNT_BITS:
+        raise ValueError(f"a leaf holds {int(count64.max())} triangles, more than a packed "
+                         f"node record's {(1 << COUNT_BITS) - 1}")
+    if m and (int(pay.min()) < 0 or int(pay.max()) >= 1 << (31 - COUNT_BITS)):
+        raise ValueError("a leaf's first triangle or ordinal does not fit a packed node record")
+    meta = ((pay << COUNT_BITS) | count64).to(torch.int32)
+    return torch.cat([bmin.to(torch.float32), miss.to(torch.int32).view(torch.float32)[:, None],
+                      bmax.to(torch.float32), meta.view(torch.float32)[:, None]],
+                     dim=1).contiguous()
+
+
+def walk_tris(bvh: FlatBVH):
+    """``[T, 12]`` float32 triangle records of kernel 11, from the same float
+    values: ``(v0, area2)``, ``(e1, bits(tri_id))``, ``(e2, 0)``."""
+    zero = torch.zeros_like(bvh.tri_area2)[:, None]
+    return torch.cat([bvh.tri_v0, bvh.tri_area2[:, None], bvh.tri_e1,
+                      bvh.tri_id.to(torch.int32).view(torch.float32)[:, None], bvh.tri_e2,
+                      zero], dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
 # Kernel 11: the walk of a fine BVH
 
 
-def launch_bvh_walk(bvh: FlatBVH, start, seg, t_init):
+class BvhWalkTables(NamedTuple):
+    """Kernel 11's records of a FlatBVH (:func:`walk_nodes` with each
+    leaf's first triangle, :func:`walk_tris`), built once a tree."""
+
+    nodes: torch.Tensor  # [M, 8] float32
+    tris: torch.Tensor  # [T, 12] float32
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+
+def bvh_walk_tables(bvh: FlatBVH) -> BvhWalkTables:
+    return BvhWalkTables(nodes=walk_nodes(bvh.bmin, bvh.bmax, bvh.count, bvh.miss, bvh.first),
+                         tris=walk_tris(bvh))
+
+
+def launch_bvh_walk(tables: BvhWalkTables, start, seg, t_init):
     """Launch kernel 11 on CUDA tensors; same contract as
-    :func:`ops.bvh.walk_bvh` with every leaf of ``bvh`` tested whole."""
+    :func:`ops.bvh.walk_bvh` on the tree whose records ``tables`` holds."""
     dev = start.device
-    n, m, T = start.shape[0], bvh.n_nodes, bvh.tri_v0.shape[0]
+    n, m, T = start.shape[0], tables.n_nodes, tables.tris.shape[0]
     for name, t, dtype, shape in (
             ("start", start, torch.float32, (n, 3)), ("seg", seg, torch.float32, (n, 3)),
             ("t_init", t_init, torch.float32, (n,)),
-            ("bmin", bvh.bmin, torch.float32, (m, 3)), ("bmax", bvh.bmax, torch.float32, (m, 3)),
-            ("first", bvh.first, torch.int32, (m,)), ("count", bvh.count, torch.int32, (m,)),
-            ("miss", bvh.miss, torch.int32, (m,)), ("tri_v0", bvh.tri_v0, torch.float32, (T, 3)),
-            ("tri_e1", bvh.tri_e1, torch.float32, (T, 3)),
-            ("tri_e2", bvh.tri_e2, torch.float32, (T, 3)),
-            ("tri_area2", bvh.tri_area2, torch.float32, (T,)),
-            ("tri_id", bvh.tri_id, torch.int32, (T,))):
+            ("nodes", tables.nodes, torch.float32, (m, 8)),
+            ("tris", tables.tris, torch.float32, (T, 12))):
         _build.check_cuda_tensor(name, t, dtype, shape, dev)
     f32 = lambda: torch.empty((n,), dtype=torch.float32, device=dev)  # noqa: E731
     i32 = lambda: torch.empty((n,), dtype=torch.int32, device=dev)  # noqa: E731
     t, ids, u, v, visits, tested = f32(), i32(), f32(), f32(), i32(), i32()
+    batch = torch.empty((1,), dtype=torch.int32, device=dev)  # the warps' ray counter
     _build.launch(BVH_WALK, start.data_ptr(), seg.data_ptr(), t_init.data_ptr(), n,
-                  bvh.bmin.data_ptr(), bvh.bmax.data_ptr(), bvh.first.data_ptr(),
-                  bvh.count.data_ptr(), bvh.miss.data_ptr(), m, bvh.tri_v0.data_ptr(),
-                  bvh.tri_e1.data_ptr(), bvh.tri_e2.data_ptr(), bvh.tri_area2.data_ptr(),
-                  bvh.tri_id.data_ptr(), t.data_ptr(), ids.data_ptr(), u.data_ptr(),
-                  v.data_ptr(), visits.data_ptr(), tested.data_ptr(),
+                  tables.nodes.data_ptr(), m, tables.tris.data_ptr(), t.data_ptr(),
+                  ids.data_ptr(), u.data_ptr(), v.data_ptr(), visits.data_ptr(),
+                  tested.data_ptr(), batch.data_ptr(),
                   torch.cuda.current_stream(dev).cuda_stream)
     return t, ids, u, v, visits, tested
 
@@ -659,12 +714,14 @@ def make_bvh_traverser(bvh: FlatBVH, max_leaf: int, device=None, plain: bool = F
     ``max_leaf`` triangles), tri_id −1 on a miss, where ``t`` is the seed
     (``INVALID_PARAM`` by default).  Kernel 11 on CUDA rays,
     :func:`ops.bvh.walk_bvh` on CPU ones or with ``plain=True``.
-    ``fn.walk`` gives also the nodes and triangles each ray tested."""
+    ``fn.walk`` gives also the nodes and triangles each ray tested;
+    ``fn.tables`` holds kernel 11's records of the tree."""
     if device is not None:
         bvh = FlatBVH(*(t.to(device) for t in bvh))
     if int(bvh.count.max()) > max_leaf:
         raise ValueError(f"a leaf of the tree holds {int(bvh.count.max())} triangles, "
                          f"more than max_leaf={max_leaf}")
+    tables = bvh_walk_tables(bvh)
 
     def walk(start, seg, t_init=None):
         if t_init is None:
@@ -674,7 +731,7 @@ def make_bvh_traverser(bvh: FlatBVH, max_leaf: int, device=None, plain: bool = F
             return walk_bvh(bvh, start, seg, t_init, max_leaf)
         if start.device.type != "cuda":
             raise ValueError(f"unsupported device {start.device}")
-        return launch_bvh_walk(bvh, start.contiguous(), seg.contiguous(),
+        return launch_bvh_walk(tables, start.contiguous(), seg.contiguous(),
                                t_init.to(torch.float32).contiguous())
 
     def traverse(start, seg, t_init=None):
@@ -682,6 +739,7 @@ def make_bvh_traverser(bvh: FlatBVH, max_leaf: int, device=None, plain: bool = F
 
     traverse.walk = walk
     traverse.bvh = bvh
+    traverse.tables = tables
     return traverse
 
 
@@ -692,7 +750,8 @@ def make_bvh_traverser(bvh: FlatBVH, max_leaf: int, device=None, plain: bool = F
 class TreeletWalkTables(NamedTuple):
     """The node table of a tree with leaves of at most 128 triangles, each
     leaf's ordinal in :class:`TreeletTables` (node order; −1 on internal
-    nodes), and the leaf tables."""
+    nodes), the leaf tables, and kernel 12's node records
+    (:func:`walk_nodes` with each leaf's ordinal)."""
 
     bmin: torch.Tensor  # [M,3]
     bmax: torch.Tensor  # [M,3]
@@ -700,6 +759,7 @@ class TreeletWalkTables(NamedTuple):
     leaf_of: torch.Tensor  # [M] int32
     miss: torch.Tensor  # [M] int32
     tables: TreeletTables
+    nodes: torch.Tensor  # [M, 8] float32
 
     @property
     def n_nodes(self) -> int:
@@ -712,7 +772,9 @@ def treelet_walk_tables(bvh: FlatBVH, device=None) -> TreeletWalkTables:
     leaf_of = torch.where(leaf, torch.cumsum(leaf.to(torch.int32), 0) - 1, -1)
     return TreeletWalkTables(bmin=bvh.bmin.to(dev), bmax=bvh.bmax.to(dev),
                              count=bvh.count.to(dev), leaf_of=leaf_of.to(torch.int32).to(dev),
-                             miss=bvh.miss.to(dev), tables=treelet_tables(bvh, device=dev))
+                             miss=bvh.miss.to(dev), tables=treelet_tables(bvh, device=dev),
+                             nodes=walk_nodes(bvh.bmin, bvh.bmax, bvh.count, bvh.miss,
+                                              leaf_of).to(dev))
 
 
 #: Rays per batch of the plain walk's leaf tests (bounds its [rays, 128, 20]
@@ -769,16 +831,15 @@ def launch_treelet_walk(F, wt: TreeletWalkTables):
     n_pad, m, L = F.shape[0], wt.n_nodes, wt.tables.n_leaves
     for name, t, dtype, shape in (
             ("F", F, torch.float32, (n_pad, N_FEATURES)),
-            ("bmin", wt.bmin, torch.float32, (m, 3)), ("bmax", wt.bmax, torch.float32, (m, 3)),
-            ("count", wt.count, torch.int32, (m,)), ("leaf_of", wt.leaf_of, torch.int32, (m,)),
-            ("miss", wt.miss, torch.int32, (m,)),
+            ("nodes", wt.nodes, torch.float32, (m, 8)),
             ("weights", wt.tables.weights, torch.float32, (L, TREELET, W_ROWS))):
         _build.check_cuda_tensor(name, t, dtype, shape, dev)
+    if F.data_ptr() % 16:
+        raise ValueError("F must be 16-byte aligned: the kernel reads its rows as float4")
     t = torch.empty((n_pad,), dtype=torch.float32, device=dev)
     best, visits, tested = (torch.empty((n_pad,), dtype=torch.int32, device=dev)
                             for _ in range(3))
-    _build.launch(TREELET_WALK, F.data_ptr(), n_pad, wt.bmin.data_ptr(), wt.bmax.data_ptr(),
-                  wt.count.data_ptr(), wt.leaf_of.data_ptr(), wt.miss.data_ptr(), m,
+    _build.launch(TREELET_WALK, F.data_ptr(), n_pad, wt.nodes.data_ptr(), m,
                   wt.tables.weights.data_ptr(), t.data_ptr(), best.data_ptr(),
                   visits.data_ptr(), tested.data_ptr(),
                   torch.cuda.current_stream(dev).cuda_stream)

@@ -407,6 +407,66 @@ def test_walk_counts_and_max_leaf_8_against_brute_force():
     assert int(tested12.sum()) > 0 and int(tested12.max()) <= 600
 
 
+def _builder_tree(builder, max_leaf, seed=3):
+    v0, v1, v2 = _tris(700, seed=seed)
+    if builder == "native":
+        return bvh.build_bvh(v0, v1, v2, max_leaf=max_leaf, device=CPU)
+    return bvh.flat_bvh(*bvh._build_bvh_numpy(v0, v1, v2, max_leaf), v0, v1, v2, CPU)
+
+
+@pytest.mark.parametrize("max_leaf", [bvh.MAX_LEAF_TRIS, cuda_bvh.TREELET])
+@pytest.mark.parametrize("builder", ["native", "python"])
+def test_walk_records_round_trip(builder, max_leaf):
+    """Both builders give preorder miss links (``i < miss[i]``, ``M`` on the
+    last node), which kernels 11 and 12 rely on; their packed records give
+    back the FlatBVH fields bit for bit: node (bmin, miss), (bmax, first or
+    leaf ordinal << 8 | count), triangle (v0, area2), (e1, tri_id), (e2,
+    0)."""
+    tree = _builder_tree(builder, max_leaf)
+    m = tree.n_nodes
+    miss = tree.miss.long()
+    assert bool((miss > torch.arange(m)).all()) and int(miss[-1]) == m
+    assert int(miss.max()) == m and int(tree.count.max()) <= max_leaf
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    leaf = tree.count > 0
+
+    def unpack(nodes, payload):
+        assert nodes.shape == (m, 8) and nodes.dtype == torch.float32
+        assert torch.equal(bits(nodes[:, 0:3]), bits(tree.bmin))
+        assert torch.equal(bits(nodes[:, 4:7]), bits(tree.bmax))
+        assert torch.equal(bits(nodes[:, 3]), tree.miss)
+        meta = bits(nodes[:, 7])
+        assert torch.equal(meta & ((1 << cuda_bvh.COUNT_BITS) - 1), tree.count)
+        assert torch.equal((meta >> cuda_bvh.COUNT_BITS)[leaf], payload[leaf])
+        assert int(meta[~leaf].abs().max()) == 0
+
+    tables = cuda_bvh.make_bvh_traverser(tree, max_leaf).tables
+    unpack(tables.nodes, tree.first)
+    tr = tables.tris
+    assert tr.shape == (tree.tri_v0.shape[0], 12)
+    for cols, field in ((slice(0, 3), tree.tri_v0), (3, tree.tri_area2),
+                        (slice(4, 7), tree.tri_e1), (7, tree.tri_id),
+                        (slice(8, 11), tree.tri_e2)):
+        assert torch.equal(bits(tr[:, cols]), bits(field) if field.is_floating_point()
+                           else field)
+    assert int(bits(tr[:, 11]).abs().max()) == 0
+    if max_leaf == cuda_bvh.TREELET:
+        wt = cuda_bvh.make_treelet_traverser(tree).walk_tables
+        unpack(wt.nodes, wt.leaf_of)
+        assert torch.equal(wt.leaf_of[leaf], torch.arange(int(leaf.sum()), dtype=torch.int32))
+
+
+def test_walk_records_refuse_backward_links():
+    """A miss link that does not point forward in preorder, or past the
+    end, is refused when the records are built."""
+    tree = _builder_tree("native", bvh.MAX_LEAF_TRIS)
+    for i, target in ((5, 5), (7, 2), (0, tree.n_nodes + 1)):
+        miss = tree.miss.clone()
+        miss[i] = target
+        with pytest.raises(ValueError, match="preorder miss links"):
+            cuda_bvh.bvh_walk_tables(tree._replace(miss=miss))
+
+
 def _heightfield_pair(grid=10):
     ref_b = RefBuilder()
     samples.heightfield(ref_b, ref_M, grid=grid)

@@ -519,13 +519,23 @@ def test_mesh_frame_matches_plain(cuda, heightfield):
     kernel_check.check_mesh_frame(scene, cam, cfg, seed=5, queue=1024)
 
 
-def test_walk_kernels_match_plain(cuda, heightfield):
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "ragged", "dead", "kernel1_seed",
+                                  "python_tree"])
+def test_walk_kernels_match_plain(cuda, heightfield, case):
     """Kernels 11 (the scene's fine BVH) and 12 (a tree of 128-triangle
-    leaves over the same triangles) on the rays the mesh intersector's
-    sweep sees (sorted, seeded, dead lanes included) of a queue iteration's
-    bounces, and on primaries."""
+    leaves over the same triangles), every output bit-equal to the plain
+    version (``kernel_check.check_bvh_walk`` / ``check_treelet_walk``), on
+    the rays the mesh intersector's sweep sees (sorted, seeded, dead lanes
+    included) of a queue iteration's bounces and on primaries; then the same
+    rays in a seeded random order (incoherent warps); a ray count that is
+    not a multiple of 32, 64 or 128; every third lane dead; the seed t of
+    kernel 1 alone (no clip to the mesh box); trees from the Python builder
+    (the others come from the native one)."""
+    import numpy as np
+
     from fspt_tpu_torch.camera import generate_rays
     from fspt_tpu_torch.ops import bvh, cuda_bvh, kernel_check
+    from fspt_tpu_torch.ops.cuda_trace import make_cuda_intersector
     from fspt_tpu_torch.ops.diff_intersect import tris_from_scene
     from fspt_tpu_torch.render.queue import render_queued
 
@@ -541,15 +551,33 @@ def test_walk_kernels_match_plain(cuda, heightfield):
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
     render_queued(scene, cam, cfg, 3, 0, intersector=recording, queue=2048)
     tr = tris_from_scene(scene)
-    k11 = cuda_bvh.make_bvh_traverser(scene.bvh, bvh.MAX_LEAF_TRIS)
-    k12 = cuda_bvh.make_treelet_traverser(bvh.build_bvh(
-        tr["v0"].cpu().numpy(), tr["v1"].cpu().numpy(), tr["v2"].cpu().numpy(),
-        max_leaf=cuda_bvh.TREELET, device=cuda))
+    v = [tr[k].cpu().numpy() for k in ("v0", "v1", "v2")]
+    if case == "python_tree":
+        trees = [bvh.flat_bvh(*bvh._build_bvh_numpy(*v, leaf), *v, cuda)
+                 for leaf in (bvh.MAX_LEAF_TRIS, cuda_bvh.TREELET)]
+    else:
+        trees = [scene.bvh, bvh.build_bvh(*v, max_leaf=cuda_bvh.TREELET, device=cuda)]
+    k11 = cuda_bvh.make_bvh_traverser(trees[0], bvh.MAX_LEAF_TRIS)
+    k12 = cuda_bvh.make_treelet_traverser(trees[1])
     start, seg, _, _ = generate_rays(cam, 64, 48, 2, 3, 0)
     for o, d, alive in ((start, seg, None), calls[1]):
-        s, g, t_init, _ = inter.sweep_inputs(o, d, alive)
-        kernel_check.check_bvh_walk(k11, s, g, t_init)
-        kernel_check.check_treelet_walk(k12, s, g, t_init)
+        s, g, t_init, perm = inter.sweep_inputs(o, d, alive)
+        if case == "unsorted":
+            perm = torch.from_numpy(np.random.RandomState(5).permutation(s.shape[0])).to(cuda)
+            s, g, t_init = s[perm], g[perm], t_init[perm]
+        elif case == "ragged":
+            n = s.shape[0] - 61
+            assert n % 32 and n % 64 and n % 128
+            s, g, t_init = s[:n], g[:n], t_init[:n]
+        elif case == "dead":
+            t_init = torch.where(torch.arange(s.shape[0], device=cuda) % 3 == 0, 0.0, t_init)
+        elif case == "kernel1_seed":
+            t_init = make_cuda_intersector(scene.geometry)(s, g).t
+            if alive is not None:
+                t_init = torch.where(alive[perm], t_init, 0.0)
+        rep11 = kernel_check.check_bvh_walk(k11, s, g, t_init)
+        rep12 = kernel_check.check_treelet_walk(k12, s, g, t_init)
+        assert rep11["hit_fraction"] > 0.0 and rep12["hit_fraction"] > 0.0
 
 
 def test_vertex_gather_rules(cuda, monkeypatch):
