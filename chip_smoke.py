@@ -138,8 +138,35 @@ Phases, each announced by one line:
    live rays;
 25. kernel 1's launches on every path (dispatch, mesh frame, vertex
    step); one JSON line of per-kernel numbers, with phase 24's route times
-   under ``walk_routes``; then the card line; the
-   last line is ``{"ok": true, "device": {...}}``.
+   under ``walk_routes``;
+26. the app layer's ``--denoise``: ``fspt_tpu_torch.cli --denoise`` renders
+   scenes/cornell.scene at 1024×1024, 4 spp, depth 8, 4 frames; kernel 2
+   launches 4 times and no other kernel, and the denoised image is lit;
+27. the denoiser (render/denoiser.py, plain torch on the card) on the
+   flagship framebuffer after 4 frames at 1024²×4, depth 8: the median of
+   7 runs by CUDA events, and its output against the same ``denoise`` of
+   the framebuffer copied to the CPU (rtol 1e-4 / atol 1e-6);
+28. ``RenderSession`` on the flagship at 1024²×4, depth 8: refine(2) (as
+   two one-frame refines, each timed; so below), orbit, focus_at the center (a distance inside (0, z_far)), refine(1),
+   fast render refine(1), kernel 1's launches at each refine (one a bounce)
+   and ms a frame by host clock with synchronization (FrameTimer);
+29. ``RenderSession`` on the heightfield at 1024²×4, depth 4: refine(2)
+   uncached, then refine(2), orbit (the pose bundle rebuilt) and refine(1)
+   with the first-hit cache; kernels 1, 5 and 6 launch once a queue
+   iteration (and a pose-pass chunk); ms a frame;
+30. the preview (render/preview.py) on 127.0.0.1: the flagship session at
+   400×240, 1 spp, depth 8 (its frames first timed alone); two
+   ``/stream`` clients read frames; the
+   session's frame count equals the frames committed and published (one
+   advance a frame, not one a client); published frames per second over
+   2 s; one ``/ctl?yaw=`` answer timed while a frame is in flight, and that
+   frame dropped;
+31. ``utils/profiling``: ``device_trace`` around one CLI frame step writes a
+   Chrome trace that holds device kernels (whether it holds kernel 2 is
+   reported: the tracer can lose a window's first records, so a trace
+   without it is taken again, three times at most), and
+   ``device_memory_stats`` of the card (peak bytes); then one JSON line of the app numbers (``app``), the card
+   line; the last line is ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
@@ -320,35 +347,42 @@ def profile_window(fn, label, counters, top=6, kernels=None):
     window's launches of each port kernel the trace holds, the device busy
     share of the window (read from the trace only where it holds every
     launch) and the kernels taking the most device time, and keep the table
-    in build/chip_smoke/profile_<label>.txt.  Returns the busy share, or
-    None where the trace misses a launch; fills ``kernels`` (a dict), where
-    given, with the window's device kernels and their launch counts."""
+    in build/chip_smoke/profile_<label>.txt.  A trace that misses a launch
+    (the tracer can lose a whole window's device records) is taken again,
+    three times at most.  Returns the busy share, or None where every trace
+    misses a launch; fills ``kernels`` (a dict), where given, with the last
+    window's device kernels and their launch counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-        prof.step()
-        before = {k: c.launches for k, c in counters.items()}
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-        prof.step()
-    events = prof.key_averages()
-    dev, late = recorded_kernels(prof)
-    if late:
-        print(f"profile {label}: {late} device kernels of the warm-up call left out")
-    complete = True
-    for key, c in counters.items():
-        launched = c.launches - before[key]
-        if launched:
-            traced = sum(n for k, (n, _) in dev.items() if KERNELS[key][0] in k)
-            complete = complete and traced == launched
-            print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        events = prof.key_averages()
+        dev, late = recorded_kernels(prof)
+        if late:
+            print(f"profile {label}: {late} device kernels of the warm-up call left out")
+        complete = True
+        for key, c in counters.items():
+            launched = c.launches - before[key]
+            if launched:
+                traced = sum(n for k, (n, _) in dev.items() if KERNELS[key][0] in k)
+                complete = complete and traced == launched
+                print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
+        if complete:
+            break
+        print(f"profile {label}: the trace misses launches (attempt {attempt + 1} of 3)",
+              flush=True)
     if kernels is not None:
         kernels.update({k: n for k, (n, _) in dev.items()})
     dev_us = sorted(((us, k) for k, (_, us) in dev.items()), reverse=True)
@@ -948,6 +982,316 @@ def walk_against_sweep(inter, k11, k12, o, d, alive):
 
     out["morton_sort"] = cuda_time_ms(morton_sort, iters=5)
     return out
+
+
+def read_part(r):
+    """The next ``(X-Frame, png)`` part of the preview's multipart stream,
+    or None where the stream ends."""
+    from fspt_tpu_torch.render.preview import BOUNDARY
+
+    line = r.readline()
+    while line.strip() != b"--" + BOUNDARY:
+        if not line:
+            return None
+        line = r.readline()
+    headers = {}
+    for line in iter(r.readline, b"\r\n"):
+        key, value = line.split(b":", 1)
+        headers[key.strip().lower()] = value.strip()
+    return int(headers[b"x-frame"]), r.read(int(headers[b"content-length"]))
+
+
+def app_phases(dev, counters, reset_counts, cfg, cfg_mesh, hf_builder, cfg_preview,
+               cli_frames=4, preview_window_s=2.0):
+    """Phases 26-31: the app layer on the card — the CLI with ``--denoise``
+    (scenes/cornell.scene at ``cfg``), the denoiser timed on the flagship
+    framebuffer and held against the CPU, ``RenderSession`` on the flagship
+    at ``cfg`` and on ``hf_builder`` at ``cfg_mesh``, the preview server on
+    localhost at ``cfg_preview`` with two stream clients, and the profiling
+    helpers.  Returns the numbers of the ``app`` line."""
+    import statistics
+    import threading
+    import urllib.request
+
+    import torch
+
+    from fspt_tpu_torch import cli
+    from fspt_tpu_torch.interactive import RenderSession
+    from fspt_tpu_torch.ops import cuda_path
+    from fspt_tpu_torch.render import framebuffer as fb_mod
+    from fspt_tpu_torch.render.denoiser import denoise
+    from fspt_tpu_torch.render.preview import PreviewServer
+    from fspt_tpu_torch.scene import samples
+    from fspt_tpu_torch.utils import checkpoint, profiling
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    app = {}
+    launches = lambda: {k: c.launches for k, c in counters.items()}
+
+    def frames_ms(session, frames):
+        """Host-clock ms (FrameTimer: synchronized at both ends) and
+        segments of each of ``frames`` one-frame refines."""
+        out = []
+        for _ in range(frames):
+            timer = profiling.FrameTimer(session.device)
+            with timer.frame():
+                timer.add_segments(session.refine(1))
+            out.append((timer.seconds * 1e3, timer.segments))
+        return out
+
+    # 26. the CLI with --denoise
+    size = f"{cfg.width}x{cfg.height}, {cfg.spp} spp, depth {cfg.max_depth}"
+    phase(f"--denoise: fspt_tpu_torch.cli --denoise, scenes/cornell.scene {size}, "
+          f"{cli_frames} frames")
+    image = OUT / f"cornell_{cfg.width}_denoised.png"
+    ckpt_path = OUT / f"cornell_{cfg.width}_denoised.npz"
+    image.unlink(missing_ok=True)
+    ckpt_path.unlink(missing_ok=True)
+    reset_counts()
+    rc = cli.main(["--file", str(ROOT / "scenes" / "cornell.scene"),
+                   "--width", str(cfg.width), "--height", str(cfg.height),
+                   "--spp", str(cfg.spp), "--depth", str(cfg.max_depth),
+                   "--frames", str(cli_frames), "--seed", "0", "--denoise",
+                   "--output", str(image), "--checkpoint", str(ckpt_path)])
+    torch.cuda.synchronize()
+    assert rc == 0
+    check_launches(launches(), {"camera_path": cli_frames}, "--denoise CLI")
+    assert image.exists() and image.stat().st_size > 0
+    fb, frame = checkpoint.load(str(ckpt_path), device=dev)
+    ckpt_path.unlink()
+    assert frame == cli_frames
+    den = denoise(fb)
+    assert bool(torch.isfinite(den).all())
+    app["denoise_cli_display_mean"] = fb_mod.to_display(den).float().mean().item()
+    print(f"denoised display mean {app['denoise_cli_display_mean']:.2f} (noisy "
+          f"{fb_mod.to_display(fb.mean).float().mean().item():.2f}; below 15 means a broken "
+          f"render)", flush=True)
+    assert app["denoise_cli_display_mean"] > 15.0
+
+    # 27. the denoiser timed on the flagship framebuffer, held against the CPU
+    phase(f"denoiser: flagship framebuffer {size} after {cli_frames} frames, CUDA events, "
+          f"against the same denoise on the CPU")
+    flag = samples.build("flagship", device=dev)
+    flag_scene, flag_cam = flag.compile(device=dev), flag.cameras[0]
+    tracer = cuda_path.make_camera_path_tracer(flag_scene, flag_cam, cfg)
+
+    def frame_step(fb, frame):
+        out = tracer(0, frame * cfg.spp)
+        return fb_mod.accumulate(fb, out.radiance, out.aov_normal, out.aov_depth,
+                                 out.aov_mat, cfg.height, cfg.width, cfg.spp)
+
+    fb = fb_mod.create(cfg.height, cfg.width, device=dev)
+    for f in range(cli_frames):
+        fb = frame_step(fb, f)
+    denoise(fb)  # warm-up
+    runs = []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        den = denoise(fb)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    want = denoise(fb_mod.Framebuffer(*(t.cpu() for t in fb)))
+    err = (den.cpu() - want).abs()
+    torch.testing.assert_close(den.cpu(), want, rtol=1e-4, atol=1e-6)
+    app.update(denoise_ms=statistics.median(runs), denoise_ms_runs=runs,
+               denoise_max_abs_err=float(err.max()))
+    print(f"denoise: median {app['denoise_ms']:.3f} ms of {len(runs)} runs ({runs}); against "
+          f"the CPU: max abs err {app['denoise_max_abs_err']:.3g}", flush=True)
+
+    # 28. RenderSession on the flagship
+    phase(f"RenderSession: flagship {size}: refine(2), orbit, focus_at the center, "
+          f"refine(1), fast render refine(1)")
+    s = RenderSession(flag, cfg, seed=0, device=dev)
+    reset_counts()
+    first = frames_ms(s, 2)
+    check_launches(launches(), {"intersect": 2 * cfg.max_depth}, "session refine(2)")
+    s.orbit(0.3, 0.1)
+    dist = s.focus_at(cfg.width // 2, cfg.height // 2)
+    z_far = float(s.camera.z_far)
+    print(f"path {s.path_name}; focus distance {dist:.3f} (z_far {z_far})", flush=True)
+    assert 0.0 < dist < z_far, dist
+    fd = s.camera.focal_depth
+    assert fd.shape == () and fd.dtype == torch.float32 and fd.device.type == "cuda"
+    reset_counts()
+    after = frames_ms(s, 1)
+    check_launches(launches(), {"intersect": cfg.max_depth}, "session refine(1) after focus")
+    s.set_fast_render(True)
+    reset_counts()
+    fast = frames_ms(s, 1)
+    check_launches(launches(), {"intersect": 2}, "session fast render refine(1)")
+    fb = s.framebuffer
+    assert fb.mean.device.type == "cuda" and bool(torch.isfinite(fb.mean).all())
+    assert float(fb.count.min()) == float(cfg.spp) and s.frame == 1
+    snap = s.snapshot(denoise=True)
+    assert snap.shape == (cfg.height, cfg.width, 3) and str(snap.dtype) == "uint8"
+    app.update(session_flagship_ms_per_frame=first[1][0],
+               session_flagship_first_frame_ms=first[0][0],
+               session_flagship_after_focus_ms=after[0][0],
+               session_flagship_fast_ms=fast[0][0],
+               session_flagship_segments_per_s=first[1][1] / (first[1][0] * 1e-3))
+    print(f"session flagship: frames {[round(m, 3) for m, _ in first]} ms (the first builds "
+          f"the step), after focus {after[0][0]:.3f} ms, fast render {fast[0][0]:.3f} ms; "
+          f"{app['session_flagship_segments_per_s']:.4g} segments/s", flush=True)
+    del s
+
+    # 29. RenderSession on the mesh scene, uncached and with the first-hit cache
+    from fspt_tpu_torch.render.queue import DEFAULT_QUEUE
+
+    msize = f"{cfg_mesh.width}x{cfg_mesh.height}, {cfg_mesh.spp} spp, depth {cfg_mesh.max_depth}"
+    min_iters = -(-cfg_mesh.width * cfg_mesh.height * cfg_mesh.spp // DEFAULT_QUEUE)
+    for cached in (False, True):
+        label = "first-hit cache" if cached else "uncached"
+        phase(f"RenderSession: heightfield {msize}, {label}: refine(2)"
+              + (", orbit, refine(1)" if cached else ""))
+        s = RenderSession(hf_builder, cfg_mesh, seed=0, first_hit_cache=cached, device=dev)
+        reset_counts()
+        ms = frames_ms(s, 2)
+        got = launches()
+        print(f"path {s.path_name}; frames {[round(m, 2) for m, _ in ms]} ms; launches {got}",
+              flush=True)
+        pose = min_iters if cached else 0  # the pose pass: one call a queue-sized chunk
+        assert got["intersect"] == got["treelet_cull"] == got["treelet_sweep"] >= \
+            2 * min_iters + pose, got
+        key = "session_mesh_cached" if cached else "session_mesh"
+        app[key + "_ms_per_frame"] = ms[1][0]
+        app[key + "_first_frame_ms"] = ms[0][0]
+        app[key + "_launches"] = got["treelet_sweep"]
+        if cached:
+            fh_key = s._fh_key
+            s.orbit(0.2, 0.0)
+            reset_counts()
+            orbit_ms = frames_ms(s, 1)
+            got = launches()
+            assert s._fh_key != fh_key, "the pose bundle was not rebuilt after the orbit"
+            assert got["intersect"] == got["treelet_cull"] == got["treelet_sweep"] >= \
+                min_iters + pose, got
+            app["session_mesh_cached_after_orbit_ms"] = orbit_ms[0][0]
+            print(f"after the orbit: {orbit_ms[0][0]:.2f} ms (pose pass + frame); launches "
+                  f"{got}", flush=True)
+        fb = s.framebuffer
+        assert bool(torch.isfinite(fb.mean).all()) and fb.mean.device.type == "cuda"
+        del s
+
+    # 30. the preview on localhost: two stream clients, /ctl during a frame
+    phase(f"preview: flagship {cfg_preview.width}x{cfg_preview.height}, {cfg_preview.spp} spp, "
+          f"depth {cfg_preview.max_depth} on 127.0.0.1, two /stream clients")
+    ps = RenderSession(flag, cfg_preview, seed=0, device=dev)
+    alone = frames_ms(ps, 3)  # the session's frames without the server
+    ps.reset()
+    app["preview_session_ms_per_frame"] = alone[-1][0]
+    print(f"session frames alone: {[round(m, 3) for m, _ in alone]} ms", flush=True)
+    entered = threading.Event()
+    render = ps._render
+
+    def marked(*args, **kwargs):  # marks a frame in flight
+        entered.set()
+        return render(*args, **kwargs)
+
+    ps._render = marked
+    srv = PreviewServer(ps, host="127.0.0.1", port=0)
+    server = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://{srv.host}:{srv.port}"
+    seen, stop = ([], []), threading.Event()
+
+    def client(i):
+        with urllib.request.urlopen(f"{base}/stream", timeout=120) as r:
+            while not stop.is_set():
+                part = read_part(r)
+                if part is None:
+                    return
+                seen[i].append(part[0])
+
+    clients = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(2)]
+    try:
+        for c in clients:
+            c.start()
+        deadline = time.time() + 120
+        while min(len(x) for x in seen) < 3:
+            assert time.time() < deadline, f"the clients saw {[len(x) for x in seen]} frames"
+            assert all(c.is_alive() for c in clients), "a stream client ended"
+            time.sleep(0.01)
+        pub0, t0 = srv.published, time.perf_counter()
+        time.sleep(preview_window_s)
+        pub1, t1 = srv.published, time.perf_counter()
+        with srv.lock:
+            frame, committed = ps.frame, srv.frames_committed
+        snapshot = [list(x) for x in seen]
+        published = srv.published
+        print(f"clients saw frames {snapshot[0][:8]}... and {snapshot[1][:8]}...; session "
+              f"frame {frame}, committed {committed}, published {published}", flush=True)
+        # One advance a committed frame, however many clients watch; a frame
+        # is published after its commit, outside the session's lock.
+        n = srv.frames_per_update
+        assert frame == committed and committed - n <= published * n <= committed + n, \
+            (frame, committed, published)
+        for x in snapshot:
+            assert x == sorted(set(x)) and x[-1] <= published, x
+        app["preview_fps"] = (pub1 - pub0) / (t1 - t0)
+        with srv.lock:
+            committed_before = srv.frames_committed
+        entered.clear()
+        assert entered.wait(timeout=60)  # a frame is in flight
+        t_ctl = time.perf_counter()
+        msg = urllib.request.urlopen(f"{base}/ctl?yaw=0.3", timeout=60).read()
+        app["ctl_ms_in_flight"] = (time.perf_counter() - t_ctl) * 1e3
+        assert b"camera origin" in msg
+        pub_orbit, deadline = srv.published, time.time() + 60
+        while srv.published < pub_orbit + 2:  # at least one frame of the new camera
+            assert time.time() < deadline, "no frame published after the orbit"
+            time.sleep(0.01)
+        with srv.lock:
+            frame, committed = ps.frame, srv.frames_committed
+            count = float(ps.framebuffer.count.max())
+        # The accumulation holds only frames committed after the orbit: a
+        # frame rendered for the old camera was dropped, not folded in.
+        assert 1 <= frame <= committed - committed_before, (frame, committed, committed_before)
+        assert count == frame * cfg_preview.spp, (count, frame)
+        app["preview_dropped"] = srv.dropped
+        print(f"preview: {app['preview_fps']:.2f} published frames/s over "
+              f"{t1 - t0:.2f} s with 2 clients; /ctl?yaw answered in "
+              f"{app['ctl_ms_in_flight']:.2f} ms during a frame; dropped {srv.dropped}",
+              flush=True)
+    finally:
+        stop.set()
+        srv.shutdown()
+        for t in (*clients, server):
+            t.join(timeout=60)
+    assert not any(t.is_alive() for t in (*clients, server))
+
+    # 31. profiling: a device trace of one frame step, the memory counters
+    phase(f"profiling: device_trace of one CLI frame step ({size}), device_memory_stats")
+    trace_dir = OUT / "trace"
+    fb = fb_mod.create(cfg.height, cfg.width, device=dev)
+    for attempt in range(3):  # the tracer can lose a window's device records
+        with profiling.device_trace(str(trace_dir), device=dev) as trace_path:
+            fb = frame_step(fb, attempt)
+        trace = Path(trace_path)
+        events = json.loads(trace.read_text())["traceEvents"]
+        device_kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        holds_k2 = any("camera_path_kernel" in k for k in device_kernels)
+        print(f"trace: {len(events)} events, {len(device_kernels)} device kernels, kernel 2 "
+              f"{'held' if holds_k2 else 'missing'}", flush=True)
+        if holds_k2:
+            break
+    assert device_kernels, "the trace holds no device kernel"
+    app.update(trace_device_kernels=len(device_kernels), trace_holds_kernel_2=holds_k2,
+               trace_attempts=attempt + 1)
+    stats = profiling.device_memory_stats(dev)
+    assert stats and profiling.device_memory_stats("cpu") == {}
+    app.update(trace_bytes=trace.stat().st_size,
+               peak_allocated_bytes=stats["allocated_bytes.all.peak"],
+               peak_reserved_bytes=stats["reserved_bytes.all.peak"])
+    print(f"trace {trace} ({app['trace_bytes']} bytes); memory "
+          f"stats: {len(stats)} counters, peak allocated {app['peak_allocated_bytes']} bytes, "
+          f"peak reserved {app['peak_reserved_bytes']} bytes", flush=True)
+    profiling.log_event("chip_smoke_app", **{k: v for k, v in app.items()
+                                            if not isinstance(v, list)})
+    trace.unlink()
+    return app
 
 
 def main():
@@ -1846,6 +2190,12 @@ def main():
                                         "bvh_walk_unsorted", "treelet_walk_unsorted")}
               for label, r in walk_routes.items()}
     print(json.dumps({"kernels": kernels, "walk_routes": routes}))
+
+    # 26-31. the app layer
+    app = app_phases(dev, counters, reset_counts, cfg,
+                     RenderConfig(width=1024, height=1024, spp=4, max_depth=4), hfb,
+                     RenderConfig(width=400, height=240, spp=1))
+    print(json.dumps({"app": app}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

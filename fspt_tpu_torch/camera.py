@@ -140,3 +140,21 @@ def rays_for_lanes(camera: Camera, width: int, height: int, spp: int, seed,
     seg = torch.where(use_dof[:, None], dof_seg, seg)
 
     return start, seg, pixel_idx, sample_idx
+
+
+def probe_ray(camera: Camera, width: int, height: int, x, y):
+    """Un-jittered center ray of pixel (x, y), ``(origin, stop − origin)``
+    on the camera's device; reference engine.cpp:298-321.  The distance
+    probe of click-to-focus (``interactive.trace_range``) traces it."""
+    forward, right, up = camera_basis(camera)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=forward.device)
+    fovy = camera.fov_y * (vm.PI / 180.0)
+    aspect = f32(float(width)) / f32(float(height))
+    fovx = 2.0 * torch.atan(torch.tan(fovy * 0.5) * aspect)
+    half_proj_h = torch.tan(fovy * 0.5) * camera.z_far
+    half_proj_w = torch.tan(fovx * 0.5) * camera.z_far
+    proj_origin = camera.origin + forward * camera.z_far
+    x_dist = half_proj_w * ((f32(float(x)) / (width - 1)) * 2.0 - 1.0)
+    y_dist = half_proj_h * ((f32(float(y)) / (height - 1)) * 2.0 - 1.0)
+    stop = proj_origin + right * x_dist + up * y_dist
+    return camera.origin, stop - camera.origin

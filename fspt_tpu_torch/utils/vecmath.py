@@ -39,6 +39,16 @@ def make_plane(normal, point):
     return torch.cat([normal, d[..., None]], dim=-1)
 
 
+def rotate(v, angle, axis):
+    """Rodrigues rotation of ``v`` [..., 3] by ``angle`` (radians) about the
+    unit ``axis`` [..., 3]; reference vector3.h:315-333, term for term
+    (:func:`rotate_p`'s arithmetic)."""
+    angle = torch.as_tensor(angle, dtype=v.dtype, device=v.device)
+    out = rotate_p(v[..., 0], v[..., 1], v[..., 2], angle,
+                   axis[..., 0], axis[..., 1], axis[..., 2])
+    return torch.stack(out, dim=-1)
+
+
 def sphere_map_texcoords(normal):
     """Spherical environment texcoords; reference intersect.cpp:779-784."""
     u = torch.atan2(normal[..., 0], normal[..., 2]) / (2.0 * PI) + 0.5

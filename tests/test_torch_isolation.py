@@ -30,7 +30,9 @@ MODULES = [
     "fspt_tpu_torch.parallel.train", "fspt_tpu_torch.examples",
     "fspt_tpu_torch.examples.recover_albedo", "fspt_tpu_torch.examples.recover_camera",
     "fspt_tpu_torch.examples.recover_texture", "fspt_tpu_torch.examples.recover_vertices",
-    "fspt_tpu_torch.examples.recover_vertices_bvh",
+    "fspt_tpu_torch.examples.recover_vertices_bvh", "fspt_tpu_torch.interactive",
+    "fspt_tpu_torch.render.denoiser", "fspt_tpu_torch.render.preview",
+    "fspt_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
 

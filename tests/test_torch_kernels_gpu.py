@@ -630,3 +630,55 @@ def test_vertex_gather_rules(cuda, monkeypatch):
         assert bool(torch.isfinite(spread).all()) and float(spread.abs().max()) > 0.0
         torch.testing.assert_close(row0, spread, rtol=1e-5,
                                    atol=1e-6 * float(spread.abs().max()))
+
+
+@pytest.mark.parametrize("scene_name", ["flagship", "heightfield"])
+def test_render_session_launches_its_kernels(cuda, scene_name):
+    """A CUDA RenderSession renders through kernel 1 under the torch
+    integrator (flagship) or kernels 1, 5 and 6 under the queue
+    (heightfield, uncached and with the first-hit cache), and keeps its
+    framebuffer on the card."""
+    from fspt_tpu_torch.interactive import RenderSession
+    from fspt_tpu_torch.ops import cuda_bvh, cuda_trace
+    from fspt_tpu_torch.scene import samples
+
+    kw = {"grid": 40} if scene_name == "heightfield" else {}
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=4)
+    counters = (cuda_trace.INTERSECT, cuda_bvh.TREELET_CULL, cuda_bvh.TREELET_SWEEP)
+    for cached in (False, True):
+        s = RenderSession(samples.build(scene_name, device=cuda, **kw), cfg, seed=3,
+                          first_hit_cache=cached, device=cuda)
+        for c in counters:
+            c.launches = 0
+        assert s.refine(2) > 0
+        k1, k5, k6 = (c.launches for c in counters)
+        if scene_name == "flagship":
+            assert (k1, k5, k6) == (2 * cfg.max_depth, 0, 0)
+        else:
+            assert k1 == k5 == k6 > 0
+        fb = s.framebuffer
+        assert fb.mean.device.type == "cuda" and bool(torch.isfinite(fb.mean).all())
+        assert float(fb.count.min()) == 2.0 * cfg.spp
+        s.orbit(0.2, 0.1)
+        assert 0.0 < s.focus_at(32, 24) < float(s.camera.z_far)
+        assert s.camera.focal_depth.device.type == "cuda"
+        s.refine(1)
+        assert s.snapshot(denoise=True).shape == (48, 64, 3)
+
+
+def test_denoise_on_the_card_matches_the_cpu(cuda):
+    """The denoiser's torch code on the card against the same code on the
+    CPU, on a rendered framebuffer, at the CPU test's bar."""
+    from fspt_tpu_torch.interactive import RenderSession
+    from fspt_tpu_torch.render.denoiser import denoise
+    from fspt_tpu_torch.render.framebuffer import Framebuffer
+    from fspt_tpu_torch.scene import samples
+
+    s = RenderSession(samples.build("flagship", device=cuda),
+                      RenderConfig(width=96, height=64, spp=2, max_depth=4), seed=5, device=cuda)
+    s.refine(2)
+    fb = s.framebuffer
+    out = denoise(fb)
+    assert out.device.type == "cuda"
+    want = denoise(Framebuffer(*(t.cpu() for t in fb)))
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-6)
