@@ -165,8 +165,32 @@ Phases, each announced by one line:
    Chrome trace that holds device kernels (whether it holds kernel 2 is
    reported: the tracer can lose a window's first records, so a trace
    without it is taken again, three times at most), and
-   ``device_memory_stats`` of the card (peak bytes); then one JSON line of the app numbers (``app``), the card
-   line; the last line is ``{"ok": true, "device": {...}}``.
+   ``device_memory_stats`` of the card (peak bytes); then one JSON line of the app numbers (``app``);
+32. the parallel layer on a world of 1 on NCCL (``multihost.initialize()``,
+   ``make_mesh(1)``): ``make_sharded_megakernel_step`` on the flagship at
+   1024²×4, depth 8, 4 frames (kernel 2 launches 4 times), the
+   framebuffer bit-equal to the CLI frame step's on the same seed, ms a
+   frame beside it; through ``step.local`` the 4 bands of a 4-rank world
+   stitched bit-equal to one frame; the same on the textured cornell
+   (kernel 4);
+33. the queued mesh step (``make_sharded_render_step(queue=1 << 17)``) on
+   the heightfield at 1024²×4, depth 4 against ``make_scene_step(queue=)``
+   (rtol 2e-5 / atol 1e-6, material AOV and segments equal; kernels 1, 5,
+   6 once a queue iteration) and its 4 bands; the triangle-sharded step
+   (``fast=True``) at the reference's ``scene_sharded`` shape (512²×2,
+   depth 3) against the replicated mesh step at the same bars, ms a frame
+   for both; the 4-shard decomposition in one process on a mid-frame
+   262,144-ray queue iteration: each shard's kernels 5 and 6 against their
+   plain versions, the merged hits against the replicated intersector (ids
+   equal on ≥ 99.99 % of live rays, t bit-equal where they agree);
+34. fused recovery under ``make_mesh(1)`` at 1920×1080×4, depth 8: 2 steps
+   at pool 1 (kernel 8) bit-equal to ``mesh=None``, 1 at pool 8 (kernels
+   9-10), ms a step beside ``mesh=None``; kernel 8 on the half-frame bands
+   ``y0 = 0`` and ``540`` against one full-frame launch (rtol 1e-5);
+35. ``multihost.measure_scaling(device_counts=[1], use_megakernel=True)`` at
+   the headline size and ``entry.dryrun_multichip(1)``; one JSON line of
+   these phases' numbers (``parallel``), the card line; the last line is
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Outputs (images,
 profile table) go to build/chip_smoke/.  Without a CUDA card it exits 1
@@ -1294,6 +1318,292 @@ def app_phases(dev, counters, reset_counts, cfg, cfg_mesh, hf_builder, cfg_previ
     return app
 
 
+def parallel_phases(dev, counters, reset_counts, flag_scene, flag_cam, cfg, tex_scene, tex_cam,
+                    hf_scene, hf_cam, inter, cfg_hf, cfg_ss, mid_rays, train_scene, train_cam,
+                    cfg_t, target_t, start, frames=4, mesh_queue=MESH_QUEUE):
+    """Phases 32-35: the parallel layer on a world of 1 (NCCL on the card)
+    — the sharded camera-fused step on the flagship and the textured
+    Cornell box at ``cfg`` against the CLI's frame step, and every band of
+    a 4-rank world through ``step.local``; the queued mesh step on the
+    heightfield at ``cfg_hf`` against ``dispatch.make_scene_step``, and its
+    bands; the triangle-sharded fast step at ``cfg_ss`` against the
+    replicated mesh step, and the 4-shard decomposition in one process on
+    the mid-frame queue iteration ``mid_rays``; fused recovery under
+    ``make_mesh(1)`` at ``cfg_t`` against ``mesh=None``, and kernel 8 on two
+    half-frame bands against the full frame; the scaling harness and the
+    dry run.  Returns the numbers of the ``parallel`` line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fspt_tpu_torch import entry
+    from fspt_tpu_torch.ops import cuda_grad, kernel_check
+    from fspt_tpu_torch.parallel import (make_fused_recovery_step, make_mesh,
+                                         make_scene_sharded_render_step,
+                                         make_sharded_megakernel_step, make_sharded_render_step,
+                                         multihost, sharded_framebuffer)
+    from fspt_tpu_torch.parallel.mesh import Mesh
+    from fspt_tpu_torch.parallel.scene_shard import (make_shard_intersector,
+                                                     merge_stacked_hits, shard_scene_triangles)
+    from fspt_tpu_torch.render import framebuffer as fb_mod
+    from fspt_tpu_torch.render.dispatch import make_scene_step
+
+    t_start = time.time()
+    par = {}
+    launches = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
+    H, W, S = cfg.height, cfg.width, cfg.spp
+    size = f"{W}x{H}x{S}, depth {cfg.max_depth}"
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def stitch(bands):
+        return fb_mod.Framebuffer(*(torch.cat([getattr(b, k) for b in bands])
+                                    for k in fb_mod.Framebuffer._fields))
+
+    def assert_fb_equal(a, b, label):
+        for k in fb_mod.Framebuffer._fields:
+            assert torch.equal(getattr(a, k), getattr(b, k)), (label, k)
+
+    def abba(fa, fb):
+        """Mean ms of two host-bound frames timed alternately, a b b a (one
+        call each by CUDA events), so that a drift of the host's pace
+        falls on both."""
+        a1, b1, b2, a2 = (cuda_time_ms(f, iters=1, warmup=0) for f in (fa, fb, fb, fa))
+        return (a1 + a2) / 2, (b1 + b2) / 2
+
+    def assert_fb_close(a, b, label):
+        torch.testing.assert_close(a.mean, b.mean, rtol=2e-5, atol=1e-6, msg=label)
+        assert torch.equal(a.mat, b.mat), label
+
+    # 32. a world of 1 on NCCL: the camera-fused band step
+    multihost.initialize(device=dev)
+    backend = str(dist.get_backend())
+    mesh = make_mesh(1, device=dev)
+    mesh4 = Mesh(group=None, rank=0, size=4, device=mesh.device)  # bands only, no collective
+    print(f"world: {dist.get_world_size()} rank on {backend}, mesh of {mesh.size} on "
+          f"{mesh.device}", flush=True)
+    assert backend == ("nccl" if dev.type == "cuda" else "gloo")
+    for label, scene, cam, key in (("flagship", flag_scene, flag_cam, "camera_path"),
+                                   ("textured cornell", tex_scene, tex_cam, "deferred_path")):
+        phase(f"parallel: sharded megakernel step (world of 1, {backend}), {label} {size}, "
+              f"{frames} frames, against the CLI frame step; the 4 bands of a 4-rank world")
+        step = make_sharded_megakernel_step(mesh, scene, cam, cfg)
+        tracer = step.tracer
+
+        def cli_frame(st):
+            out = tracer(0, st["f"] * S)
+            st["fb"] = fb_mod.accumulate(st["fb"], out.radiance, out.aov_normal, out.aov_depth,
+                                         out.aov_mat, H, W, S)
+            st["f"] += 1
+            return out.segments
+
+        reset_counts()
+        fb = sharded_framebuffer(mesh, H, W)
+        for f in range(frames):
+            fb, segs = step(fb, 0, f)
+        sync()
+        got = launches()
+        check_launches(got, {key: frames}, f"sharded megakernel step, {label}")
+        cli = {"fb": fb_mod.create(H, W, device=dev), "f": 0}
+        for _ in range(frames):
+            cli_segs = cli_frame(cli)
+        assert_fb_equal(fb, cli["fb"], f"sharded step vs CLI frame step, {label}")
+        assert int(segs) == int(cli_segs), (int(segs), int(cli_segs))
+        st = {"fb": fb, "f": frames}
+
+        def sharded_frame():
+            st["fb"], _ = step(st["fb"], 0, st["f"])
+            st["f"] += 1
+
+        ms_sharded = cuda_time_ms(sharded_frame, iters=5, warmup=1)
+        ms_cli = cuda_time_ms(lambda: cli_frame(cli), iters=5, warmup=1)
+        print(f"{label}: sharded step {ms_sharded:.3f} ms/frame (kernel + accumulate + the "
+              f"segments' all_reduce) vs CLI frame step {ms_cli:.3f} ms/frame; framebuffer "
+              f"bit-equal after {frames} frames; {int(segs)} segments a frame", flush=True)
+        step4 = make_sharded_megakernel_step(mesh4, scene, cam, cfg)
+        reset_counts()
+        bands = [step4.local(b, fb_mod.create(H // 4, W, device=dev), 0, 0) for b in range(4)]
+        sync()
+        check_launches(launches(), {key: 4}, f"4 bands, {label}")
+        one = {"fb": fb_mod.create(H, W, device=dev), "f": 0}
+        one_segs = cli_frame(one)
+        assert_fb_equal(stitch([b for b, _ in bands]), one["fb"], f"4 bands, {label}")
+        assert sum(int(s) for _, s in bands) == int(one_segs)
+        print(f"{label}: 4 bands of {H // 4} rows stitched bit-equal to the full frame",
+              flush=True)
+        par[key] = dict(sharded_ms=ms_sharded, cli_frame_ms=ms_cli, launches=got[key],
+                        bit_equal=True, bands_bit_equal=True)
+
+    # 33. the queued mesh step, its bands, and the triangle-sharded step
+    Hq, Wq, Sq = cfg_hf.height, cfg_hf.width, cfg_hf.spp
+    phase(f"parallel: queued mesh step, make_sharded_render_step(queue={mesh_queue}), "
+          f"heightfield {Wq}x{Hq}x{Sq}, depth {cfg_hf.max_depth}, against "
+          f"make_scene_step(queue={mesh_queue}); its 4 bands")
+    qstep = make_sharded_render_step(mesh, cfg_hf, intersector=inter, queue=mesh_queue)
+    _, dstep = make_scene_step(hf_scene, cfg_hf, queue=mesh_queue)
+    reset_counts()
+    fb_q, segs_q = qstep(hf_scene, hf_cam, sharded_framebuffer(mesh, Hq, Wq), 0, 0)
+    sync()
+    got = launches()
+    iters = got["treelet_sweep"]
+    check_launches(got, {"intersect": iters, "treelet_cull": iters, "treelet_sweep": iters},
+                   "queued mesh step")
+    assert iters > 0
+    fb_d, segs_d = dstep(hf_scene, hf_cam, fb_mod.create(Hq, Wq, device=dev), 0, 0)
+    assert_fb_close(fb_q, fb_d, "queued mesh step vs make_scene_step")
+    assert int(segs_q) == int(segs_d), (int(segs_q), int(segs_d))
+    qs = {"fb": fb_q, "f": 1}
+    ds = {"fb": fb_d, "f": 1}
+
+    def q_frame(stp, st):
+        st["fb"], _ = stp(hf_scene, hf_cam, st["fb"], 0, st["f"])
+        st["f"] += 1
+
+    ms_q, ms_d = abba(lambda: q_frame(qstep, qs), lambda: q_frame(dstep, ds))
+    q4 = make_sharded_render_step(mesh4, cfg_hf, intersector=inter, queue=mesh_queue)
+    bands = [q4.local(b, hf_scene, hf_cam, fb_mod.create(Hq // 4, Wq, device=dev), 0, 0)
+             for b in range(4)]
+    sync()
+    assert_fb_close(stitch([b for b, _ in bands]), fb_q, "4 queued bands")
+    assert sum(int(s) for _, s in bands) == int(segs_q)
+    print(f"queued mesh step {ms_q:.2f} ms/frame vs make_scene_step {ms_d:.2f} ms/frame; "
+          f"{iters} queue iterations (kernels 1, 5, 6 once each); {int(segs_q)} segments; "
+          f"4 bands stitched within rtol 2e-5 / atol 1e-6, material AOV equal", flush=True)
+    par["queued_mesh"] = dict(sharded_ms=ms_q, scene_step_ms=ms_d, iterations=iters,
+                              segments=int(segs_q))
+
+    Hs, Ws, Ss = cfg_ss.height, cfg_ss.width, cfg_ss.spp
+    phase(f"parallel: triangle-sharded step (fast=True, world of 1), heightfield "
+          f"{Ws}x{Hs}x{Ss}, depth {cfg_ss.max_depth}, against the replicated mesh step")
+    ss = make_scene_sharded_render_step(mesh, cfg_ss, hf_scene, fast=True, queue=mesh_queue)
+    rep_step = make_sharded_render_step(mesh, cfg_ss, intersector=inter, queue=mesh_queue)
+    reset_counts()
+    fb_s, segs_s = ss(hf_scene, hf_cam, fb_mod.create(Hs, Ws, device=dev), 0, 0)
+    sync()
+    got = launches()
+    iters_s = got["treelet_sweep"]
+    check_launches(got, {"intersect": iters_s, "treelet_cull": iters_s,
+                         "treelet_sweep": iters_s}, "triangle-sharded step")
+    assert iters_s > 0
+    fb_r, segs_r = rep_step(hf_scene, hf_cam, sharded_framebuffer(mesh, Hs, Ws), 0, 0)
+    assert_fb_close(fb_s, fb_r, "triangle-sharded vs replicated")
+    assert int(segs_s) == int(segs_r), (int(segs_s), int(segs_r))
+    ss_st = {"fb": fb_s, "f": 1}
+    rp_st = {"fb": fb_r, "f": 1}
+    ms_ss, ms_rp = abba(lambda: q_frame(ss, ss_st), lambda: q_frame(rep_step, rp_st))
+    print(f"triangle-sharded step {ms_ss:.2f} ms/frame vs replicated mesh step "
+          f"{ms_rp:.2f} ms/frame; {iters_s} queue iterations, kernels 1, 5 and 6 once each",
+          flush=True)
+    par["scene_sharded"] = dict(sharded_ms=ms_ss, replicated_ms=ms_rp, iterations=iters_s,
+                                launches=dict(intersect=iters_s, treelet_cull=iters_s,
+                                              treelet_sweep=iters_s))
+
+    o, d, alive = mid_rays
+    phase(f"parallel: the 4-shard decomposition in one process on the mid-frame queue "
+          f"iteration ({o.shape[0]} rays, {int(alive.sum())} live): each shard's kernels 5, 6 "
+          f"vs plain, the merge against the replicated intersector")
+    built, _, bounds = shard_scene_triangles(hf_scene, 4)
+    hits = []
+    for s in range(4):
+        bind = make_shard_intersector(hf_scene, built[s], fast=True)
+        local = bind(hf_scene)
+        if dev.type == "cuda":
+            rep = kernel_check.check_treelet_kernels(
+                bind.traverser, *local.sweep_inputs(o, d, alive)[:3])
+            print(f"shard {s} ({int(bounds[s + 1] - bounds[s])} triangles, "
+                  f"{bind.traverser.tables.n_leaves} treelets): kernels 5, 6 vs plain "
+                  f"{json.dumps(rep)}", flush=True)
+        hits.append(local(o, d, alive))
+    merged = merge_stacked_hits(hits)
+    ref = inter(o, d, alive)
+    sync()
+    n_live = int(alive.sum())
+    agree = alive & (merged.prim_id == ref.prim_id)
+    n_agree = int(agree.sum())
+    t_equal = bool(torch.equal(merged.t[agree], ref.t[agree]))
+    rest = alive & ~agree
+    dt = (merged.t[rest] - ref.t[rest]).abs()
+    print(f"merged 4-shard hits vs replicated: ids equal on {n_agree} of {n_live} live rays "
+          f"({n_agree / max(n_live, 1):.6f}), t bit-equal where they agree: {t_equal}; "
+          f"{n_live - n_agree} rays differ (max |dt| {float(dt.max()) if dt.numel() else 0:.3g})",
+          flush=True)
+    assert n_agree >= 0.9999 * n_live and t_equal
+    par["four_shards"] = dict(live=n_live, ids_equal=n_agree, differ=n_live - n_agree,
+                              t_bit_equal_where_ids_agree=t_equal)
+
+    # 34. recovery under a mesh
+    Ht, Wt = cfg_t.height, cfg_t.width
+    phase(f"parallel: fused recovery under make_mesh(1), flagship {Wt}x{Ht}x{cfg_t.spp}, "
+          f"depth {cfg_t.max_depth}: pool 1 (kernel 8) against mesh=None, pool 8 (kernels "
+          f"9-10); kernel 8 on two half-frame bands against the full frame")
+    params0 = {k: start[k] for k in ("diffuse", "emissive")}
+    runs = {}
+    for label, m in (("mesh", mesh), ("none", None)):
+        step = make_fused_recovery_step(m, train_scene, train_cam, cfg_t, pool=1, lr=0.5)
+        params = dict(params0)
+        reset_counts()
+        losses = []
+        for it in range(2):
+            params, loss = step(params, train_scene, train_cam, target_t, 9, it)
+            losses.append(loss)
+        sync()
+        check_launches(launches(), {"fused_loss": 2}, f"pool 1, mesh {label}")
+        runs[label] = (params, losses, step)
+    for k in params0:
+        assert torch.equal(runs["mesh"][0][k], runs["none"][0][k]), k
+    assert all(torch.equal(a, b) for a, b in zip(runs["mesh"][1], runs["none"][1]))
+    ms_mesh = cuda_time_ms(lambda: runs["mesh"][2](params0, train_scene, train_cam, target_t,
+                                                   9, 0), iters=3, warmup=1)
+    ms_none = cuda_time_ms(lambda: runs["none"][2](params0, train_scene, train_cam, target_t,
+                                                   9, 0), iters=3, warmup=1)
+    step8 = make_fused_recovery_step(mesh, train_scene, train_cam, cfg_t, pool=8, lr=0.5)
+    reset_counts()
+    p8, loss8 = step8(dict(params0), train_scene, train_cam, target_t, 9, 0)
+    sync()
+    check_launches(launches(), {"grad_forward": 2, "grad_backward": 2}, "pool 8 under a mesh")
+    assert np.isfinite(float(loss8)) and all(bool(torch.isfinite(v).all()) for v in p8.values())
+    ms_8 = cuda_time_ms(lambda: step8(params0, train_scene, train_cam, target_t, 9, 0),
+                        iters=2, warmup=0)
+    fused = cuda_grad.make_fused_loss_grad_fn(train_scene, train_cam, cfg_t)
+    half = Ht // 2
+    reset_counts()
+    loss_f, g_f, seg_f = fused(params0, target_t, 9, 0, 0, Ht)
+    parts = [fused(params0, target_t[y0:y0 + half], 9, 0, y0, half) for y0 in (0, half)]
+    sync()
+    check_launches(launches(), {"fused_loss": 3}, "kernel 8 on the frame and two bands")
+    loss_b = (parts[0][0] + parts[1][0]) / 2
+    torch.testing.assert_close(loss_b, loss_f, rtol=1e-5, atol=0.0)
+    for k in g_f:
+        torch.testing.assert_close((parts[0][1][k] + parts[1][1][k]) / 2, g_f[k], rtol=1e-5,
+                                   atol=1e-5 * float(g_f[k].abs().max()))
+    assert int(parts[0][2]) + int(parts[1][2]) == int(seg_f)
+    print(f"pool 1 under make_mesh(1): 2 steps bit-equal to mesh=None; {ms_mesh:.2f} ms/step "
+          f"vs {ms_none:.2f} ms/step with mesh=None; pool 8 {ms_8:.2f} ms/step; kernel 8 on "
+          f"bands y0 = 0 and {half}: mean loss {float(loss_b):.8g} vs full frame "
+          f"{float(loss_f):.8g} (rel {abs(float(loss_b / loss_f) - 1):.3g})", flush=True)
+    par["recovery"] = dict(pool1_mesh_ms=ms_mesh, pool1_none_ms=ms_none, pool8_mesh_ms=ms_8,
+                           bit_equal=True, band_loss_rel_err=abs(float(loss_b / loss_f) - 1))
+
+    # 35. the scaling harness and the dry run
+    phase(f"parallel: multihost.measure_scaling(device_counts=[1], use_megakernel=True), "
+          f"flagship {size}; entry.dryrun_multichip(1)")
+    rows = multihost.measure_scaling(flag_scene, flag_cam, cfg, device_counts=[1], frames=3,
+                                     use_megakernel=True)
+    print(f"scaling: {json.dumps(rows)}", flush=True)
+    assert [r["devices"] for r in rows] == [1] and rows[0]["rays_per_sec"] > 0
+    dry = entry.dryrun_multichip(1, device=dev)
+    print(f"dryrun_multichip(1): {json.dumps(dry)}", flush=True)
+    assert dry["queued_segments"] == dry["bvh_segments"] > 0
+    par["scaling"] = rows
+    par["dryrun"] = dry
+    dist.destroy_process_group()
+    par["phases_s"] = time.time() - t_start
+    print(f"phases 32-35: {par['phases_s']:.1f} s", flush=True)
+    return par
+
+
 def main():
     import torch
 
@@ -2196,6 +2506,14 @@ def main():
                      RenderConfig(width=1024, height=1024, spp=4, max_depth=4), hfb,
                      RenderConfig(width=400, height=240, spp=1))
     print(json.dumps({"app": app}))
+
+    # 32-35. the parallel layer on a world of 1
+    par = parallel_phases(dev, counters, reset_counts, flag_scene, flag_cam, cfg, tex_scene,
+                          tb.cameras[0], hf_scene, hf_cam, inter, cfg_hf,
+                          RenderConfig(width=512, height=512, spp=2, max_depth=3), calls[mid],
+                          train_scene, train_cam, cfg_t, target_t, start)
+    par["card"] = smi
+    print(json.dumps({"parallel": par}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

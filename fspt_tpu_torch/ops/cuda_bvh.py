@@ -551,6 +551,18 @@ def make_culled_traverser(bvh: FlatBVH, device=None, plain: bool = False):
     return traverse
 
 
+def box_exit(start, seg, lo, hi):
+    """Each ray's t (in units of ``seg``) just past its exit from the box
+    ``[lo, hi]``, 0 where it misses the box: no triangle inside the box
+    is hit farther along."""
+    inv = _rcp(seg)
+    ta = (lo - start) * inv
+    tb = (hi - start) * inv
+    tnear = torch.amax(torch.minimum(ta, tb), dim=-1)
+    tfar = torch.amin(torch.maximum(ta, tb), dim=-1)
+    return torch.where((tnear <= tfar) & (tfar > 0.0), tfar * 1.0001 + 1e-5, 0.0)
+
+
 def make_mesh_intersector(scene_pack, plain: bool = False):
     """Full-scene intersector for BVH scenes, ``fn(start, seg[, alive]) →
     Hit`` (``accepts_alive``), or None when it does not apply.
@@ -587,18 +599,10 @@ def make_mesh_intersector(scene_pack, plain: bool = False):
     box_lo = torch.from_numpy(np.minimum(v0, np.minimum(v1, v2)).min(axis=0)).to(dev)
     box_hi = torch.from_numpy(np.maximum(v0, np.maximum(v1, v2)).max(axis=0)).to(dev)
 
-    def box_exit(start, seg):
-        inv = _rcp(seg)
-        ta = (box_lo - start) * inv
-        tb = (box_hi - start) * inv
-        tnear = torch.amax(torch.minimum(ta, tb), dim=-1)
-        tfar = torch.amin(torch.maximum(ta, tb), dim=-1)
-        return torch.where((tnear <= tfar) & (tfar > 0.0), tfar * 1.0001 + 1e-5, 0.0)
-
     def sweep_inputs(start, seg, alive=None, base=None):
         if base is None:
             base = base_fn(start, seg)
-        t_init = torch.minimum(base.t, box_exit(start, seg))
+        t_init = torch.minimum(base.t, box_exit(start, seg, box_lo, box_hi))
         if alive is not None:
             t_init = torch.where(alive, t_init, 0.0)
         perm = torch.argsort(morton_keys(start, seg, alive, box_lo, box_hi), stable=True)

@@ -1,11 +1,13 @@
-"""Differentiable recovery on one device: gradient steps on scene parameters.
+"""Differentiable recovery: gradient steps on scene parameters, sharded over a mesh.
 
-Port of fspt_tpu/parallel/train.py for one device: optimize material albedo,
-emission, glow, texels, the scalar fields, the camera or triangle vertices
-so the rendered image matches a target (the reference's BASELINE configs
-4-5).  The reference shards rays over a device
-mesh and ``pmean``-reduces the gradients; this slice takes ``mesh=None``
-only, and the sharded form comes with the port's parallel slice.
+Port of fspt_tpu/parallel/train.py: optimize material albedo, emission,
+glow, texels, the scalar fields, the camera or triangle vertices so the
+rendered image matches a target (the reference's BASELINE configs 4-5).
+Rays are data-parallel over the mesh of parallel/mesh.py: each rank
+renders its scanline band, and the loss and the gradients are
+``all_reduce``-averaged over the ranks (the reference's ``pmean``) before
+the update, so the replicated parameters stay equal on every rank.
+``mesh=None`` is one device.
 
 The renderers differentiated here: the gradient kernels of
 ops/cuda_grad.py — kernel 8 (the fused dual-buffer loss, affine or whole
@@ -26,9 +28,6 @@ import torch
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.render import integrator
 from fspt_tpu_torch.utils import vecmath as vm
-
-DISTRIBUTED_SLICE = ("a device mesh comes with the parallel slice of the port "
-                     "(torch.distributed); pass mesh=None")
 
 # Physical box constraints per material-table column; projecting onto them
 # after each step breaks the albedo↔emission gauge freedom (radiance only
@@ -92,12 +91,21 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
                        render_fn=None, pair_render_fn=None, loss_fn=None,
                        loss_and_grad_fn=None):
     """A gradient step on the named parameters (material-table columns or
-    ``texels``), on one device.
+    ``texels``), on one device (``mesh=None``) or sharded over ``mesh``
+    (parallel/mesh.make_mesh).
 
     Returns ``step(params, scene, camera, target, seed, frame_idx) →
     (params, loss)``, with ``target`` the full [H,W,3] image and ``params``
-    a dict of tensors; plain SGD at ``lr``, then the clip to
-    ``constraints`` (default :data:`DEFAULT_CONSTRAINTS`).
+    a dict of tensors, replicated on every rank; plain SGD at ``lr``, then
+    the clip to ``constraints`` (default :data:`DEFAULT_CONSTRAINTS`).
+
+    Under a mesh of ``n`` ranks each rank renders its band, rows ``y0 =
+    rank·H/n`` to ``y0 + H/n`` (``ValueError`` where ``n`` does not divide
+    the height), against its slice of ``target``; every hook below gets
+    that ``(y0, rows)``; the loss and the gradients are averaged over the
+    ranks (``all_reduce``) before the update, so every rank applies the
+    same one.  Pooling patches do not cross bands, so the objective
+    depends on the rank count unless ``pool == 1``.
 
     ``optimizer`` makes a ``torch.optim`` optimizer from a list of tensors
     (e.g. ``lambda ps: torch.optim.Adam(ps, lr=0.05)``).  With it, the
@@ -120,32 +128,35 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
     ``loss_and_grad_fn(params, target, seed, frame_idx, y0, rows) → (loss,
     grads, segments)`` replaces all of it (the fused loss kernel,
     ops/cuda_grad.make_fused_loss_grad_fn).
-
-    ``mesh`` must be None: the reference's sharded form comes with the
-    parallel slice and raises ``NotImplementedError``.
     """
-    if mesh is not None:
-        raise NotImplementedError(DISTRIBUTED_SLICE)
-    rows = cfg.height
+    if mesh is None:
+        rows, y0 = cfg.height, 0
+    else:
+        if cfg.height % mesh.size != 0:
+            raise ValueError(f"height {cfg.height} not divisible by {mesh.size} devices")
+        if not mesh.member:
+            raise ValueError("this rank is outside the mesh")
+        rows = cfg.height // mesh.size
+        y0 = mesh.rank * rows
     box = DEFAULT_CONSTRAINTS if constraints is None else constraints
 
-    def loss_and_grads(params, scene, camera, target, seed, frame_idx):
+    def band_loss_and_grads(params, scene, camera, target, seed, frame_idx):
         if loss_and_grad_fn is not None:
-            loss, grads, _segs = loss_and_grad_fn(params, target, seed, frame_idx, 0, rows)
+            loss, grads, _segs = loss_and_grad_fn(params, target, seed, frame_idx, y0, rows)
             return loss, grads
         leaves = {k: params[k].detach().clone().requires_grad_() for k in param_names}
         live = {**params, **leaves}
         if pair_render_fn is not None:
-            img_a, img_b = pair_render_fn(live, scene, camera, seed, frame_idx, 0, rows)
+            img_a, img_b = pair_render_fn(live, scene, camera, seed, frame_idx, y0, rows)
         elif render_fn is not None:
-            img_a = render_fn(live, scene, camera, seed, frame_idx, 0, rows)
-            img_b = render_fn(live, scene, camera, seed, frame_idx + 10007, 0, rows)
+            img_a = render_fn(live, scene, camera, seed, frame_idx, y0, rows)
+            img_b = render_fn(live, scene, camera, seed, frame_idx + 10007, y0, rows)
         else:
             scene = apply_fn(scene, live)
             inter = None if intersector_bind is None else intersector_bind(live)
-            img_a = render_image_rows(scene, camera, cfg, seed, frame_idx, 0, rows,
+            img_a = render_image_rows(scene, camera, cfg, seed, frame_idx, y0, rows,
                                       intersector=inter)
-            img_b = render_image_rows(scene, camera, cfg, seed, frame_idx + 10007, 0, rows,
+            img_b = render_image_rows(scene, camera, cfg, seed, frame_idx + 10007, y0, rows,
                                       intersector=inter)
         if loss_fn is not None:
             loss = loss_fn(img_a, img_b, target)
@@ -155,6 +166,15 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
                                     allow_unused=True)
         return loss.detach(), {k: torch.zeros_like(leaves[k]) if g is None else g
                                for k, g in zip(param_names, grads)}
+
+    def loss_and_grads(params, scene, camera, target, seed, frame_idx):
+        if mesh is None:
+            return band_loss_and_grads(params, scene, camera, target, seed, frame_idx)
+        loss, grads = band_loss_and_grads(params, scene, camera, target[y0:y0 + rows], seed,
+                                          frame_idx)
+        names = list(grads)
+        mean = mesh.pmean([loss] + [grads[k] for k in names])
+        return mean[0], dict(zip(names, mean[1:]))
 
     def clip_(params):
         with torch.no_grad():
@@ -215,7 +235,8 @@ def make_fused_recovery_step(mesh, scene, camera, cfg: RenderConfig,
     ``params`` of the returned step is a dict of the selected fields (e.g.
     ``{"diffuse": [M,3], "camera": camera_pvec(cam)}``).  ``"camera"`` needs
     construction 1 and raises ``ValueError`` elsewhere.  Returns the step of
-    :func:`make_recovery_step`; ``mesh`` must be None.  Raises ValueError
+    :func:`make_recovery_step` on ``mesh`` (each rank launches its band;
+    the gradients are averaged over the ranks).  Raises ValueError
     for a scene the megakernels do not take (use make_recovery_step then).
     """
     from fspt_tpu_torch.ops.cuda_grad import (CAMERA_FIELD, RADIOMETRIC_FIELDS,
@@ -223,13 +244,11 @@ def make_fused_recovery_step(mesh, scene, camera, cfg: RenderConfig,
                                               make_fused_loss_grad_fn,
                                               make_grad_image_fn)
 
-    if mesh is not None:
-        raise NotImplementedError(DISTRIBUTED_SLICE)
     fields = tuple(fields)
     if loss_fn is None and pool == 1 and "texels" not in fields:
         fused = make_fused_loss_grad_fn(scene, camera, cfg, fields=fields)
         if fused is not None:
-            return make_recovery_step(None, cfg, param_names=fields, lr=lr,
+            return make_recovery_step(mesh, cfg, param_names=fields, lr=lr,
                                       optimizer=optimizer, constraints=constraints,
                                       pool=1, loss_and_grad_fn=fused)
     if CAMERA_FIELD in fields:
@@ -247,7 +266,7 @@ def make_fused_recovery_step(mesh, scene, camera, cfg: RenderConfig,
         img, _segs = img_fn(params, seed, frame_idx, y0, rows)
         return img
 
-    return make_recovery_step(None, cfg, param_names=fields, lr=lr, optimizer=optimizer,
+    return make_recovery_step(mesh, cfg, param_names=fields, lr=lr, optimizer=optimizer,
                               constraints=constraints, pool=pool, render_fn=render_fn,
                               loss_fn=loss_fn)
 
@@ -261,8 +280,8 @@ def make_vertex_recovery_step(mesh, cfg: RenderConfig, lr: float = 0.05, optimiz
     ``params`` is ``{"v0", "v1", "v2": [T,3]}``, the geometry is rebuilt
     from them (:func:`apply_vertices`) and torch autograd runs through the
     brute-force intersector.  ``cfg.edge_eps`` should be > 0, so that
-    silhouette motion is differentiable; no constraints.  ``mesh`` must be
-    None."""
+    silhouette motion is differentiable; no constraints.  Rays shard over
+    ``mesh`` as in :func:`make_recovery_step`."""
     return make_recovery_step(mesh, cfg, param_names=VERTICES, lr=lr, optimizer=optimizer,
                               constraints={}, apply_fn=apply_vertices, pool=pool)
 
@@ -295,7 +314,8 @@ def make_bvh_vertex_recovery_step(mesh, cfg: RenderConfig, scene, lr: float = 0.
     ``"planar"`` replay is in ROADMAP.md's "Not ported" list and raises
     ``ValueError``.  The returned step carries ``record(params, scene,
     camera, seed, frame_idx, y0, rows) → (ids, hitm)``, phase 1 alone.
-    ``mesh`` must be None.
+    Rays shard over ``mesh`` as in :func:`make_recovery_step`: each rank
+    records and replays its band.
     """
     import dataclasses
 
@@ -303,8 +323,6 @@ def make_bvh_vertex_recovery_step(mesh, cfg: RenderConfig, scene, lr: float = 0.
                                                    make_recorded_replay, tris_from_scene)
     from fspt_tpu_torch.render.queue import DEFAULT_QUEUE, render_queued
 
-    if mesh is not None:
-        raise NotImplementedError(DISTRIBUTED_SLICE)
     if replay == "planar":
         raise ValueError("the planar replay (make_planar_recorded_replay) is in ROADMAP.md's "
                          "'Not ported' list; use replay='wavefront'")
@@ -356,7 +374,7 @@ def make_bvh_vertex_recovery_step(mesh, cfg: RenderConfig, scene, lr: float = 0.
         rad = out.radiance.reshape(rows, cfg.width, 2, cfg.spp, 3)
         return rad[:, :, 0].mean(dim=2), rad[:, :, 1].mean(dim=2)
 
-    step = make_recovery_step(None, cfg, param_names=VERTICES, lr=lr, optimizer=optimizer,
+    step = make_recovery_step(mesh, cfg, param_names=VERTICES, lr=lr, optimizer=optimizer,
                               constraints={}, apply_fn=lambda s, p: s, pool=pool,
                               pair_render_fn=pair_render)
     step.record = record

@@ -26,8 +26,11 @@ MODULES = [
     "fspt_tpu_torch.scene.geometry", "fspt_tpu_torch.scene.mesh",
     "fspt_tpu_torch.scene.parser", "fspt_tpu_torch.scene.samples",
     "fspt_tpu_torch.utils.checkpoint", "fspt_tpu_torch.utils.image",
+    "fspt_tpu_torch.utils.mathx",
     "fspt_tpu_torch.utils.native", "fspt_tpu_torch.utils.vecmath", "fspt_tpu_torch.parallel",
-    "fspt_tpu_torch.parallel.train", "fspt_tpu_torch.examples",
+    "fspt_tpu_torch.parallel.mesh", "fspt_tpu_torch.parallel.multihost",
+    "fspt_tpu_torch.parallel.render", "fspt_tpu_torch.parallel.scene_shard",
+    "fspt_tpu_torch.parallel.train", "fspt_tpu_torch.entry", "fspt_tpu_torch.examples",
     "fspt_tpu_torch.examples.recover_albedo", "fspt_tpu_torch.examples.recover_camera",
     "fspt_tpu_torch.examples.recover_texture", "fspt_tpu_torch.examples.recover_vertices",
     "fspt_tpu_torch.examples.recover_vertices_bvh", "fspt_tpu_torch.interactive",
@@ -97,3 +100,18 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
         bvh.build_bvh(*tri)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         samples.build("heightfield", grid=10)
+    # The parallel layer: the mesh, the world (NCCL on the card; never gloo
+    # in its place) and the entry points.
+    from fspt_tpu_torch import entry
+    from fspt_tpu_torch.parallel import make_mesh, multihost
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.dryrun_multichip(1)

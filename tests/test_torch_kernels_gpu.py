@@ -682,3 +682,99 @@ def test_denoise_on_the_card_matches_the_cpu(cuda):
     assert out.device.type == "cuda"
     want = denoise(Framebuffer(*(t.cpu() for t in fb)))
     torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL world (``multihost.initialize()``: an in-process
+    store) and its mesh of 1; torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on the card only")
+    import torch.distributed as dist
+
+    from fspt_tpu_torch.parallel import make_mesh, multihost
+
+    owned = not dist.is_initialized()
+    multihost.initialize()
+    assert dist.get_backend() == "nccl"
+    yield make_mesh(1)
+    if owned:
+        dist.destroy_process_group()
+
+
+def test_sharded_megakernel_step_on_one_nccl_rank(nccl_mesh):
+    """Kernel 2 through ``make_sharded_megakernel_step`` on a one-rank NCCL
+    world at 128²×2: two frames bit-equal to the tracer's own launches and
+    accumulate, the segments all-reduced on the card; then ``step.local``
+    over the 4 bands of a 4-rank world, stitched bit-equal to one frame."""
+    from fspt_tpu_torch.ops import cuda_path
+    from fspt_tpu_torch.parallel import make_sharded_megakernel_step, sharded_framebuffer
+    from fspt_tpu_torch.parallel.mesh import Mesh
+    from fspt_tpu_torch.render import framebuffer as fb_mod
+    from fspt_tpu_torch.scene import samples
+
+    dev = nccl_mesh.device
+    cfg = RenderConfig(width=128, height=128, spp=2, max_depth=8)
+    b = samples.build("flagship", device=dev)
+    scene, cam = b.compile(device=dev), b.cameras[0]
+    step = make_sharded_megakernel_step(nccl_mesh, scene, cam, cfg)
+    tracer = cuda_path.make_camera_path_tracer(scene, cam, cfg)
+    before = cuda_path.CAMERA_PATH.launches
+    fb = sharded_framebuffer(nccl_mesh, cfg.height, cfg.width)
+    ref = fb_mod.create(cfg.height, cfg.width, device=dev)
+    for f in range(2):
+        fb, segs = step(fb, 3, f)
+        out = tracer(3, f * cfg.spp)
+        ref = fb_mod.accumulate(ref, out.radiance, out.aov_normal, out.aov_depth, out.aov_mat,
+                                cfg.height, cfg.width, cfg.spp)
+        assert segs.device.type == "cuda" and int(segs) == int(out.segments)
+    assert cuda_path.CAMERA_PATH.launches - before == 4
+    for k in fb_mod.Framebuffer._fields:
+        assert torch.equal(getattr(fb, k), getattr(ref, k)), k
+
+    step4 = make_sharded_megakernel_step(Mesh(group=None, rank=0, size=4, device=dev), scene,
+                                         cam, cfg)
+    bands = [step4.local(band, fb_mod.create(cfg.height // 4, cfg.width, device=dev), 3, 0)
+             for band in range(4)]
+    out = tracer(3, 0)
+    one = fb_mod.accumulate(fb_mod.create(cfg.height, cfg.width, device=dev), out.radiance,
+                            out.aov_normal, out.aov_depth, out.aov_mat, cfg.height, cfg.width,
+                            cfg.spp)
+    for k in fb_mod.Framebuffer._fields:
+        assert torch.equal(torch.cat([getattr(b, k) for b, _ in bands]), getattr(one, k)), k
+    assert sum(int(s) for _, s in bands) == int(out.segments)
+
+
+def test_fused_loss_kernel_on_two_bands_against_the_frame(nccl_mesh):
+    """Kernel 8 affine on the bands ``y0 = 0`` and ``y0 = H/2`` of a 2-rank
+    world: their mean loss and gradients against one launch over the whole
+    frame (rtol 1e-5), and a pool-1 recovery step under the one-rank mesh
+    bit-equal to the step with ``mesh=None``."""
+    import numpy as np
+
+    from fspt_tpu_torch.ops import cuda_grad
+    from fspt_tpu_torch.parallel import make_fused_recovery_step
+    from fspt_tpu_torch.scene import samples
+
+    dev = nccl_mesh.device
+    cfg = RenderConfig(width=96, height=64, spp=2, max_depth=8)
+    b = samples.build("flagship", device=dev)
+    scene, cam = b.compile(device=dev), b.cameras[0]
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32)).to(dev)
+    params = {"diffuse": scene.materials.diffuse * 0.8, "emissive": scene.materials.emissive}
+    fn = cuda_grad.make_fused_loss_grad_fn(scene, cam, cfg)
+    half = cfg.height // 2
+    loss, grads, segs = fn(params, target, 5, 1, 0, cfg.height)
+    parts = [fn(params, target[y0:y0 + half], 5, 1, y0, half) for y0 in (0, half)]
+    torch.testing.assert_close((parts[0][0] + parts[1][0]) / 2, loss, rtol=1e-5, atol=0.0)
+    for k in grads:
+        torch.testing.assert_close((parts[0][1][k] + parts[1][1][k]) / 2, grads[k], rtol=1e-5,
+                                   atol=1e-5 * float(grads[k].abs().max()))
+    assert int(parts[0][2]) + int(parts[1][2]) == int(segs)
+    steps = [make_fused_recovery_step(m, scene, cam, cfg, pool=1) for m in (nccl_mesh, None)]
+    (p_mesh, l_mesh), (p_none, l_none) = (s(dict(params), scene, cam, target, 5, 1)
+                                          for s in steps)
+    assert torch.equal(l_mesh, l_none)
+    for k in p_none:
+        assert torch.equal(p_mesh[k], p_none[k]), k

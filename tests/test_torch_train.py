@@ -93,9 +93,16 @@ def test_pool_1_step_takes_the_fused_loss_route():
 
 
 def test_recovery_refuses_what_later_slices_bring():
+    from fspt_tpu_torch.parallel.mesh import Mesh
+
     _, _, ps, pc, cfg, _, _ = _setup(width=8, height=8, spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        train.make_recovery_step(object(), cfg, render_fn=lambda *a: None)
+    # A mesh that does not divide the height: the reference's ValueError
+    # (fspt_tpu/parallel/train.py:105-107), raised before any collective.
+    three = Mesh(group=None, rank=0, size=3, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="height 8 not divisible by 3 devices"):
+        train.make_recovery_step(three, cfg, render_fn=lambda *a: None)
+    with pytest.raises(ValueError, match="height 8 not divisible by 3 devices"):
+        train.make_fused_recovery_step(three, ps, pc, cfg, pool=1)
     # The default branch (autograd of the renderer) and the path-body
     # adjoint's requests now build steps; the camera needs construction 1,
     # as in the reference (fspt_tpu/parallel/train.py:248-251).
