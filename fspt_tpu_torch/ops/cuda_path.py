@@ -59,6 +59,7 @@ from fspt_tpu_torch.ops.cuda_trace import (
 )
 from fspt_tpu_torch.render.integrator import TraceOutput
 from fspt_tpu_torch.scene.geometry import INVALID_PARAM
+from fspt_tpu_torch.utils import profiling
 from fspt_tpu_torch.utils import vecmath as vm
 
 MAT_STRIDE = 16  # floats per material row (csrc kMatStride)
@@ -1097,21 +1098,22 @@ def make_camera_path_tracer(scene_pack, camera, cfg):
     core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far)
 
     def trace(seed, sample0, lane0=0, n_lanes=None):
-        n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
-        h0 = rng.seed_hash(seed)
-        if dev.type == "cpu":
-            sx, sy, sz, dx, dy, dz, pix, smp = raygen(h0, sample0, lane0, n, dev)
-            return planes_to_output(core(h0, sx, sy, sz, dx, dy, dz, pix, smp))
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
-        outs = _path_outputs(n, dev)
-        _build.launch(CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
-                      mtab.data_ptr(), mmeta.data_ptr(),
-                      _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                      _cam_params(cam, cfg), h0, int(sample0), int(lane0), n,
-                      *(o.data_ptr() for o in outs),
-                      torch.cuda.current_stream(dev).cuda_stream)
-        return _trace_output(*outs)
+        with profiling.span("fspt.trace"):
+            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
+            h0 = rng.seed_hash(seed)
+            if dev.type == "cpu":
+                sx, sy, sz, dx, dy, dz, pix, smp = raygen(h0, sample0, lane0, n, dev)
+                return planes_to_output(core(h0, sx, sy, sz, dx, dy, dz, pix, smp))
+            prims, meta = scene.tables(dev)
+            mtab, mmeta = mats.tables(dev)
+            outs = _path_outputs(n, dev)
+            _build.launch(CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
+                          mtab.data_ptr(), mmeta.data_ptr(),
+                          _path_params(scene, mats, cfg, sky_idx, cam.z_far),
+                          _cam_params(cam, cfg), h0, int(sample0), int(lane0), n,
+                          *(o.data_ptr() for o in outs),
+                          torch.cuda.current_stream(dev).cuda_stream)
+            return _trace_output(*outs)
 
     return trace
 
@@ -1167,20 +1169,21 @@ def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
                               scale=tex_scale.data_ptr(), n_texels=k)
 
     def trace(seed, sample0, lane0=0, n_lanes=None):
-        n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
-        if dev.type == "cpu":
-            return fold(plain_planes(seed, sample0, lane0, n))
-        pack = tex_pack()
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
-        outs = _path_outputs(n, dev)
-        _build.launch(DEFERRED_PATH, prims.data_ptr(), meta.data_ptr(),
-                      mtab.data_ptr(), mmeta.data_ptr(),
-                      _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                      _cam_params(cam, cfg), pack, rng.seed_hash(seed), int(sample0),
-                      int(lane0), n, *(o.data_ptr() for o in outs),
-                      torch.cuda.current_stream(dev).cuda_stream)
-        return _trace_output(*outs)
+        with profiling.span("fspt.trace"):
+            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
+            if dev.type == "cpu":
+                return fold(plain_planes(seed, sample0, lane0, n))
+            pack = tex_pack()
+            prims, meta = scene.tables(dev)
+            mtab, mmeta = mats.tables(dev)
+            outs = _path_outputs(n, dev)
+            _build.launch(DEFERRED_PATH, prims.data_ptr(), meta.data_ptr(),
+                          mtab.data_ptr(), mmeta.data_ptr(),
+                          _path_params(scene, mats, cfg, sky_idx, cam.z_far),
+                          _cam_params(cam, cfg), pack, rng.seed_hash(seed), int(sample0),
+                          int(lane0), n, *(o.data_ptr() for o in outs),
+                          torch.cuda.current_stream(dev).cuda_stream)
+            return _trace_output(*outs)
 
     trace.plain_planes = plain_planes
     trace.fold = fold

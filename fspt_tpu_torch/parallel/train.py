@@ -27,6 +27,7 @@ import torch
 
 from fspt_tpu_torch.config import RenderConfig
 from fspt_tpu_torch.render import integrator
+from fspt_tpu_torch.utils import profiling
 from fspt_tpu_torch.utils import vecmath as vm
 
 # Physical box constraints per material-table column; projecting onto them
@@ -128,6 +129,11 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
     ``loss_and_grad_fn(params, target, seed, frame_idx, y0, rows) → (loss,
     grads, segments)`` replaces all of it (the fused loss kernel,
     ops/cuda_grad.make_fused_loss_grad_fn).
+
+    Under a recording profiler each step is the span ``fspt.recover.step``
+    and holds ``fspt.recover.grad`` (the loss and gradients) and then
+    ``fspt.recover.optimizer`` (the update, the clip and the parameters
+    handed back), as :func:`utils.profiling.span` records them.
     """
     if mesh is None:
         rows, y0 = cfg.height, 0
@@ -189,25 +195,32 @@ def make_recovery_step(mesh, cfg: RenderConfig, param_names=("diffuse", "emissiv
             return RecoveryState(optimizer(list(leaves.values())), leaves)
 
         def step_opt(params, state, scene, camera, target, seed, frame_idx):
-            with torch.no_grad():
-                for k, leaf in state.leaves.items():
-                    leaf.copy_(params[k])
-            loss, grads = loss_and_grads(dict(params, **state.leaves), scene, camera,
-                                         target, seed, frame_idx)
-            for k, leaf in state.leaves.items():
-                leaf.grad = grads[k].to(leaf.dtype)
-            state.optimizer.step()
-            clip_(state.leaves)
-            out = dict(params, **{k: v.detach().clone() for k, v in state.leaves.items()})
-            return out, state, loss
+            with profiling.span("fspt.recover.step"):
+                with torch.no_grad():
+                    for k, leaf in state.leaves.items():
+                        leaf.copy_(params[k])
+                with profiling.span("fspt.recover.grad"):
+                    loss, grads = loss_and_grads(dict(params, **state.leaves), scene, camera,
+                                                 target, seed, frame_idx)
+                with profiling.span("fspt.recover.optimizer"):
+                    for k, leaf in state.leaves.items():
+                        leaf.grad = grads[k].to(leaf.dtype)
+                    state.optimizer.step()
+                    clip_(state.leaves)
+                    out = dict(params, **{k: v.detach().clone()
+                                          for k, v in state.leaves.items()})
+                return out, state, loss
 
         step_opt.init = init
         return step_opt
 
     def step(params, scene, camera, target, seed, frame_idx):
-        loss, grads = loss_and_grads(params, scene, camera, target, seed, frame_idx)
-        new = clip_({k: params[k].detach() - lr * g for k, g in grads.items()})
-        return dict(params, **new), loss
+        with profiling.span("fspt.recover.step"):
+            with profiling.span("fspt.recover.grad"):
+                loss, grads = loss_and_grads(params, scene, camera, target, seed, frame_idx)
+            with profiling.span("fspt.recover.optimizer"):
+                new = clip_({k: params[k].detach() - lr * g for k, g in grads.items()})
+                return dict(params, **new), loss
 
     return step
 

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from fspt_tpu_torch.config import resolve_device
+from fspt_tpu_torch.utils import profiling
 
 
 class Framebuffer(NamedTuple):
@@ -45,22 +46,23 @@ def accumulate(fb: Framebuffer, radiance, aov_normal, aov_depth, aov_mat,
     running-mean updates (frame.cpp:53-61); m2 by the parallel Welford
     combine.  Returns a new Framebuffer; the input is not modified.
     """
-    rad = radiance.reshape(height, width, spp, 3)
-    n_old = fb.count[..., None]
-    n_new = n_old + spp
-    batch_mean = rad.mean(dim=2)
-    batch_m2 = ((rad - batch_mean[:, :, None, :]) ** 2).sum(dim=2)
-    delta = batch_mean - fb.mean
-    mean = (fb.mean * n_old + rad.sum(dim=2)) / n_new
-    m2 = fb.m2 + batch_m2 + (delta * delta) * (n_old * spp) / n_new
-    return Framebuffer(
-        mean=mean,
-        m2=m2,
-        count=fb.count + spp,
-        normal=aov_normal.reshape(height, width, spp, 3)[:, :, -1],
-        depth=aov_depth.reshape(height, width, spp)[:, :, -1],
-        mat=aov_mat.reshape(height, width, spp)[:, :, -1].to(torch.int32),
-    )
+    with profiling.span("fspt.accumulate"):
+        rad = radiance.reshape(height, width, spp, 3)
+        n_old = fb.count[..., None]
+        n_new = n_old + spp
+        batch_mean = rad.mean(dim=2)
+        batch_m2 = ((rad - batch_mean[:, :, None, :]) ** 2).sum(dim=2)
+        delta = batch_mean - fb.mean
+        mean = (fb.mean * n_old + rad.sum(dim=2)) / n_new
+        m2 = fb.m2 + batch_m2 + (delta * delta) * (n_old * spp) / n_new
+        return Framebuffer(
+            mean=mean,
+            m2=m2,
+            count=fb.count + spp,
+            normal=aov_normal.reshape(height, width, spp, 3)[:, :, -1],
+            depth=aov_depth.reshape(height, width, spp)[:, :, -1],
+            mat=aov_mat.reshape(height, width, spp)[:, :, -1].to(torch.int32),
+        )
 
 
 def variance_of_mean(fb: Framebuffer):

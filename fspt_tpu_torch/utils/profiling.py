@@ -1,9 +1,10 @@
 """Metrics, timing and observability.
 
 Port of fspt_tpu/utils/profiling.py: a structured logger, a per-frame
-segments/s timer compatible with the reference counter, per-bounce
-occupancy metrics, a ``torch.profiler`` trace context (in place of
-``jax.profiler``) and the device's memory counters.
+segments/s timer compatible with the reference counter, the spans that
+mark the port's layer boundaries on the profiler's timeline, a
+``torch.profiler`` trace context (in place of ``jax.profiler``) and the
+device's memory counters.
 """
 
 from __future__ import annotations
@@ -72,21 +73,27 @@ class FrameTimer:
                     seconds=self.seconds, mrays_per_sec=self.mrays_per_sec)
 
 
-def occupancy_metrics(alive_counts, n_lanes: int) -> dict:
-    """Per-bounce wavefront occupancy (SURVEY.md §5.1: active-ray occupancy).
+#: The C++ profiler's own switch: on only while a profiler records (not in
+#: a ``torch.profiler`` schedule's wait or warm-up steps).
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
 
-    ``alive_counts``: sequence of lane counts entering each bounce.
+
+def span(name: str):
+    """A range named ``name`` on the profiler's timeline while a profiler
+    records (``torch.profiler.record_function``); otherwise one shared
+    do-nothing context, with nothing of the profiler called.
+
+    The port's spans mark its layer boundaries: ``fspt.trace`` (a camera
+    tracer's call), ``fspt.accumulate`` (the framebuffer fold),
+    ``fspt.recover.step`` and, inside it, ``fspt.recover.grad`` (the loss
+    and gradient call) and ``fspt.recover.optimizer`` (the update and the
+    parameter hand-off).  A span neither synchronizes, allocates nor
+    launches anything on the device.
     """
-    counts = [int(c) for c in alive_counts]
-    occ = [c / n_lanes for c in counts]
-    total = sum(counts)
-    full = len(counts) * n_lanes
-    return dict(
-        segments=total,
-        bounce_occupancy=occ,
-        mean_occupancy=total / full if full else 0.0,
-        wasted_lane_fraction=1.0 - (total / full) if full else 0.0,
-    )
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

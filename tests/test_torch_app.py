@@ -278,15 +278,6 @@ def test_profiling_metrics():
     assert {k: t.summary()[k] for k in ("frames", "segments")} == \
         {k: ref.summary()[k] for k in ("frames", "segments")}
 
-    counts = [100, 60, 20]
-    m = profiling.occupancy_metrics(counts, n_lanes=100)
-    assert m == ref_profiling.occupancy_metrics(counts, n_lanes=100)
-    assert m["segments"] == 180
-    np.testing.assert_allclose(m["bounce_occupancy"], [1.0, 0.6, 0.2])
-    assert 0 < m["mean_occupancy"] < 1
-    assert profiling.occupancy_metrics([torch.tensor(c) for c in counts], 100) == m
-    assert profiling.occupancy_metrics([], 100) == ref_profiling.occupancy_metrics([], 100)
-
 
 def test_log_event_writes_one_json_line(caplog):
     with caplog.at_level(logging.INFO, logger="fspt_tpu"):
