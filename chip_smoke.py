@@ -86,26 +86,31 @@ Phases, each announced by one line:
    key of kernel 5 bit-equal); kernel 5's live rays and its CTA (threads,
    leaf boxes a thread); the p50 / p90 / p99 / max of kernel 6's leaf
    visits a block, its CTA shape and its shared memory;
-18. kernels 9 (grad_forward), 10 (grad_backward, reverse mode) and kernel
-   8's whole chain (fused_loss_chain, reverse mode, and remat: the same
-   kernel) against their plain versions (the body with run-time table
-   tensors, under autograd) at 128×128, 2 spp, depth 4, thin-lens cameras:
-   all families with the seven material fields, the flagship with
-   diffuse/emissive/param and with the camera (alone and joint), two
-   launches of kernels 10 and 8 bit for bit; then the plain versions' and
-   the kernels' times at that size;
+18. kernels 9 (grad_forward), 10 (grad_sweep, the sweep of kernel 9's
+   record, and grad_backward, remat: reverse mode) and kernel 8's whole
+   chain (fused_loss_chain, reverse mode, and remat: the same kernel)
+   against their plain versions (the body with run-time table tensors,
+   under autograd) at 128×128, 2 spp, depth 4, thin-lens cameras: all
+   families with the seven material fields, the flagship with
+   diffuse/emissive/param and with the camera (alone and joint), kernel
+   10's two routes and two launches of kernel 8 bit for bit; then the
+   plain versions' and the kernels' times at that size;
 19. training path at full width on the path-body adjoint: 4 steps at pool 1
    with diffuse, emissive, param and the camera (kernel 8 whole chain, one
    launch per step) and 4 at pool 8 with diffuse, emissive, param (kernels
-   9 and 10, two launches each per step); losses finite and falling;
+   9 and 10's sweep route, two launches each per step); losses finite and
+   falling;
 20. the camera example (``examples/recover_camera``) at its default size
    for 40 iterations on kernel 8's whole chain; its loss must fall;
 21. kernels 9, 10 and 8's whole chain against their plain versions at the
    full-width shape from the training start: kernel 9 over all 8,294,400
    lanes (every radiance bit and segment count equal), kernels 10 and 8
    (whose plain versions run under autograd) on a band of rows mid-frame,
-   and launched twice over all 8,294,400 lanes, equal bit for bit; then
-   their timings there beside their bounds, kernel 9's grid and lane
+   and launched twice over all 8,294,400 lanes, equal bit for bit (kernel
+   10 by each route); then their timings there beside their bounds, both
+   of kernel 10's routes (with kernel 9 with and without its record), the
+   record's bytes and the share of the recovery's kernel-10 launches on
+   the sweep route, kernel 9's grid and lane
    efficiency (segments / (lanes × depth); a replay of its regenerating
    schedule over the launch's per-lane segments is printed as a model
    estimate), and both adjoint recovery routes end to end;
@@ -285,6 +290,7 @@ KERNELS = {
     "treelet_sweep": ("treelet_sweep_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
     "grad_forward": ("grad_forward_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "grad_backward": ("grad_backward_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
+    "grad_sweep": ("grad_sweep_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "fused_loss_chain": ("fused_loss_chain_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "bvh_walk": ("bvh_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
     "treelet_walk": ("treelet_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
@@ -497,7 +503,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     from fspt_tpu_torch.parallel import train
     from fspt_tpu_torch.scene import samples
 
-    report = {k: {"max_abs_err": 0.0} for k in ("grad_forward", "grad_backward",
+    report = {k: {"max_abs_err": 0.0} for k in ("grad_forward", "grad_backward", "grad_sweep",
                                                  "fused_loss_chain")}
 
     def worst(key, err):
@@ -516,7 +522,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
         b = samples.build(name, device=dev, aperture=1.5, focal_depth=120.0)
         scenes[name] = (b.compile(device=dev), b.cameras[0])
     for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", PAIR_FIELDS)):
-        phase(f"kernels 9 (grad_forward) and 10 (grad_backward, reverse mode) vs plain: "
+        phase(f"kernels 9 (grad_forward) and 10 (grad_sweep and grad_backward) vs plain: "
               f"{name} + DoF, {size}, fields {fields}")
         rep = kernel_check.check_grad_path_tracer(*scenes[name], cfg_chk, fields, seed=3,
                                                   sample0=1)
@@ -525,6 +531,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
               f"{rep['nonfinite_lanes']}")
         worst("grad_forward", rep["max_abs_err"])
         worst("grad_backward", rep["grad_max_abs_err"])
+        worst("grad_sweep", rep["grad_max_abs_err"])
     for name, fields in (("all_families", ADJOINT_FIELDS), ("flagship", ("camera",)),
                          ("flagship", CHAIN_FIELDS)):
         phase(f"kernel 8 whole chain (fused_loss_chain, reverse mode) and remat vs plain: "
@@ -545,6 +552,8 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
         np.float32)).to(dev)
     chain_c = cuda_grad.make_fused_loss_grad_fn(fam_scene, fam_cam, cfg_chk,
                                                 fields=ADJOINT_FIELDS)
+    rec_c = tracer_c.new_record(n_c)
+    tracer_c.kernel_forward(pv_c, 3, 1, 0, n_c, record=rec_c)
     phase(f"plain versions, kernels 9, 10 and 8 whole chain: all families, {size}, "
           f"{len(ADJOINT_FIELDS)} fields")
     small = {
@@ -552,6 +561,9 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
                          lambda: tracer_c.plain(pv_c, 3, 1, 0, n_c)),
         "grad_backward": (lambda: tracer_c.kernel_backward(pv_c, cot_c, 3, 1, 0, n_c),
                           lambda: tracer_c.plain_grad(pv_c, cot_c, 3, 1, 0, n_c)),
+        "grad_sweep": (lambda: tracer_c.kernel_backward(pv_c, cot_c, 3, 1, 0, n_c,
+                                                        record=rec_c),
+                       lambda: tracer_c.plain_grad(pv_c, cot_c, 3, 1, 0, n_c)),
         "fused_loss_chain": (lambda: chain_c(params_c, target_c, 4, 2, 0, H),
                              lambda: chain_c.plain(params_c, target_c, 4, 2, 0, H)),
     }
@@ -572,7 +584,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
                    camera=cuda_path.camera_pvec(train_cam).to(dev) + offset)
     adam = lambda ps: torch.optim.Adam(ps, lr=0.02)  # noqa: E731
     routes = {"chain": (CHAIN_FIELDS, 1, {"fused_loss_chain": 1}),
-              "pair": (PAIR_FIELDS, 8, {"grad_forward": 2, "grad_backward": 2})}
+              "pair": (PAIR_FIELDS, 8, {"grad_forward": 2, "grad_sweep": 2})}
     step_times = {}
     steps = 4
     for label, (fields, pool, per_step) in routes.items():
@@ -642,9 +654,11 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
     rep = kernel_check.check_grad_path_tracer(
         train_scene, train_cam, cfg_t, PAIR_FIELDS, seed=9, sample0=cfg_t.spp,
         params={f: params0[f] for f in PAIR_FIELDS}, y0=y0, rows=rows)
-    print(f"grad_forward and grad_backward, band: {json.dumps(rep)}", flush=True)
+    print(f"grad_forward and grad_sweep (equal to grad_backward bit for bit), band: "
+          f"{json.dumps(rep)}", flush=True)
     worst("grad_forward", rep["max_abs_err"])
     worst("grad_backward", rep["grad_max_abs_err"])
+    worst("grad_sweep", rep["grad_max_abs_err"])
     rep = kernel_check.check_fused_loss_chain(
         train_scene, train_cam, cfg_t, target_t[y0:y0 + rows], CHAIN_FIELDS, seed=9,
         frame_idx=1, params={f: params0[f] for f in CHAIN_FIELDS}, y0=y0, rows=rows)
@@ -667,13 +681,19 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
           f"{int(chain_t.nonfinite)} of {n_t}")
     again10 = pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t)
     again8 = chain_t(params_t, target_t, 7, 1, 0, Ht)
+    # Kernel 10's sweep route on kernel 9's record of the same lanes.
+    rec_t = pair.new_record(n_t)
+    pair.kernel_forward(pv_t, 9, 0, 0, n_t, record=rec_t)
+    sweep10 = pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t, record=rec_t)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(g10).all()) and bool(torch.isfinite(loss8)) and all(
         bool(torch.isfinite(g).all()) for g in g8.values())
-    equal = dict(grad_backward=bool(torch.equal(g10, again10)), fused_loss_chain=bool(
+    equal = dict(grad_backward=bool(torch.equal(g10, again10)),
+                 grad_sweep=bool(torch.equal(g10, sweep10)), fused_loss_chain=bool(
         float(again8[0]) == float(loss8) and int(again8[2]) == int(seg8)
         and all(torch.equal(again8[1][f], g8[f]) for f in g8)))
-    print(f"two launches on all {n_t} lanes equal bit for bit: {json.dumps(equal)}", flush=True)
+    print(f"two launches on all {n_t} lanes equal bit for bit (grad_sweep: the sweep route "
+          f"against the remat route): {json.dumps(equal)}", flush=True)
     assert all(equal.values()), equal
 
     phase(f"timing: kernels 9, 10 and 8 whole chain (reverse mode), flagship "
@@ -697,23 +717,41 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
           f"{steps_mean:.1f} max {steps_max}; steps a 32-lane chunk: one lane a thread "
           f"{steps_fixed:.3f} (a warp with no live lane skips its step), regenerating "
           f"{steps_mean * grid9 * 4 / chunks9:.3f}", flush=True)
-    ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
+    ms9_bare = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t), iters=3)
+    ms9 = cuda_time_ms(lambda: pair.kernel_forward(pv_t, 9, 0, 0, n_t, record=rec_t), iters=3)
     ms10 = cuda_time_ms(lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t), iters=2)
+    ms_sweep = cuda_time_ms(lambda: pair.kernel_backward(pv_t, cot_t, 9, 0, 0, n_t,
+                                                         record=rec_t), iters=2)
+    swept = path_launches["grad_sweep"] / (path_launches["grad_sweep"]
+                                           + path_launches.get("grad_backward", 0))
+    print(f"kernel 10's routes at {Wt}x{Ht}x{cfg_t.spp}, depth {cfg_t.max_depth}: sweep "
+          f"{ms_sweep:.3f} ms after kernel 9 with its record {ms9:.3f} ms, against remat "
+          f"{ms10:.3f} ms after kernel 9 alone {ms9_bare:.3f} ms; the record "
+          f"{pair.record_bytes} bytes a buffer ({pair.record_bytes / 2 ** 30:.2f} GiB); share "
+          f"of the pool-8 recovery's kernel-10 launches on the sweep route {swept:.0%}",
+          flush=True)
     ms8 = cuda_time_ms(lambda: chain_t(params_t, target_t, 7, 1, 0, Ht), iters=2)
     mats_t = cuda_path.HostMaterials(train_scene.materials)
     P_pair = cuda_grad.param_count(mats_t, PAIR_FIELDS)
     P_chain = cuda_grad.param_count(mats_t, CHAIN_FIELDS)
     # Kernel 9 is kernel 2's work; an adjoint costs at least ~4x the forward
     # operations of its traces (the cheap-gradient bound of reverse mode).
-    b9 = bound_ms(seg9 * seg_ops, n_t * 16 + P_pair * 4)
+    b9 = bound_ms(seg9 * seg_ops, n_t * (16 + 16) + seg9 * 48 + P_pair * 4)  # with its record
     b10 = bound_ms(4 * seg9 * seg_ops, n_t * 12 + P_pair * 8)
+    # The sweep alone: that bound less the forward trace it no longer runs,
+    # or the live record it reads (48 bytes a segment, 16 a lane).
+    b_sweep = bound_ms(3 * seg9 * seg_ops, seg9 * 48 + n_t * (16 + 12) + P_pair * 8)
     b8 = bound_ms(4 * seg8 * seg_ops, target_t.numel() * 4 + P_chain * 8)
     full = {
-        "grad_forward": (ms9, b9, seg9, P_pair, "float, 1 trace"),
+        "grad_forward": (ms9, b9, seg9, P_pair, "float, 1 trace, its record written"),
         "grad_backward": (ms10, b10, seg9, P_pair, "reverse, 1 forward + 1 sweep"),
+        "grad_sweep": (ms_sweep, b_sweep, seg9, P_pair, "reverse, 1 sweep of a record"),
         "fused_loss_chain": (ms8, b8, seg8, P_chain, "reverse, 1 forward + 1 sweep a buffer"),
     }
-    timings["grad_forward"].update(grid=grid9, lane_efficiency_fixed=share_fixed)
+    timings["grad_forward"].update(grid=grid9, lane_efficiency_fixed=share_fixed,
+                                   ms_without_record=ms9_bare,
+                                   record_bytes=pair.record_bytes)
+    timings["grad_sweep"].update(route_share=swept)
     for key, (ms, (b, by), segs, P, passes) in full.items():
         timings[key].update(ms=ms, bound_ms=b, bound_by=by, max_abs_err=0.0, params=P,
                             passes=passes)
@@ -721,7 +759,7 @@ def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, tra
               f"{segs / (ms * 1e-3):.4g} segments/s; bound {b:.4f} ms ({by}); "
               f"plain {timings[key]['plain_ms']:.1f} ms at the check size", flush=True)
     for label, segs_step, kernel_ms in (("chain", seg8, ms8), ("pair", 2 * seg9,
-                                                               2 * (ms9 + ms10))):
+                                                               2 * (ms9 + ms_sweep))):
         steady = step_times[label][1:]
         ms_step = sum(steady) / len(steady)
         print(f"recovery step {label} (pool={routes[label][1]}): {ms_step:.2f} ms/step (mean "
@@ -1562,7 +1600,7 @@ def parallel_phases(dev, counters, reset_counts, flag_scene, flag_cam, cfg, tex_
     reset_counts()
     p8, loss8 = step8(dict(params0), train_scene, train_cam, target_t, 9, 0)
     sync()
-    check_launches(launches(), {"grad_forward": 2, "grad_backward": 2}, "pool 8 under a mesh")
+    check_launches(launches(), {"grad_forward": 2, "grad_sweep": 2}, "pool 8 under a mesh")
     assert np.isfinite(float(loss8)) and all(bool(torch.isfinite(v).all()) for v in p8.values())
     ms_8 = cuda_time_ms(lambda: step8(params0, train_scene, train_cam, target_t, 9, 0),
                         iters=2, warmup=0)
@@ -1635,6 +1673,7 @@ def main():
                 "treelet_sweep": cuda_bvh.TREELET_SWEEP,
                 "grad_forward": cuda_grad.GRAD_FORWARD,
                 "grad_backward": cuda_grad.GRAD_BACKWARD,
+                "grad_sweep": cuda_grad.GRAD_SWEEP,
                 "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN,
                 "bvh_walk": cuda_bvh.BVH_WALK,
                 "treelet_walk": cuda_bvh.TREELET_WALK}
@@ -2480,7 +2519,8 @@ def main():
     # The ptxas lines of the reverse kernels' instantiations at the timed depth:
     # <0> with the per-thread record, <1> with the device scratch.
     record = int(cuda_grad.adjoint_plan(1, 1, cfg_t.effective_depth)[1] > 0)
-    variant = {"grad_backward": f"<{record}>", "fused_loss_chain": f"<{record}>"}
+    variant = {"grad_backward": f"<{record}>", "fused_loss_chain": f"<{record}>",
+               "grad_forward": "<1>"}  # kernel 9 as the pool-8 route runs it, recording
     kernels = []
     for key, c in counters.items():
         t = timings[key]
@@ -2490,7 +2530,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
         kernels.append(dict(
             name=key, route="cuda", source=f"{source} ({fn})",
-            replaces=c.replaces, launches=path_launches[key],
+            replaces=c.replaces, launches=path_launches.get(key, 0),
             max_abs_err=max(report[key]["max_abs_err"], t["max_abs_err"]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None, ported=True, registers=reg.get("registers"),

@@ -4,8 +4,10 @@
 //
 //   fspt_grad_forward      kernel 9   replaces pallas_grad.py:216
 //                                     make_grad_path_tracer fwd (body :188)
-//   fspt_grad_backward     kernel 10  replaces pallas_grad.py:227
-//                                     make_grad_path_tracer bwd (body :193)
+//   fspt_grad_sweep        kernel 10  replaces pallas_grad.py:227
+//   fspt_grad_backward                make_grad_path_tracer bwd (body :193):
+//                                     the sweep of kernel 9's record, or
+//                                     the trace and the sweep (remat)
 //   fspt_fused_loss_chain  kernel 8   replaces pallas_grad.py:792
 //                                     make_fused_loss_grad_fn, whole chain
 //                                     and remat (body :589, :700-753)
@@ -44,6 +46,25 @@
 // ops/cuda_trace.py), and a zero cotangent meets no infinite local
 // derivative.
 //
+// Kernel 10 has two routes.  They share every line of steps 2-3 and
+// differ only in where step 1's record comes from:
+//   * sweep (grad_sweep_kernel): kernel 9 wrote each lane's record as it
+//     traced it (grad_forward_kernel<1>) into [depth·3 + 1][n] planes of
+//     float4 in device memory (RecordStore: its live bounces and a tail),
+//     and kernel 10 only sweeps it.  ops/cuda_grad takes this route where
+//     the call wants a gradient and the record, n·(48·depth + 16) bytes
+//     (3.3 GB at 1080p×4, depth 8), fits in an eighth of the card's
+//     memory.
+//   * remat (grad_backward_kernel): kernel 10 traces every lane again to
+//     rebuild its record, as the TPU reference does, whose VMEM is small and
+//     whose device memory is tight, so it recomputes rather than keeps.  On
+//     the H100's 80 GB the trace was over half of the launch (PERF.md §5),
+//     and this route stays for a band whose record would not fit and for
+//     kernel 10 launched on its own.
+// The same bits summed in the same order: both routes give the same
+// gradient bit for bit.  Kernel 8's whole chain keeps its in-launch trace:
+// its two traces feed its loss in the same launch.
+//
 // Parameter cotangents go into a per-thread column of shared memory,
 // [rows][blockDim] (thread t owns column t), so a lane's non-finite
 // entries can be zeroed and the lane counted (the counterpart of the
@@ -54,16 +75,18 @@
 // The block is 128 threads, or 64 or 32 when P columns of 128 threads do
 // not fit in shared memory.
 //
-// Where the record lives (kLayout): 0, a per-thread array (local memory,
-// cached in L1/L2, sized for kMaxAdjDepth bounces), up to kMaxAdjDepth
-// bounces; 1, a [depth][10][n] scratch in device memory that the wrapper
-// allocates, past it.  Kernel 8 keeps both buffers' records.
+// Where the remat record lives (kLayout): 0, a per-thread array (local
+// memory, cached in L1/L2, sized for kMaxAdjDepth bounces), up to
+// kMaxAdjDepth bounces; 1, a [depth][10][n] scratch in device memory that
+// the wrapper allocates, past it.  Kernel 8 keeps both buffers' records.
 // fspt_adjoint_plan gives the wrapper the block and the scratch a launch
 // takes; the launchers follow the same plan.
 //
 // What bounds them on the H100: operations, the forward trace's walk of
 // every primitive row per segment (kernel 9's work), then the sweep's
-// shading and adjoint without that walk.
+// shading and adjoint without that walk; the sweep route adds kernel 9's
+// writes and kernel 10's reads of the record's live bounces and tails,
+// about 1.7 GB each at the pool-8 launch.
 
 #include "fspt_adjoint.cuh"
 
@@ -85,78 +108,18 @@ constexpr int kStateWords = 10;    // segment (6), throughput (3), winner row
 // next lane of the warp's chunk.
 constexpr int kFwdMinBlocks = 7;
 constexpr int kFwdRefill = 4;
+// With its record, six blocks an SM (80 registers): 6 % faster than seven
+// and 19 % than eight at the pool-8 route's launch (PERF.md §6).
+constexpr int kFwdRecordMinBlocks = 6;
 
-// Kernel 10 at five blocks an SM (launch bounds: at most 96 registers, a
-// few bytes of spill).  Left free, the compiler gives it 105-106 and four
-// blocks, slower on an H100 at the pool-8 route's launch (PERF.md §6).
+// Kernel 10's remat route at five blocks an SM (launch bounds: at most 96
+// registers, a few bytes of spill).  Left free, the compiler gives it
+// 105-106 and four blocks, slower on an H100 at the pool-8 route's launch
+// (PERF.md §6).
 constexpr int kBackwardMinBlocks = 5;
-
-// Kernel 9: the float body over the run-time table; radiance as [3][n]
-// planes and the lane's segment count.  Persistent and regenerating: the
-// threads of a warp trace the lanes of its chunks in turn, one bounce a
-// step (path_bounce); an ended path's radiance and segments are written at
-// its lane's own index (path_finish), and a new lane is ranked among the
-// warp's idle threads by __ballot_sync and __popc.  A lane's result
-// depends only on its index (the RNG is counter-based), so the schedule
-// changes no bit, and nothing is summed across lanes: no atomics.  Each
-// block copies the table once.
-__global__ void __launch_bounds__(kAdjBlock, kFwdMinBlocks)
-grad_forward_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
-                    const float* __restrict__ mats, const int* __restrict__ mat_meta,
-                    const PathParams pp, const CamParams cp, const float* __restrict__ pvec,
-                    const int* __restrict__ cells, int n_cells, uint32_t h0, int sample0,
-                    int lane0, int n, float* __restrict__ radiance,
-                    int* __restrict__ segcnt) {
-  extern __shared__ float smem[];
-  load_table(smem, nullptr, mats, pp.n_mats, pvec, cells, n_cells);
-  const SmemMats tab{smem};
-  const TableRows rows{prims, meta};
-  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
-  const int n_warps = gridDim.x * kAdjWarps;
-  const int n_chunks = (n + 31) >> 5;
-  const int warp = blockIdx.x * kAdjWarps + (threadIdx.x >> 5);
-  int round = 0;  // the warp's chunk of round r: r·n_warps + (warp + r) mod n_warps
-  int chunk = warp;
-  int taken = 0;  // lanes of the current chunk handed out
-  int i = -1;     // this thread's lane, -1 when idle
-  int depth = 0;
-  PathState<float> st;
-  NoSlots none;
-  for (;;) {
-    const bool ended = i >= 0 && (!st.alive || depth >= pp.depth);
-    unsigned idle = __ballot_sync(0xffffffffu, i < 0 || ended);
-    if (__popc(idle) >= kFwdRefill) {
-      if (ended) {
-        const PathOut o = path_finish<kDirect>(st, pp, none);
-        radiance[i] = o.L[0];
-        radiance[(size_t)n + i] = o.L[1];
-        radiance[2 * (size_t)n + i] = o.L[2];
-        segcnt[i] = o.segcnt;
-        i = -1;
-      }
-      while (idle != 0u && chunk < n_chunks) {
-        const int len = min(32, n - (chunk << 5));
-        const int at = taken + __popc(idle & below);
-        if (i < 0 && at < len) {
-          i = (chunk << 5) + at;
-          const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
-          st = path_init<float>(pp, r.hs, r.sx, r.sy, r.sz, r.dx, r.dy, r.dz);
-          depth = 0;
-        }
-        taken += __popc(idle);
-        if (taken >= len) {
-          ++round;
-          chunk = round * n_warps + (warp + round) % n_warps;
-          taken = 0;
-        }
-        idle = __ballot_sync(0xffffffffu, i < 0);
-      }
-    }
-    if (idle == 0xffffffffu) break;  // every lane of the warp's chunks written
-    if (i >= 0 && st.alive && depth < pp.depth)
-      path_bounce<kDirect>(st, depth++, rows, tab, mat_meta, pp, none);
-  }
-}
+// Its sweep route, with no trace inline, at five too: at six to eight the
+// compiler spills and the launch runs 2-18 % slower (PERF.md §6).
+constexpr int kSweepMinBlocks = 5;
 
 // --- a lane's record of its forward trace ----------------------------------
 
@@ -167,7 +130,8 @@ struct LocalState {
   __device__ __forceinline__ float& at(int d, int k) { return w[d][k]; }
 };
 
-// Layout 1: the lane's words of a [depth][kStateWords][n] scratch.
+// Layout 1: the lane's words of a [depth][kStateWords][n] scratch in device
+// memory.
 struct ScratchState {
   float* p;  // scratch + lane
   size_t n;
@@ -182,6 +146,61 @@ struct StateOf { using type = LocalState; };
 template <>
 struct StateOf<1> { using type = ScratchState; };
 
+// Kernel 9's record for the sweep route: [depth·3 + 1][n] planes of float4
+// in device memory, lane i at record + 4i.  Bounce d takes planes 3d ..
+// 3d+2 (its kStateWords words padded to 12), the lane's tail plane
+// 3·depth.  A bounce is three 16-byte stores, and three loads in the
+// sweep, whose lanes step down one depth together: neighbouring lanes at
+// neighbouring addresses.  F is const float where the sweep reads it.
+template <class F>
+struct RecordStore {
+  F* p;  // record + 4·lane
+  size_t n;
+  __device__ __forceinline__ void bind(F* p_, size_t n_) { p = p_; n = n_; }
+  __device__ __forceinline__ F* quad(int q) const { return p + (size_t)q * n * 4; }
+  __device__ __forceinline__ F& at(int d, int k) const { return quad(3 * d + k / 4)[k & 3]; }
+};
+using RecordView = RecordStore<const float>;
+
+// Whether the sweep steps a warp's lanes down together (kernel 9's record).
+template <class Store>
+constexpr bool kSweepTogether = false;
+template <>
+constexpr bool kSweepTogether<RecordView> = true;
+
+// A bounce's words into and out of a store, one word at a time ...
+template <class Store>
+__device__ __forceinline__ void put_bounce(Store& st, int d, const float (&w)[kStateWords]) {
+#pragma unroll
+  for (int k = 0; k < kStateWords; ++k) st.at(d, k) = w[k];
+}
+
+template <class Store>
+__device__ __forceinline__ void get_bounce(Store& st, int d, float (&w)[kStateWords]) {
+#pragma unroll
+  for (int k = 0; k < kStateWords; ++k) w[k] = st.at(d, k);
+}
+
+// ... and 16 bytes at a time in kernel 9's record.  Its stores are
+// streaming (__stcs, evict first): the sweep reads them in another launch,
+// after more than the L2 holds has been written (3-4 % of kernel 9's time,
+// PERF.md §6).
+__device__ __forceinline__ void put_bounce(RecordStore<float>& st, int d,
+                                           const float (&w)[kStateWords]) {
+  __stcs(reinterpret_cast<float4*>(st.quad(3 * d)), make_float4(w[0], w[1], w[2], w[3]));
+  __stcs(reinterpret_cast<float4*>(st.quad(3 * d + 1)), make_float4(w[4], w[5], w[6], w[7]));
+  __stcs(reinterpret_cast<float4*>(st.quad(3 * d + 2)), make_float4(w[8], w[9], 0.0f, 0.0f));
+}
+
+__device__ __forceinline__ void get_bounce(RecordView& st, int d, float (&w)[kStateWords]) {
+  const float4 a = *reinterpret_cast<const float4*>(st.quad(3 * d));
+  const float4 b = *reinterpret_cast<const float4*>(st.quad(3 * d + 1));
+  const float4 c = *reinterpret_cast<const float4*>(st.quad(3 * d + 2));
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  w[8] = c.x; w[9] = c.y;
+}
+
 // The direct mode's sink of the reverse kernels (NoSlots' hooks, kept).
 template <class Store>
 struct Recorder {
@@ -193,10 +212,8 @@ struct Recorder {
   __device__ __forceinline__ void bounce(int d, float sx, float sy, float sz, float dx,
                                          float dy, float dz, float Tx, float Ty, float Tz,
                                          int prim) {
-    st.at(d, 0) = sx; st.at(d, 1) = sy; st.at(d, 2) = sz;
-    st.at(d, 3) = dx; st.at(d, 4) = dy; st.at(d, 5) = dz;
-    st.at(d, 6) = Tx; st.at(d, 7) = Ty; st.at(d, 8) = Tz;
-    st.at(d, 9) = __int_as_float(prim);
+    const float w[kStateWords] = {sx, sy, sz, dx, dy, dz, Tx, Ty, Tz, __int_as_float(prim)};
+    put_bounce(st, d, w);
   }
   __device__ __forceinline__ void fog_absorbed() { absorbed = true; }
   __device__ __forceinline__ void end(bool alive, float Lx, float Ly, float Lz) {
@@ -204,6 +221,118 @@ struct Recorder {
     L[0] = Lx; L[1] = Ly; L[2] = Lz;
   }
 };
+
+// The tail of a lane's record (plane 3·depth): the radiance before the
+// light clamp, then one word of the lane's segments (bits kTailSegShift..)
+// and flags.  Everything the sweep reads besides the bounces and the
+// lane's sample hash, which it recomputes (camera_ray).
+constexpr int kTailAbsorbed = 1, kTailAliveEnd = 2, kTailPLight = 4, kTailSegShift = 3;
+
+__device__ __forceinline__ void put_tail(const Recorder<RecordStore<float>>& rec, int depth,
+                                         const PathOut& o) {
+  const int flags = (o.segcnt << kTailSegShift) | (rec.absorbed ? kTailAbsorbed : 0)
+                    | (rec.alive_end ? kTailAliveEnd : 0) | (o.p_light ? kTailPLight : 0);
+  __stcs(reinterpret_cast<float4*>(rec.st.quad(3 * depth)),
+         make_float4(rec.L[0], rec.L[1], rec.L[2], __int_as_float(flags)));
+}
+
+// rec's tail fields from the record; the segments and light mask as the
+// sweep reads them from a PathOut.
+__device__ __forceinline__ PathOut get_tail(Recorder<RecordView>& rec, int depth) {
+  const float4 t = *reinterpret_cast<const float4*>(rec.st.quad(3 * depth));
+  rec.L[0] = t.x;
+  rec.L[1] = t.y;
+  rec.L[2] = t.z;
+  const int flags = __float_as_int(t.w);
+  rec.absorbed = flags & kTailAbsorbed;
+  rec.alive_end = flags & kTailAliveEnd;
+  PathOut o{};
+  o.segcnt = flags >> kTailSegShift;
+  o.p_light = flags & kTailPLight;
+  return o;
+}
+
+// Kernel 9's sink: none, or with a record the lane's Recorder over the store.
+template <int kRecord>
+struct ForwardSink { using type = NoSlots; };
+template <>
+struct ForwardSink<1> { using type = Recorder<RecordStore<float>>; };
+
+// Kernel 9: the float body over the run-time table; radiance as [3][n]
+// planes and the lane's segment count, and with kRecord each lane's record
+// (RecordStore: its live bounces, then its tail) for kernel 10's sweep
+// route.  Persistent and regenerating: the
+// threads of a warp trace the lanes of its chunks in turn, one bounce a
+// step (path_bounce); an ended path's radiance and segments are written at
+// its lane's own index (path_finish), and a new lane is ranked among the
+// warp's idle threads by __ballot_sync and __popc.  A lane's result
+// depends only on its index (the RNG is counter-based), so the schedule
+// changes no bit, and nothing is summed across lanes: no atomics.  The
+// record changes no arithmetic of the body.  Each block copies the table
+// once.
+template <int kRecord>
+__global__ void __launch_bounds__(kAdjBlock, kRecord ? kFwdRecordMinBlocks : kFwdMinBlocks)
+grad_forward_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                    const float* __restrict__ mats, const int* __restrict__ mat_meta,
+                    const PathParams pp, const CamParams cp, const float* __restrict__ pvec,
+                    const int* __restrict__ cells, int n_cells, uint32_t h0, int sample0,
+                    int lane0, int n, float* __restrict__ radiance,
+                    int* __restrict__ segcnt, float* __restrict__ record) {
+  extern __shared__ float smem[];
+  load_table(smem, nullptr, mats, pp.n_mats, pvec, cells, n_cells);
+  const SmemMats tab{smem};
+  const TableRows rows{prims, meta};
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  const int n_warps = gridDim.x * kAdjWarps;
+  const int n_chunks = (n + 31) >> 5;
+  const int warp = blockIdx.x * kAdjWarps + (threadIdx.x >> 5);
+  int round = 0;  // the warp's chunk of round r: r·n_warps + (warp + r) mod n_warps
+  int chunk = warp;
+  int taken = 0;  // lanes of the current chunk handed out
+  int i = -1;     // this thread's lane, -1 when idle
+  int depth = 0;
+  PathState<float> st;
+  typename ForwardSink<kRecord>::type sink;
+  for (;;) {
+    const bool ended = i >= 0 && (!st.alive || depth >= pp.depth);
+    unsigned idle = __ballot_sync(0xffffffffu, i < 0 || ended);
+    if (__popc(idle) >= kFwdRefill) {
+      if (ended) {
+        const PathOut o = path_finish<kDirect>(st, pp, sink);
+        radiance[i] = o.L[0];
+        radiance[(size_t)n + i] = o.L[1];
+        radiance[2 * (size_t)n + i] = o.L[2];
+        segcnt[i] = o.segcnt;
+        if constexpr (kRecord) put_tail(sink, pp.depth, o);
+        i = -1;
+      }
+      while (idle != 0u && chunk < n_chunks) {
+        const int len = min(32, n - (chunk << 5));
+        const int at = taken + __popc(idle & below);
+        if (i < 0 && at < len) {
+          i = (chunk << 5) + at;
+          const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
+          st = path_init<float>(pp, r.hs, r.sx, r.sy, r.sz, r.dx, r.dy, r.dz);
+          depth = 0;
+          if constexpr (kRecord) {
+            sink.st.bind(record + 4 * (size_t)i, (size_t)n);
+            sink.absorbed = false;
+          }
+        }
+        taken += __popc(idle);
+        if (taken >= len) {
+          ++round;
+          chunk = round * n_warps + (warp + round) % n_warps;
+          taken = 0;
+        }
+        idle = __ballot_sync(0xffffffffu, i < 0);
+      }
+    }
+    if (idle == 0xffffffffu) break;  // every lane of the warp's chunks written
+    if (i >= 0 && st.alive && depth < pp.depth)
+      path_bounce<kDirect>(st, depth++, rows, tab, mat_meta, pp, sink);
+  }
+}
 
 // This thread's column of parameter cotangents: entry p at col[p * stride].
 struct ParamCol {
@@ -803,12 +932,21 @@ __device__ __forceinline__ void sweep(const float* __restrict__ prims,
     const int m0 = __ldg(meta + 2 * __float_as_int(rec.st.at(0, 9)) + 1);
     fog_row = m0 > 0 ? m0 : 0;
   }
+  // Over kernel 9's record the lanes of a warp step down from its longest
+  // path together, each from its own last bounce: at a step they read one
+  // depth of it, neighbouring addresses.  A per-thread record's lanes step
+  // on their own (together, kernel 8's whole chain lost 12 %, PERF.md §6).
+  int top = o.segcnt;
+  if constexpr (kSweepTogether<Store>) top = __reduce_max_sync(__activemask(), top);
 #pragma unroll 1
-  for (int depth = o.segcnt - 1; depth >= 0; --depth) {
-    const float s[3] = {rec.st.at(depth, 0), rec.st.at(depth, 1), rec.st.at(depth, 2)};
-    const float d[3] = {rec.st.at(depth, 3), rec.st.at(depth, 4), rec.st.at(depth, 5)};
-    const float T[3] = {rec.st.at(depth, 6), rec.st.at(depth, 7), rec.st.at(depth, 8)};
-    const int prim = __float_as_int(rec.st.at(depth, 9));
+  for (int depth = top - 1; depth >= 0; --depth) {
+    if (kSweepTogether<Store> && depth >= o.segcnt) continue;
+    float w[kStateWords];
+    get_bounce(rec.st, depth, w);
+    const float s[3] = {w[0], w[1], w[2]};
+    const float d[3] = {w[3], w[4], w[5]};
+    const float T[3] = {w[6], w[7], w[8]};
+    const int prim = __float_as_int(w[9]);
     bounce_adjoint(prims, meta, mats, mat_meta, pp, hs, depth, s, d, T, prim,
                    depth == 1 ? fog_row : -1, cL, cT, cs, cd, g);
   }
@@ -1002,9 +1140,10 @@ __host__ __device__ constexpr size_t reverse_smem(int n_mats, int rows, int bloc
   return sizeof(float) * (2 * (size_t)n_mats * kMatStride + (size_t)rows * block);
 }
 
-// Kernel 10: per lane, cot · d(radiance)/d(pvec) by one recorded trace and
-// one sweep; partial [n_cells][blocks], int_partial [2][blocks] (0, lanes
-// with a zeroed non-finite entry).  scratch: layout 1's record.
+// Kernel 10, remat route: per lane, cot · d(radiance)/d(pvec) by one
+// recorded trace and one sweep; partial [n_cells][blocks], int_partial
+// [2][blocks] (0, lanes with a zeroed non-finite entry).  scratch: layout
+// 1's record.
 template <int kLayout>
 __global__ void __launch_bounds__(kAdjBlock, kBackwardMinBlocks)
 grad_backward_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
@@ -1037,6 +1176,46 @@ grad_backward_kernel(const float* __restrict__ prims, const int* __restrict__ me
     const float c[3] = {cot[i], cot[(size_t)n + i], cot[2 * (size_t)n + i]};
     float cs[3], cd[3];
     sweep(prims, meta, sm, mat_meta, pp, r.hs, rec, o, c, g, cs, cd);
+    bad = finish_column(g, n_cells);
+  }
+  block_columns(acc, n_cells, partial);
+  block_ints(bad, 0, warp_int, int_partial);
+}
+
+// Kernel 10, sweep route: grad_backward_kernel with the record of each
+// lane read from kernel 9's (grad_forward_kernel<1> over the same lanes,
+// a RecordStore) instead of traced again.  The same block, grid,
+// table, sweep, columns and reduction, so the same gradient bit for bit.
+__global__ void __launch_bounds__(kAdjBlock, kSweepMinBlocks)
+grad_sweep_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                  const float* __restrict__ mats, const int* __restrict__ mat_meta,
+                  const PathParams pp, const CamParams cp, const float* __restrict__ pvec,
+                  const int* __restrict__ cells, int n_cells, uint32_t h0, int sample0,
+                  int lane0, int n, const float* __restrict__ cot,
+                  const float* __restrict__ record, float* __restrict__ partial,
+                  int* __restrict__ int_partial) {
+  extern __shared__ float smem[];
+  __shared__ int warp_int[2 * kAdjWarps];
+  const int B = blockDim.x;
+  const int cells_total = pp.n_mats * kMatStride;
+  float* tab = smem;
+  int* seed = reinterpret_cast<int*>(smem + cells_total);
+  float* acc = smem + 2 * cells_total;
+  load_table(tab, seed, mats, pp.n_mats, pvec, cells, n_cells);
+  for (int p = 0; p < n_cells; ++p) acc[p * B + threadIdx.x] = 0.0f;
+  const ParamCol g{acc + threadIdx.x, seed, B};
+  const SmemMats sm{tab};
+
+  const int i = blockIdx.x * B + threadIdx.x;
+  int bad = 0;
+  if (i < n) {
+    Recorder<RecordView> rec;
+    rec.st.bind(record + 4 * (size_t)i, (size_t)n);
+    const PathOut o = get_tail(rec, pp.depth);
+    const uint32_t hs = camera_ray(cp, h0, sample0, lane0 + i).hs;
+    const float c[3] = {cot[i], cot[(size_t)n + i], cot[2 * (size_t)n + i]};
+    float cs[3], cd[3];
+    sweep(prims, meta, sm, mat_meta, pp, hs, rec, o, c, g, cs, cd);
     bad = finish_column(g, n_cells);
   }
   block_columns(acc, n_cells, partial);
@@ -1121,22 +1300,24 @@ inline bool plan_reverse(int n_mats, int rows, int depth, ReversePlan& plan) {
   return plan.block > 0;
 }
 
-// Kernel 9's resident blocks a device and table size: 0 not yet computed.
-static int resident_blocks[64][kMaxAdjMats + 1];
+// Kernel 9's resident blocks a variant (record or not), device and table
+// size: 0 not yet computed.
+static int resident_blocks[2][64][kMaxAdjMats + 1];
 
 // The grid of a kernel-9 launch over n lanes with a table of n_mats rows:
 // the card's resident blocks (occupancy at the table's shared memory times
-// the SMs, computed once a device and table size), or fewer where the band
-// has fewer chunks than the grid has warps; -1 where CUDA fails.
-int forward_grid(int n_mats, int n) {
+// the SMs, computed once a variant, device and table size), or fewer where
+// the band has fewer chunks than the grid has warps; -1 where CUDA fails.
+int forward_grid(int n_mats, int n, bool record) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return -1;
-  int& resident = resident_blocks[dev][n_mats];
+  int& resident = resident_blocks[record][dev][n_mats];
   if (resident == 0) {
     int per_sm = 0, sms = 0;
     const size_t smem = sizeof(float) * n_mats * kMatStride;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grad_forward_kernel, kAdjBlock,
-                                                      smem) != cudaSuccess
+    auto* kernel = record ? grad_forward_kernel<1> : grad_forward_kernel<0>;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kAdjBlock, smem)
+            != cudaSuccess
         || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
         || per_sm * sms <= 0)
       return -1;
@@ -1150,21 +1331,23 @@ int forward_grid(int n_mats, int n) {
 
 extern "C" {
 
-// radiance: [3, n] float; segcnt: [n] int.
+// radiance: [3, n] float; segcnt: [n] int; record: [pp.depth·3 + 1, n, 4]
+// float for kernel 10's sweep route (fspt_grad_sweep), or null.
 int fspt_grad_forward(const float* prims, const int* meta, const float* mats,
                       const int* mat_meta, fspt::PathParams pp, fspt::CamParams cp,
                       const float* pvec, const int* cells, int n_cells, unsigned int h0,
                       int sample0, int lane0, int n, float* radiance, int* segcnt,
-                      void* stream) {
+                      float* record, void* stream) {
   using namespace fspt;
   if (int err = check_mats(pp)) return err;
   if (n <= 0) return 0;
-  const int grid = forward_grid(pp.n_mats, n);
+  const int grid = forward_grid(pp.n_mats, n, record != nullptr);
   if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = sizeof(float) * pp.n_mats * kMatStride;
-  grad_forward_kernel<<<grid, kAdjBlock, smem, (cudaStream_t)stream>>>(
+  auto* kernel = record ? grad_forward_kernel<1> : grad_forward_kernel<0>;
+  kernel<<<grid, kAdjBlock, smem, (cudaStream_t)stream>>>(
       prims, meta, mats, mat_meta, pp, cp, pvec, cells, n_cells, h0, sample0, lane0, n,
-      radiance, segcnt);
+      radiance, segcnt, record);
   return (int)cudaGetLastError();
 }
 
@@ -1175,7 +1358,7 @@ int fspt_grad_forward(const float* prims, const int* meta, const float* mats,
 int fspt_grad_forward_plan(int n_mats, int n, int* grid, int* refill) {
   using namespace fspt;
   if (n_mats > kMaxAdjMats || n_mats < 0) return (int)cudaErrorInvalidValue;
-  *grid = n > 0 ? forward_grid(n_mats, n) : 0;
+  *grid = n > 0 ? forward_grid(n_mats, n, false) : 0;
   *refill = kFwdRefill;
   return *grid < 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
@@ -1220,6 +1403,36 @@ int fspt_grad_backward(const float* prims, const int* meta, const float* mats,
   kernel<<<blocks, plan.block, smem, st>>>(prims, meta, mats, mat_meta, pp, cp, pvec, cells,
                                            n_cells, h0, sample0, lane0, n, cot, scratch,
                                            partial, int_partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  adjoint_reduce<<<n_cells + 2, kReduceBlock, 0, st>>>(partial, int_partial, blocks,
+                                                       n_cells, out, int_out);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 10's sweep route: as fspt_grad_backward, with record, kernel 9's
+// record of the same lanes ([pp.depth·3 + 1, n, 4] float, fspt_grad_forward),
+// in place of scratch.
+int fspt_grad_sweep(const float* prims, const int* meta, const float* mats,
+                    const int* mat_meta, fspt::PathParams pp, fspt::CamParams cp,
+                    const float* pvec, const int* cells, int n_cells, unsigned int h0,
+                    int sample0, int lane0, int n, const float* cot, const float* record,
+                    float* partial, int* int_partial, double* out, long long* int_out,
+                    void* stream) {
+  using namespace fspt;
+  ReversePlan plan;
+  if (!plan_reverse(pp.n_mats, n_cells, pp.depth, plan) || record == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_cells <= 0) return 0;
+  const int blocks = blocks_for(n, plan.block);
+  const size_t smem = reverse_smem(pp.n_mats, n_cells, plan.block);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = allow_smem(grad_sweep_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  grad_sweep_kernel<<<blocks, plan.block, smem, st>>>(prims, meta, mats, mat_meta, pp, cp,
+                                                      pvec, cells, n_cells, h0, sample0,
+                                                      lane0, n, cot, record, partial,
+                                                      int_partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   adjoint_reduce<<<n_cells + 2, kReduceBlock, 0, st>>>(partial, int_partial, blocks,

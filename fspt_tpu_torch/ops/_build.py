@@ -179,9 +179,9 @@ _SIGNATURES = {
     },
     "fspt_adjoint": {
         # prims, meta, mats, mat_meta, PathParams, CamParams, pvec, cells,
-        # n_cells, h0, sample0, lane0, n, radiance, segcnt, stream
+        # n_cells, h0, sample0, lane0, n, radiance, segcnt, record, stream
         "fspt_grad_forward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
-                              _I, _I, _P, _P, _P],
+                              _I, _I, _P, _P, _P, _P],
         # n_mats, n, *grid, *refill
         "fspt_grad_forward_plan": [_I, _I, _P, _P],
         # n_mats, rows, depth, *block, *scratch_words
@@ -190,6 +190,9 @@ _SIGNATURES = {
         # int_partial, out, int_out, stream
         "fspt_grad_backward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
                                _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        # ... as fspt_grad_backward, with kernel 9's record in place of scratch
+        "fspt_grad_sweep": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P],
         # prims, meta, mats, mat_meta, PathParams, CamParams, TracedCamParams,
         # pvec, cells, n_cells, use_camera, h0, sample0_a, sample0_b, lane0,
         # n, target, scratch, partial, int_partial, out, int_out, stream

@@ -21,11 +21,14 @@ Counterpart of fspt_tpu/ops/pallas_grad.py.
   chain (``:700-753``), for scalar fields (param, ior, reflectivity, frost)
   and the camera: two traces, the lane loss and the adjoint of both whole
   paths in one launch.
-* ``grad_forward_kernel`` and ``grad_backward_kernel`` (csrc/fspt_adjoint.cu)
-  replace ``pallas_grad.py:make_grad_path_tracer`` (kernels ``:216`` and
-  ``:227``): radiance with the optimized table cells read at run time, and
-  its vector-Jacobian product for a radiance cotangent, glued by a
-  ``torch.autograd.Function``.
+* ``grad_forward_kernel`` and ``grad_sweep_kernel`` or ``grad_backward_kernel``
+  (csrc/fspt_adjoint.cu) replace ``pallas_grad.py:make_grad_path_tracer``
+  (kernels ``:216`` and ``:227``): radiance with the optimized table cells
+  read at run time, and its vector-Jacobian product for a radiance
+  cotangent, glued by a ``torch.autograd.Function``.  Kernel 10 sweeps the
+  record kernel 9 wrote of each lane where the call wants a gradient and
+  the record fits (:func:`keeps_record`), and otherwise traces the lanes
+  again (remat).
 
 The adjoint of the path body is reverse mode on the card (kernels 10 and
 8's whole chain: one recorded float trace and a hand-written per-bounce
@@ -82,13 +85,44 @@ FUSED_LOSS = _build.KernelCounter(
 GRAD_FORWARD = _build.KernelCounter(
     "grad_forward", "fspt_adjoint", "fspt_grad_forward",
     "fspt_tpu/ops/pallas_grad.py:216 make_grad_path_tracer fwd (body :188)")
+#: Kernel 10's remat route: it traces the lanes again.
 GRAD_BACKWARD = _build.KernelCounter(
     "grad_backward", "fspt_adjoint", "fspt_grad_backward",
+    "fspt_tpu/ops/pallas_grad.py:227 make_grad_path_tracer bwd (body :193)")
+#: Kernel 10's sweep route: it sweeps kernel 9's record of the lanes.
+GRAD_SWEEP = _build.KernelCounter(
+    "grad_sweep", "fspt_adjoint", "fspt_grad_sweep",
     "fspt_tpu/ops/pallas_grad.py:227 make_grad_path_tracer bwd (body :193)")
 FUSED_LOSS_CHAIN = _build.KernelCounter(
     "fused_loss_chain", "fspt_adjoint", "fspt_fused_loss_chain",
     "fspt_tpu/ops/pallas_grad.py:792 make_fused_loss_grad_fn, whole chain "
     "(body :589, :700-753)")
+
+
+#: The most of the card's memory one recorded band may take.
+RECORD_SHARE = 1 / 8
+
+
+def record_shape(n: int, depth: int) -> tuple[int, int, int]:
+    """Kernel 9's record of ``n`` lanes at ``depth`` bounces, float32
+    (csrc/fspt_adjoint.cu RecordStore): planes of float4, three a bounce
+    (segment, throughput, winner row: 10 words padded to 12) and one for the
+    lane's tail (radiance before the clamp, segments and flags)."""
+    return (3 * depth + 1, n, 4)
+
+
+def record_bytes(n: int, depth: int) -> int:
+    """Bytes of kernel 9's record of ``n`` lanes at ``depth`` bounces."""
+    planes, lanes, words = record_shape(n, depth)
+    return 4 * planes * lanes * words
+
+
+def keeps_record(n: int, depth: int, total_memory: int, needs_grad: bool) -> bool:
+    """Whether kernel 9 records ``n`` lanes for kernel 10 to sweep: where
+    the call wants a gradient and the record fits in :data:`RECORD_SHARE`
+    of the card's ``total_memory``.  Otherwise kernel 9 writes none and
+    kernel 10 traces the lanes again."""
+    return bool(needs_grad) and record_bytes(n, depth) <= total_memory * RECORD_SHARE
 
 
 def adjoint_plan(n_mats: int, rows: int, depth: int) -> tuple[int, int]:
@@ -236,11 +270,15 @@ def _adjoint_envelope(scene_pack):
 
 class _GradTrace(torch.autograd.Function):
     """Kernel 9 forward, kernel 10 backward (the reference's custom VJP,
-    pallas_grad.py:239-255)."""
+    pallas_grad.py:239-255).  ``forward_fn(pvec, wants_grad)`` returns the
+    radiance, the segments and kernel 9's record of the lanes or None; the
+    record stays on ``ctx`` until the backward sweeps it
+    (``backward_fn(pvec, cot, record)``), or until the graph goes."""
 
     @staticmethod
-    def forward(ctx, pvec, forward_fn, backward_fn):
-        radiance, segcnt = forward_fn(pvec)
+    def forward(ctx, pvec, grad_enabled, forward_fn, backward_fn):
+        radiance, segcnt, ctx.record = forward_fn(pvec,
+                                                  grad_enabled and ctx.needs_input_grad[0])
         ctx.backward_fn = backward_fn
         ctx.save_for_backward(pvec)
         ctx.mark_non_differentiable(segcnt)
@@ -249,7 +287,8 @@ class _GradTrace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_radiance, _g_segcnt):
         (pvec,) = ctx.saved_tensors
-        return ctx.backward_fn(pvec, g_radiance), None, None
+        record, ctx.record = ctx.record, None  # freed once swept; a retained graph retraces
+        return ctx.backward_fn(pvec, g_radiance, record), None, None, None
 
 
 def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive")):
@@ -262,14 +301,31 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     pack_params(params, fields)``, or None for a BVH scene, a textured one
     or one over 512 primitives.  A scene on the CPU runs autograd of the
     plain body with ``tmats``; on the card the forward launches kernel 9 and
-    the backward kernel 10 with the radiance cotangent.  ``trace.fields``,
-    ``trace.n_params``, ``trace.mats``; ``trace.plain`` runs the plain
-    version on any device, ``trace.plain_grad(pvec, cot, seed, sample0,
-    lane0, n)`` its ``torch.autograd.grad`` with lane sums in float64, and
-    ``trace.kernel_forward(pvec, seed, sample0, lane0, n)`` and
-    ``trace.kernel_backward(pvec, cot, seed, sample0, lane0, n)`` launch the
-    kernels themselves (card only), and ``trace.nonfinite`` holds the lanes
-    whose non-finite contribution the last kernel-10 launch zeroed.
+    the backward kernel 10 with the radiance cotangent.
+
+    Kernel 10 takes one of two routes, by what the call shows
+    (:func:`keeps_record`): where the call wants a gradient (``pvec``
+    requires one, with grad mode on) and the band's record fits in an
+    eighth of the card's memory, kernel 9 records each lane's live bounces
+    and its tail as it traces it (``n·(48·depth + 16)`` bytes, 3.3 GB at
+    1080p×4, depth 8), the record is held until the backward, and kernel
+    10 only sweeps it (``GRAD_SWEEP``); otherwise kernel 9 writes none and
+    kernel 10 traces the lanes again before its sweep (remat,
+    ``GRAD_BACKWARD``), as the TPU reference does, whose fast memory is
+    small.  Both routes sweep the same bits in the same order: the same
+    gradient bit for bit.
+
+    ``trace.fields``, ``trace.n_params``, ``trace.mats``; ``trace.plain``
+    runs the plain version on any device, ``trace.plain_grad(pvec, cot,
+    seed, sample0, lane0, n)`` its ``torch.autograd.grad`` with lane sums in
+    float64, and ``trace.kernel_forward(pvec, seed, sample0, lane0, n,
+    record=None)`` and ``trace.kernel_backward(pvec, cot, seed, sample0,
+    lane0, n, record=None)`` launch the kernels themselves (card only):
+    with ``record`` (``trace.new_record(n)``) kernel 9 writes it and kernel
+    10 sweeps it, without it kernel 10 takes the remat route.
+    ``trace.nonfinite`` holds the lanes whose non-finite contribution the
+    last kernel-10 launch zeroed, ``trace.record_bytes`` the bytes of the
+    record the last kernel-9 launch wrote (0 for none).
     """
     if CAMERA_FIELD in fields:
         raise ValueError("camera gradients take make_fused_loss_grad_fn; the "
@@ -303,6 +359,15 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
         pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
         cp = _cam_params(cam, cfg)
         block, words = adjoint_plan(mats.count, P, pp.depth)
+        total_memory = torch.cuda.get_device_properties(dev).total_memory
+
+    def new_record(n):
+        """An empty record of ``n`` lanes for kernel 9 to write."""
+        return torch.empty(record_shape(n, pp.depth), dtype=torch.float32, device=dev)
+
+    def check_record(record, n):
+        _build.check_cuda_tensor("record", record, torch.float32, record_shape(n, pp.depth),
+                                 dev)
 
     def tables(pvec):
         """The launch's table pointers and its float32 parameter vector."""
@@ -313,20 +378,25 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
         return (prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
                 pp, cp), pvec
 
-    def kernel_forward(pvec, seed, sample0, lane0, n):
-        """Kernel 9: radiance ``[3, n]`` and segments ``[n]``."""
+    def kernel_forward(pvec, seed, sample0, lane0, n, record=None):
+        """Kernel 9: radiance ``[3, n]`` and segments ``[n]``; each lane's
+        record into ``record`` where given."""
         head, pv = tables(pvec)
+        if record is not None:
+            check_record(record, n)
         radiance = torch.empty((3, n), dtype=torch.float32, device=dev)
         segcnt = torch.empty((n,), dtype=torch.int32, device=dev)
         _build.launch(GRAD_FORWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
                       rng.seed_hash(seed), int(sample0), int(lane0), n, radiance.data_ptr(),
-                      segcnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                      segcnt.data_ptr(), _ptr(record),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        trace.record_bytes = 0 if record is None else record.nbytes
         return radiance, segcnt
 
-    def kernel_backward(pvec, cot, seed, sample0, lane0, n):
+    def kernel_backward(pvec, cot, seed, sample0, lane0, n, record=None):
         """Kernel 10 (reverse mode): ``Σ_lanes cotᵀ·∂radiance/∂pvec`` for
-        ``cot [3, n]``."""
-        scratch = _record_scratch(words, 1, n, dev)
+        ``cot [3, n]``: the sweep of ``record`` (kernel 9's of the same
+        lanes) where given, else the lanes traced again and swept."""
         head, pv = tables(pvec)
         cot = cot.to(torch.float32).contiguous()
         _build.check_cuda_tensor("cotangent", cot, torch.float32, (3, n), dev)
@@ -335,13 +405,26 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
         int_partial = torch.empty((2, blocks), dtype=torch.int32, device=dev)
         out = torch.empty((P,), dtype=torch.float64, device=dev)
         int_out = torch.empty((2,), dtype=torch.int64, device=dev)
-        _build.launch(GRAD_BACKWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
+        if record is None:
+            counter, store = GRAD_BACKWARD, _record_scratch(words, 1, n, dev)
+        else:
+            check_record(record, n)
+            counter, store = GRAD_SWEEP, record
+        _build.launch(counter, *head, pv.data_ptr(), cells.data_ptr(), P,
                       rng.seed_hash(seed), int(sample0), int(lane0), n, cot.data_ptr(),
-                      _ptr(scratch), partial.data_ptr(), int_partial.data_ptr(),
+                      _ptr(store), partial.data_ptr(), int_partial.data_ptr(),
                       out.data_ptr(), int_out.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         trace.nonfinite = int_out[1]
         return out.to(torch.float32)
+
+    def recorded_forward(pvec, seed, sample0, lane0, n, wants_grad):
+        """Kernel 9 for the autograd glue, with a record where the route
+        rule keeps one."""
+        keep = keeps_record(n, pp.depth, total_memory, wants_grad)
+        record = new_record(n) if keep else None
+        radiance, segcnt = kernel_forward(pvec, seed, sample0, lane0, n, record=record)
+        return radiance, segcnt, record
 
     def trace(pvec, seed, sample0, lane0=0, n_lanes=None):
         n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
@@ -349,9 +432,10 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
             planes, segcnt = plain_planes(pvec, seed, sample0, lane0, n)
         else:
             planes, segcnt = _GradTrace.apply(
-                pvec.to(torch.float32),
-                lambda pv: kernel_forward(pv, seed, sample0, lane0, n),
-                lambda pv, cot: kernel_backward(pv, cot, seed, sample0, lane0, n))
+                pvec.to(torch.float32), torch.is_grad_enabled(),
+                lambda pv, wants: recorded_forward(pv, seed, sample0, lane0, n, wants),
+                lambda pv, cot, rec: kernel_backward(pv, cot, seed, sample0, lane0, n,
+                                                     record=rec))
         zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
         return TraceOutput(radiance=planes.t(), aov_normal=torch.zeros((n, 3), device=dev),
                            aov_depth=zeros, aov_mat=zeros.to(torch.int32),
@@ -364,7 +448,9 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     trace.plain_grad = plain_grad
     trace.kernel_forward = kernel_forward
     trace.kernel_backward = kernel_backward
+    trace.new_record = new_record
     trace.nonfinite = None
+    trace.record_bytes = 0
     return trace
 
 

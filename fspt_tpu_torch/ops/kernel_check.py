@@ -399,21 +399,24 @@ def check_grad_forward(tracer, pvec, seed: int, sample0: int, lane0: int, n: int
     """Kernel 9 alone against its plain version, with no autograd (so at any
     size the plain body fits in memory): radiance at the path bar and every
     lane's segments equal (the report gives the equal and bit-equal shares
-    of the radiance values), and a second launch bit-equal to the first
-    (the regenerating schedule reaches no result)."""
+    of the radiance values), a second launch bit-equal to the first (the
+    regenerating schedule reaches no result), and a third that writes the
+    lanes' record bit-equal too (the record changes no arithmetic)."""
     rad_k, seg_k = tracer.kernel_forward(pvec, seed, sample0, lane0, n)
     rad_a, seg_a = tracer.kernel_forward(pvec, seed, sample0, lane0, n)
+    rad_r, seg_r = tracer.kernel_forward(pvec, seed, sample0, lane0, n,
+                                         record=tracer.new_record(n))
     with torch.no_grad():
         rad_p, seg_p = tracer.plain(pvec.detach(), seed, sample0, lane0, n)
     torch.cuda.synchronize()
+    bits = lambda rad, seg: (torch.equal(rad_k.view(torch.int32), rad.view(torch.int32))
+                             and torch.equal(seg_k, seg))
     rep = dict(lanes=n, lane0=lane0, params=tracer.n_params,
                radiance_bits_equal=_frac_equal(rad_k.view(torch.int32),
                                                rad_p.view(torch.int32)),
-               relaunch_equal=bool(torch.equal(rad_k.view(torch.int32),
-                                               rad_a.view(torch.int32))
-                                   and torch.equal(seg_k, seg_a)),
+               relaunch_equal=bool(bits(rad_a, seg_a)), recorded_equal=bool(bits(rad_r, seg_r)),
                **_forward_report(rad_k, seg_k, rad_p, seg_p))
-    assert rep["relaunch_equal"], rep
+    assert rep["relaunch_equal"] and rep["recorded_equal"], rep
     return rep
 
 
@@ -423,24 +426,33 @@ def check_grad_path_tracer(scene_pack, camera, cfg, fields, seed: int, sample0: 
     segments) and kernel 10 against ``torch.autograd.grad`` of the plain
     version for a seeded radiance cotangent, through the autograd glue, on
     the frame rows ``y0 .. y0+rows-1`` (all by default), from ``params``
-    (the table's columns by default); a second kernel-10 launch equal bit
-    for bit."""
+    (the table's columns by default).  The glue takes the sweep route (a
+    band the card's memory holds); the remat route's launch on the same
+    lanes gives the same gradient and non-finite count bit for bit."""
     tracer = cuda_grad.make_grad_path_tracer(scene_pack, camera, cfg, fields=fields)
     lane0, n = _band(cfg, y0, rows)
     if params is None:
         params = {f: getattr(scene_pack.materials, f) for f in fields}
     pvec = cuda_grad.pack_params(params, tracer.fields).detach().requires_grad_()
+    sweeps, remats = cuda_grad.GRAD_SWEEP.launches, cuda_grad.GRAD_BACKWARD.launches
     out = tracer(pvec, seed, sample0, lane0, n)
+    record_bytes = tracer.record_bytes
     planes_p, seg_p = tracer.plain(pvec.detach(), seed, sample0, lane0, n)
     cot = torch.from_numpy(np.random.default_rng(seed).normal(size=(3, n)).astype(
         np.float32)).to(pvec.device)
     (g_k,) = torch.autograd.grad((out.radiance.t() * cot).sum(), [pvec])
     nonfinite = _count(tracer.nonfinite)
+    routes = dict(sweep=cuda_grad.GRAD_SWEEP.launches - sweeps,
+                  remat=cuda_grad.GRAD_BACKWARD.launches - remats)
     g_again = tracer.kernel_backward(pvec, cot, seed, sample0, lane0, n)
+    nonfinite_again = _count(tracer.nonfinite)
     g_p = tracer.plain_grad(pvec, cot, seed, sample0, lane0, n)
     torch.cuda.synchronize()
-    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params,
-               bit_equal=bool(torch.equal(g_k, g_again)))
+    rep = dict(lanes=n, lane0=lane0, params=tracer.n_params, routes=routes,
+               record_bytes=record_bytes,
+               bit_equal=bool(torch.equal(g_k, g_again) and nonfinite == nonfinite_again))
+    assert routes == dict(sweep=1, remat=0), rep
+    assert record_bytes == cuda_grad.record_bytes(n, cfg.effective_depth), rep
     assert rep["bit_equal"], rep
     rep.update(_forward_report(out.radiance.t(), out.segments, planes_p, seg_p.sum()))
     del rep["segments_equal"]  # the glue returns the sum only

@@ -337,6 +337,23 @@ def test_grad_tracer_declines_textured_scenes():
     assert cuda_grad.make_grad_image_fn(ps, pc, cfg) is None
 
 
+def test_grad_tracer_route_rule():
+    """Kernel 9 records its lanes for kernel 10 to sweep only where the call
+    wants a gradient and the record fits in an eighth of the card: the
+    pool-8 band (1080p×4, depth 8) does on an 80 GB card, a band past the
+    eighth does not, and a call that wants no gradient never does."""
+    card = 85_017_493_504  # an H100 80GB HBM3's total_memory
+    n = 1920 * 1080 * 4
+    assert cuda_grad.record_bytes(n, 8) == n * 8 * 48 + n * 16
+    assert cuda_grad.keeps_record(n, 8, card, True)
+    assert not cuda_grad.keeps_record(n, 8, card, False)
+    most = card // 8 // (8 * 48 + 16)  # the most lanes at depth 8
+    assert cuda_grad.keeps_record(most, 8, card, True)
+    assert not cuda_grad.keeps_record(most + 1, 8, card, True)
+    assert not cuda_grad.keeps_record(n, 40, card, True)
+    assert not cuda_grad.keeps_record(1, 1, card, False)
+
+
 def test_fused_loss_backward_modes_agree():
     """tests/test_pallas_grad.py:255-283: affine, remat and whole chain give
     the same loss, gradients (up to float re-association) and segments."""

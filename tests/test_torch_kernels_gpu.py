@@ -220,14 +220,18 @@ RAGGED_BANDS = ((5, 1), (7, 31), (40, 33), (100, 1000))
 ])
 def test_grad_path_kernels_match_plain(cuda, fields, depth):
     """Kernel 9 against its plain version and kernel 10 (reverse mode)
-    against autograd of it, two kernel-10 launches bit for bit, on all nine
-    families through a thin-lens camera: every material field (P = 169,
-    shared-memory columns above 48 KB), and 16 bounces (the most the
-    per-thread record holds) against 17 and 18 (the device scratch).  Then
-    kernel 9 alone (persistent, regenerating lanes): radiance and segments
-    bit-equal to the plain version and two launches bit-equal, on ragged
-    bands with lane0 ≠ 0 and on the flagship seen from inside the box
-    looking out, where most lanes die at depth 0."""
+    against autograd of it, on all nine families through a thin-lens
+    camera: every material field (P = 169, shared-memory columns above 48
+    KB), and 16 bounces (the most the per-thread record holds) against 17
+    and 18 (the device scratch).  Kernel 10's sweep of kernel 9's record
+    (the autograd glue's route) and its remat route give the same gradient
+    and non-finite count bit for bit.  Then kernel 9 alone (persistent,
+    regenerating lanes): radiance and segments bit-equal to the plain
+    version, between two launches and with and without its record, on
+    ragged bands with lane0 ≠ 0 and on the flagship seen from inside the
+    box looking out, where most lanes die at depth 0.  A call that wants no
+    gradient records nothing; the flagship's recovery front door takes the
+    sweep route."""
     from fspt_tpu_torch.camera import Camera
     from fspt_tpu_torch.ops import cuda_grad, kernel_check
     from fspt_tpu_torch.scene import samples
@@ -255,6 +259,29 @@ def test_grad_path_kernels_match_plain(cuda, fields, depth):
     assert rep["radiance_bits_equal"] == 1.0, rep
     _, seg = tracer.plain(pvec, 3, 1, 0, n)
     assert float((seg == 1).float().mean()) > 0.5  # most lanes die at depth 0
+
+    # No gradient wanted (grad mode off, or a pvec that needs none): kernel
+    # 9 writes no record and kernel 10 never sweeps one.
+    sweeps = cuda_grad.GRAD_SWEEP.launches
+    with torch.no_grad():
+        tracer(pvec.detach().requires_grad_(), 3, 1, 0, n)
+    assert tracer.record_bytes == 0
+    tracer(pvec.detach(), 3, 1, 0, n)
+    assert tracer.record_bytes == 0 and cuda_grad.GRAD_SWEEP.launches == sweeps
+
+    # The recovery's front door on the flagship (the pool-8 route's fields):
+    # kernel 9 records, kernel 10 sweeps, and no lane is traced again.
+    img_fn = cuda_grad.make_grad_image_fn(flag, fb.cameras[0], cfg,
+                                          fields=("diffuse", "emissive", "param"))
+    params = {f: getattr(flag.materials, f).detach().clone().requires_grad_()
+              for f in img_fn.tracer.fields}
+    remats = cuda_grad.GRAD_BACKWARD.launches
+    img, _ = img_fn(params, 5, 0, 0, cfg.height)
+    assert img_fn.tracer.record_bytes == cuda_grad.record_bytes(n, cfg.effective_depth)
+    grads = torch.autograd.grad(img.sum(), list(params.values()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert cuda_grad.GRAD_SWEEP.launches == sweeps + 1
+    assert cuda_grad.GRAD_BACKWARD.launches == remats
 
 
 @pytest.mark.parametrize("scene_name,fields,depth", [
