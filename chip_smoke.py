@@ -75,8 +75,13 @@ Phases, each announced by one line:
    path against the plain path (kernels 1, 5, 6 plain);
 16. mesh main path: ``fspt_tpu_torch.cli`` renders the heightfield scene
    (written by ``samples.write_heightfield_scene``) at 1024×1024, 4 spp,
-   depth 4, 3 frames, then again with ``--first-hit-cache``; kernels 1, 5
-   and 6 launch once per queue iteration, and the image must be lit;
+   depth 4, 3 frames — the ``heightfield-render`` cell's frame — on kernel
+   13 (one launch a frame, no kernel 1, 5 or 6), then again with
+   ``--first-hit-cache`` on the queue (kernels 1, 5 and 6 once per queue
+   iteration); the images must be lit and their means close; then kernel
+   13 against its plain version at that frame (every value, the walk's
+   counts, the band split, the build that counts nothing bit for bit),
+   timed beside the frozen mesh work count, with its counting build's cost;
 17. mesh timings: the frame step (ms/frame, segments/s) through
    ``make_scene_step(queue=)`` at the reference's mesh_100k queue (1 << 17,
    bench.py:155; profiled) and at the port's default (1 << 18), kernels 5
@@ -263,13 +268,19 @@ def kernel_device_ms(fn, symbol, iters, warmup=2):
                 fn()
             torch.cuda.synchronize()
             prof.step()
-        found = [v for k, v in recorded_kernels(prof)[0].items() if symbol in k]
+        found = [v for k, v in recorded_kernels(prof)[0].items() if names_kernel(symbol, k)]
         count = sum(n for n, _ in found)
         if count == iters:
             return sum(us for _, us in found) / count / 1e3
         print(f"the trace holds {count} of {iters} {symbol} launches: profiled again",
               flush=True)
     raise AssertionError(f"the trace holds {count} of {iters} {symbol} launches")
+
+
+def names_kernel(fn, name):
+    """Whether the profiler's kernel ``name`` is the CUDA function ``fn``
+    (camera_path_kernel is a part of mesh_camera_path_kernel's name)."""
+    return re.search(rf"(?<!\w){fn}(?!\w)", name) is not None
 
 
 def bound_ms(ops, nbytes):
@@ -294,6 +305,7 @@ KERNELS = {
     "fused_loss_chain": ("fused_loss_chain_kernel", "fspt_tpu_torch/csrc/fspt_adjoint.cu"),
     "bvh_walk": ("bvh_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
     "treelet_walk": ("treelet_walk_kernel", "fspt_tpu_torch/csrc/fspt_bvh.cu"),
+    "mesh_camera_path": ("mesh_camera_path_kernel", "fspt_tpu_torch/csrc/fspt_kernels.cu"),
 }
 PTXAS_NAMES = [fn for fn, _ in KERNELS.values()] + ["adjoint_reduce"]
 
@@ -316,17 +328,18 @@ WALK_SAMPLE = 262144
 def ptxas_report(log):
     """CUDA function → registers, (spill stores, spill loads), stack frame
     and static shared memory bytes, from ``-Xptxas -v``; a template
-    instantiation also under ``name<args>`` (its integer arguments)."""
+    instantiation also under ``name<args>`` (its integer or bool arguments,
+    as 0 / 1)."""
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            current = next((k for k in PTXAS_NAMES if k in mangled), None)
+            current = next((k for k in PTXAS_NAMES if f"{len(k)}{k}" in mangled), None)
             if current is not None:
-                args = re.match(r"I((?:Li\d+E)+)E", mangled.split(current, 1)[1])
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled.split(current, 1)[1])
                 if args:
-                    current += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+                    current += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
             continue
         if current is None:
             continue
@@ -406,7 +419,8 @@ def profile_window(fn, label, counters, top=6, kernels=None):
         for key, c in counters.items():
             launched = c.launches - before[key]
             if launched:
-                traced = sum(n for k, (n, _) in dev.items() if KERNELS[key][0] in k)
+                traced = sum(n for k, (n, _) in dev.items()
+                             if names_kernel(KERNELS[key][0], k))
                 complete = complete and traced == launched
                 print(f"profile {label}: the trace holds {traced} of {launched} {key} launches")
         if complete:
@@ -485,6 +499,67 @@ def check_launches(launches, want, label):
     print(f"{label} launches {launches}", flush=True)
     for key, count in launches.items():
         assert count == want.get(key, 0), (label, key, launches, want)
+
+
+def mesh_phase(hf_scene, hf_cam, cfg, report, regs):
+    """Kernel 13 at ``cfg``, the ``heightfield-render`` cell's frame
+    (1024²×4, depth 4, the thin lens): held against its plain version
+    (``kernel_check.check_mesh_camera_tracer``), its device time a launch
+    (the build that counts nothing, which the main path runs, and the
+    counting build, from the profiler), the counting build's cost by CUDA
+    events in five rounds of the two in turns, the plain version's time,
+    and the bound of the frozen mesh work count
+    (``benchmark/harness/meshwork.py``: the rows, 2·⌈log2(T/4)⌉ box tests
+    and 4 triangle tests a segment).  Fills ``report`` and returns the
+    kernels line's ``timings`` entry."""
+    import statistics
+
+    import torch
+
+    from benchmark.harness import meshwork, workcount
+    from fspt_tpu_torch.ops import cuda_path, cuda_trace, kernel_check
+
+    seed, sample0 = 1_234_567, 8
+    phase(f"kernel 13 (mesh_camera_path) vs plain at the heightfield-render cell's frame: "
+          f"heightfield {cfg.width}x{cfg.height}x{cfg.spp}, depth {cfg.max_depth}, thin lens; "
+          f"timed, counting and not")
+    t0 = time.time()
+    rep = kernel_check.check_mesh_camera_tracer(hf_scene, hf_cam, cfg, seed=seed,
+                                                sample0=sample0)
+    print(f"kernel 13 vs plain ({time.time() - t0:.1f} s): {json.dumps(rep)}", flush=True)
+    report["mesh_camera_path"] = {"max_abs_err": rep["max_abs_err"]}
+    tracer = cuda_path.make_camera_path_tracer(hf_scene, hf_cam, cfg)
+    n = cfg.width * cfg.height * cfg.spp
+    segments = rep["segments"]
+    nodes, tris = rep["walk"]
+    symbol = KERNELS["mesh_camera_path"][0]
+    ms = kernel_device_ms(lambda: tracer(seed, sample0), symbol, iters=10)
+    ms_counted = kernel_device_ms(lambda: tracer.counted(seed, sample0), symbol, iters=10)
+    rounds = []
+    for _ in range(5):
+        rounds.append((cuda_time_ms(lambda: tracer(seed, sample0), iters=10),
+                       cuda_time_ms(lambda: tracer.counted(seed, sample0), iters=10)))
+    cost = statistics.median(c / u - 1.0 for u, c in rounds)
+    plain = cuda_time_ms(lambda: tracer.plain(seed, sample0, 0, n), iters=1, warmup=0)
+    torch.cuda.synchronize()
+    n_tris = hf_scene.tri_shade.mat.shape[0]
+    seg_ops = (cuda_trace.HostScene(hf_scene.geometry).segment_ops()
+               + meshwork.box_tests(n_tris) * meshwork.OPS_PER_BOX_TEST
+               + meshwork.TRIANGLE_TESTS_PER_SEGMENT * workcount.OPS_PER_TEST["triangle"])
+    b, by = bound_ms(segments * seg_ops, n * 36)
+    counting = regs.get(symbol + "<1>", {})
+    print(f"mesh_camera_path: {ms:.3f} ms/frame ({segments} segments, "
+          f"{segments / (ms * 1e-3):.4g} segments/s), counting build {ms_counted:.3f} ms; "
+          f"the counts cost {100 * cost:.2f} % by CUDA events (rounds {rounds}); "
+          f"{nodes / segments:.2f} node steps and {tris / segments:.2f} triangle tests a "
+          f"segment; plain {plain:.1f} ms; bound {b:.4f} ms ({by}: {seg_ops} ops/segment, "
+          f"frozen); counting build ptxas {counting}", flush=True)
+    return {"mesh_camera_path": dict(
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=rep["max_abs_err"],
+        ms_counted=ms_counted, counter_cost=cost, segments=segments,
+        nodes_per_segment=nodes / segments, triangles_per_segment=tris / segments,
+        registers_counting=counting.get("registers"), spill_bytes_counting=counting.get("spill"),
+        stack_bytes_counting=counting.get("stack"))}
 
 
 def adjoint_phases(dev, counters, reset_counts, cfg_chk, cfg_t, train_scene, train_cam,
@@ -1676,7 +1751,8 @@ def main():
                 "grad_sweep": cuda_grad.GRAD_SWEEP,
                 "fused_loss_chain": cuda_grad.FUSED_LOSS_CHAIN,
                 "bvh_walk": cuda_bvh.BVH_WALK,
-                "treelet_walk": cuda_bvh.TREELET_WALK}
+                "treelet_walk": cuda_bvh.TREELET_WALK,
+                "mesh_camera_path": cuda_path.MESH_CAMERA_PATH}
 
     def reset_counts():
         for c in counters.values():
@@ -2315,13 +2391,14 @@ def main():
     rep = kernel_check.check_mesh_frame(hf_scene, hf_cam, cfg_hf256, seed=2)
     print(json.dumps(rep), flush=True)
 
-    # 16. mesh main path: the CLI on the heightfield scene, uncached and cached
+    # 16. mesh main path: the CLI on the heightfield scene, on kernel 13 (the
+    # heightfield-render cell's frame) and cached on the queue
     hf_file = samples.write_heightfield_scene(OUT / "heightfield")
     n_hf = 1024 * 1024 * 4
     min_iters = -(-n_hf // DEFAULT_QUEUE)  # every lane passes through the queue
     mesh_frames = 3
     for cached in (False, True):
-        label = "with --first-hit-cache" if cached else "uncached"
+        label = "with --first-hit-cache (queue)" if cached else "uncached (kernel 13)"
         phase(f"mesh main path: fspt_tpu_torch.cli, heightfield 1024x1024, 4 spp, depth 4, "
               f"{mesh_frames} frames, {label}")
         hf_image = OUT / f"heightfield_1024{'_cached' if cached else ''}.png"
@@ -2337,18 +2414,26 @@ def main():
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {k: c.launches for k, c in counters.items()}
+        k13 = launches["mesh_camera_path"]
         assert rc == 0
-        # One launch of each of kernels 1, 5 and 6 per queue iteration; the
-        # cached run adds one per chunk of the pose pass.
-        pose_calls = min_iters if cached else 0
-        iters = launches["treelet_sweep"] - pose_calls
-        print(f"mesh CLI {label}: {wall:.1f} s; launches {launches}; queue iterations per "
-              f"frame {iters / mesh_frames:.1f}; per frame: intersect "
-              f"{(launches['intersect'] - pose_calls) / mesh_frames:.1f}, treelet_cull "
-              f"{(launches['treelet_cull'] - pose_calls) / mesh_frames:.1f}, treelet_sweep "
-              f"{iters / mesh_frames:.1f}", flush=True)
-        assert launches["intersect"] == launches["treelet_cull"] == launches["treelet_sweep"]
-        assert iters >= mesh_frames * min_iters, launches
+        if not cached:
+            print(f"mesh CLI {label}: {wall:.1f} s; kernel 13 launches {k13}; launches "
+                  f"{launches}", flush=True)
+            check_launches(launches, {"mesh_camera_path": mesh_frames}, "mesh CLI, kernel 13")
+            path_launches["mesh_camera_path"] = k13
+        else:
+            # One launch of each of kernels 1, 5 and 6 per queue iteration,
+            # and one per chunk of the pose pass.
+            pose_calls = min_iters
+            iters = launches["treelet_sweep"] - pose_calls
+            print(f"mesh CLI {label}: {wall:.1f} s; launches {launches}; queue iterations "
+                  f"per frame {iters / mesh_frames:.1f}; per frame: intersect "
+                  f"{(launches['intersect'] - pose_calls) / mesh_frames:.1f}, treelet_cull "
+                  f"{(launches['treelet_cull'] - pose_calls) / mesh_frames:.1f}, "
+                  f"treelet_sweep {iters / mesh_frames:.1f}", flush=True)
+            assert k13 == 0
+            assert launches["intersect"] == launches["treelet_cull"] == launches["treelet_sweep"]
+            assert iters >= mesh_frames * min_iters, launches
         fb, frame, extra = checkpoint.load(str(hf_ckpt), device=dev, with_extra=True)
         hf_ckpt.unlink()
         assert frame == mesh_frames and bool(extra["first_hit_cache"]) == cached
@@ -2357,15 +2442,20 @@ def main():
         print(f"display mean {display_mean:.2f} (below 15 means a broken render)")
         assert display_mean > 15.0, display_mean
         if not cached:
+            uncached_mean = fb.mean.mean().item()
+        else:
             for key in ("treelet_cull", "treelet_sweep"):
                 path_launches[key] = launches[key]
             k1_mesh = launches["intersect"]
-            uncached_mean = fb.mean.mean().item()
-        else:
             # Same scene, another estimator (frozen jitter): close means.
             print(f"mean radiance cached {fb.mean.mean().item():.5f} vs uncached "
                   f"{uncached_mean:.5f}")
             assert abs(fb.mean.mean().item() - uncached_mean) <= 0.05 * uncached_mean
+
+    # 16. (cont.) kernel 13 at the cell's frame against its plain version,
+    # timed beside the frozen mesh work count, with the counting build's cost
+    timings.update(mesh_phase(hf_scene, hf_cam, RenderConfig(width=1024, height=1024, spp=4,
+                                                             max_depth=4), report, regs))
 
     # 17. mesh timings: the frame step at the reference's mesh_100k queue
     # (bench.py:155), and at the port's default queue for comparison
@@ -2511,8 +2601,8 @@ def main():
     # kernels line's count), the mesh frame's queue seeds, the vertex step's
     # record.
     print(f"kernel 1 launches: dispatch path {path_launches['intersect']} (2 frames x depth "
-          f"{cfg512.max_depth}); mesh CLI {k1_mesh} ({k1_mesh / mesh_frames:g} a frame, one a "
-          f"queue iteration, uncached, {mesh_frames} frames); vertex step "
+          f"{cfg512.max_depth}); mesh CLI {k1_mesh} (first-hit cache: one a queue iteration "
+          f"and one a pose chunk, {mesh_frames} frames); vertex step "
           f"{step_v['intersect']:g} a step (its record, one a depth)", flush=True)
     timings["intersect"].update(launches_mesh_cli=k1_mesh,
                                 launches_vertex_step=step_v["intersect"])
@@ -2520,7 +2610,8 @@ def main():
     # <0> with the per-thread record, <1> with the device scratch.
     record = int(cuda_grad.adjoint_plan(1, 1, cfg_t.effective_depth)[1] > 0)
     variant = {"grad_backward": f"<{record}>", "fused_loss_chain": f"<{record}>",
-               "grad_forward": "<1>"}  # kernel 9 as the pool-8 route runs it, recording
+               "grad_forward": "<1>",  # kernel 9 as the pool-8 route runs it, recording
+               "mesh_camera_path": "<0>"}  # kernel 13 as the main path runs it, counting nothing
     kernels = []
     for key, c in counters.items():
         t = timings[key]

@@ -3,13 +3,16 @@
 Port of fspt_tpu/cli.py with the same flags and output, plus ``--device``
 (``cuda`` by default): parse a ``.scene`` file, run N accumulation frames on
 the fastest path (camera-fused CUDA megakernel, its texture-deferred form
-for a textured scene; for a BVH scene the queued wavefront with the treelet
-kernels, with ``--first-hit-cache`` its warm-start form; else the CUDA
-intersect kernel under the torch integrator, else torch), report Mrays/sec
-per frame (engine.cpp:283-293) and write the tonemapped image (with
-``--denoise`` through the AOV-guided denoiser, render/denoiser.py) and
-optional AOVs.  A checkpoint records whether the first-hit cache made it,
-and a render under the other estimator refuses to resume from it.
+for a textured scene, its mesh form, kernel 13, for an untextured BVH
+scene; for a BVH scene under ``--first-hit-cache``, or a textured one, the
+queued wavefront with the treelet kernels, with the flag its warm-start
+form; else the CUDA intersect kernel under the torch integrator, else
+torch), report Mrays/sec per frame (engine.cpp:283-293; on kernel 13's
+first frame also the BVH node steps and triangle tests a segment) and
+write the tonemapped image (with ``--denoise`` through the AOV-guided
+denoiser, render/denoiser.py) and optional AOVs.  A checkpoint records
+whether the first-hit cache made it, and a render under the other
+estimator refuses to resume from it.
 
     python -m fspt_tpu_torch.cli --file scenes/cornell.scene --width 1024 \
         --height 1024 --frames 4 --spp 4 --output out.png
@@ -79,23 +82,38 @@ def main(argv=None):
                        max_depth=args.depth, fast_render=args.fast,
                        gamma_correct=not args.no_gamma)
 
-    tracer = make_camera_path_tracer(scene, camera, cfg)
+    # The first-hit cache is the queue's estimator: a checkpoint made with
+    # it keeps meaning what it meant.
+    cached_bvh = args.first_hit_cache and scene.bvh is not None
+    tracer = None if cached_bvh else make_camera_path_tracer(scene, camera, cfg)
     cstep = None
+    walk = None
     if tracer is not None:
         # A textured scene takes the texture-deferred kernel, which fetches
-        # and folds the texels itself.
-        kind = "texture-deferred camera-fused" if hasattr(tracer, "fold") else "camera-fused"
+        # and folds the texels itself; a BVH scene the mesh kernel.
+        kind = ("texture-deferred camera-fused" if hasattr(tracer, "fold")
+                else "mesh camera-fused" if scene.bvh is not None else "camera-fused")
         print(f"render path: {kind} cuda megakernel" if device.type == "cuda"
               else f"render path: {kind} plain torch")
 
+        # Kernel 13's first frame (which also loads the kernel) takes its
+        # counting build, so that line gives the walk's work a segment; the
+        # others the build that counts nothing (the counts cost 3-4 %).
+        count_next = scene.bvh is not None
+
         def step(fb, frame_idx):
-            out = tracer(args.seed, frame_idx * cfg.spp)
+            nonlocal walk, count_next
+            trace = tracer.counted if count_next else tracer
+            count_next = False
+            out = trace(args.seed, frame_idx * cfg.spp)
             fb = fb_mod.accumulate(fb, out.radiance, out.aov_normal,
                                    out.aov_depth, out.aov_mat,
                                    cfg.height, cfg.width, cfg.spp)
+            walk = out.walk
             return fb, out.segments
     else:
-        # BVH scenes take the queued wavefront; with --first-hit-cache its
+        # A BVH scene under --first-hit-cache, or one kernel 13 refuses
+        # (textured), takes the queued wavefront; with the flag its
         # warm-start form, whose pose bundle is built once below (the
         # camera is static for the whole run).
         if args.first_hit_cache:
@@ -133,8 +151,13 @@ def main(argv=None):
             torch.cuda.synchronize(device)
         dt = time.time() - t0
         # Frame timing printf parity (engine.cpp:291-292).
-        print(f"Frame {frame} render time: {dt:.2f} sec. "
-              f"Mrays/sec: {int(segments) / (1e6 * dt):.2f}")
+        line = (f"Frame {frame} render time: {dt:.2f} sec. "
+                f"Mrays/sec: {int(segments) / (1e6 * dt):.2f}")
+        if walk is not None:
+            nodes, tris = walk.tolist()
+            per = max(int(segments), 1)
+            line += f" BVH nodes/segment: {nodes / per:.2f} triangles/segment: {tris / per:.2f}"
+        print(line)
         if args.checkpoint and (frame + 1) % args.checkpoint_every == 0:
             ckpt.save(args.checkpoint, fb, frame + 1, extra=mode)
 

@@ -1,5 +1,5 @@
-// Kernels 1-3 of the port and their plain C launchers (loaded with ctypes by
-// ops/_build.py; kernels 4, 7 and 8 live in fspt_deferred.cu and
+// Kernels 1-3 and 13 of the port and their plain C launchers (loaded with
+// ctypes by ops/_build.py; kernels 4, 7 and 8 live in fspt_deferred.cu and
 // fspt_grad.cu).  Each launcher enqueues on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises on anything but 0.
 //
@@ -9,6 +9,19 @@
 //                                                  make_camera_path_tracer
 //   fspt_ray_path     path tracer, rays in memory replaces pallas_path.py
 //                                                  make_path_tracer
+//   fspt_mesh_camera_path  camera-fused path      no TPU kernel: the
+//                     tracer of a BVH scene       reference queues BVH scenes
+//                                                  (render/queue.py)
+//
+// Kernel 13 (mesh_camera_path_kernel) is kernel 2's body on MeshRows
+// (fspt_mesh.cuh): after the staged rows, each thread walks the scene's
+// BVH for its segment.  Its launch can count the walk's node steps and
+// triangle tests: each thread sums its own over its path, each warp adds
+// its lanes' sums (__reduce_add_sync) and one lane adds them to the
+// launch's two 64-bit totals.  The counting build spills more at 64
+// registers (170 + 120 bytes against 162 + 112) and takes 3-4 % more time
+// a frame on an H100, so ops/cuda_path launches it only where its caller
+// reads the counts (PERF.md §6).
 //
 // Every kernel here copies the primitive table into shared memory once per
 // block (stage_rows) and walks it one kind at a time: the walk of every row
@@ -30,6 +43,7 @@
 // and its outputs.  Per-lane state stays in registers.
 
 #include "fspt_kernels.cuh"
+#include "fspt_mesh.cuh"
 
 namespace fspt {
 
@@ -155,6 +169,49 @@ ray_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
   write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
 }
 
+// Kernel 13: kernel 2 on a BVH scene.  Threads past n take no lane but
+// reach the warp's count.
+template <bool kCount>
+__global__ void __launch_bounds__(kPathBlock, kMeshMinBlocks)
+mesh_camera_path_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                        const float* __restrict__ mats, const int* __restrict__ mat_meta,
+                        const PathParams pp, const CamParams cp,
+                        const float4* __restrict__ nodes, int n_nodes,
+                        const float4* __restrict__ tris, const float4* __restrict__ shade,
+                        uint32_t h0, int sample0, int lane0, int n,
+                        float* __restrict__ radiance, float* __restrict__ normal,
+                        float* __restrict__ depth, int* __restrict__ aov_mat,
+                        int* __restrict__ segcnt, unsigned long long* __restrict__ walk) {
+  extern __shared__ float4 smem[];
+  const MeshRows<kCount> rows{stage_rows(smem, prims, meta, pp.n_prims), nodes, tris, shade,
+                              n_nodes, 0u, 0u};
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
+    NoSlots none;
+    const PathOut o = trace_path<kDirect>(rows, mats, mat_meta, pp, r.hs, r.sx, r.sy, r.sz,
+                                          r.dx, r.dy, r.dz, none);
+    write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
+  }
+  if (kCount) {
+#ifdef __CUDA_ARCH__
+    const unsigned visits = __reduce_add_sync(0xffffffffu, rows.visits);
+    const unsigned tests = __reduce_add_sync(0xffffffffu, rows.tests);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(walk, (unsigned long long)visits);
+      atomicAdd(walk + 1, (unsigned long long)tests);
+    }
+#elif defined(FSPT_HOST_SHIM)
+    // The host build (tests/host_shim) runs each thread alone, twice; the
+    // second pass, on complete staged rows, counts.
+    if (shim_pass == 1) {
+      atomicAdd(walk, (unsigned long long)rows.visits);
+      atomicAdd(walk + 1, (unsigned long long)rows.tests);
+    }
+#endif
+  }
+}
+
 }  // namespace fspt
 
 extern "C" {
@@ -210,6 +267,32 @@ int fspt_ray_path(const float* prims, const int* meta, const float* mats,
   ray_path_kernel<<<blocks_for(n, kPathBlock), kPathBlock, smem, (cudaStream_t)stream>>>(
       prims, meta, mats, mat_meta, pp, start, seg, pixel, sample, h0, n, radiance, normal,
       depth, aov_mat, segcnt);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 13.  walk: two 64-bit totals (node steps, triangle tests), zeroed
+// here and counted into; null launches the build that counts nothing.
+int fspt_mesh_camera_path(const float* prims, const int* meta, const float* mats,
+                          const int* mat_meta, fspt::PathParams pp, fspt::CamParams cp,
+                          const float* nodes, int n_nodes, const float* tris,
+                          const float* shade, unsigned int h0, int sample0, int lane0, int n,
+                          float* radiance, float* normal, float* depth, int* aov_mat,
+                          int* segcnt, unsigned long long* walk, void* stream) {
+  using namespace fspt;
+  if (walk != nullptr) {
+    const cudaError_t err =
+        cudaMemsetAsync(walk, 0, 2 * sizeof(unsigned long long), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n <= 0) return 0;
+  const size_t smem = rows_smem(pp.n_prims);
+  auto kernel = walk != nullptr ? mesh_camera_path_kernel<true> : mesh_camera_path_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks_for(n, kPathBlock), kPathBlock, smem, (cudaStream_t)stream>>>(
+      prims, meta, mats, mat_meta, pp, cp, reinterpret_cast<const float4*>(nodes), n_nodes,
+      reinterpret_cast<const float4*>(tris), reinterpret_cast<const float4*>(shade), h0,
+      sample0, lane0, n, radiance, normal, depth, aov_mat, segcnt, walk);
   return (int)cudaGetLastError();
 }
 

@@ -27,10 +27,11 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-HEADERS = (CSRC / "fspt_kernels.cuh", CSRC / "fspt_tangent.cuh", CSRC / "fspt_adjoint.cuh")
+HEADERS = (CSRC / "fspt_kernels.cuh", CSRC / "fspt_tangent.cuh", CSRC / "fspt_adjoint.cuh",
+           CSRC / "fspt_mesh.cuh")
 #: library name → its one source file; all share :data:`HEADERS`.
 LIBRARIES = {
-    "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3
+    "fspt_kernels": CSRC / "fspt_kernels.cu",    # kernels 1-3 and 13
     "fspt_deferred": CSRC / "fspt_deferred.cu",  # kernels 4 and 7
     "fspt_grad": CSRC / "fspt_grad.cu",          # kernel 8
     "fspt_bvh": CSRC / "fspt_bvh.cu",            # kernels 5, 6, 11 and 12
@@ -140,6 +141,11 @@ _SIGNATURES = {
         # h0, n, radiance, normal, depth, aov_mat, segcnt, stream
         "fspt_ray_path": [_P, _P, _P, _P, PathParams, _P, _P, _P, _P, _U, _I,
                           _P, _P, _P, _P, _P, _P],
+        # prims, meta, mats, mat_meta, PathParams, CamParams, nodes, n_nodes,
+        # tris, shade, h0, sample0, lane0, n, radiance, normal, depth,
+        # aov_mat, segcnt, walk (2 int64, or null), stream
+        "fspt_mesh_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _P, _I, _P, _P,
+                                  _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },
     "fspt_deferred": {
         # prims, meta, mats, mat_meta, PathParams, CamParams, TexPack, h0,

@@ -20,6 +20,11 @@ rays):
   is folded in the kernel as it is made, its texel fetched from the texture
   pack there; the reference emits slot planes and folds them outside only
   because a TPU kernel has no per-lane gather.
+* ``mesh_camera_path_kernel`` (kernel 13) is kernel 2 on an untextured BVH
+  scene, which the reference renders only through its ray queue
+  (render/queue.py): after the staged primitive rows, each thread walks the
+  scene's BVH for its segment in kernel 11's packed records
+  (csrc/fspt_mesh.cuh), so the frame is one launch on the card.
 
 What bounds kernels 2-4 on the H100: arithmetic.  A 1024²×4 spp Cornell
 frame writes 36 bytes per lane but traces ~5 segments per lane, each testing
@@ -36,8 +41,9 @@ float64, exactly as the reference decides them, and passed as flags; the
 texture regime of a row (``tex_id ≥ 0``) is a column of the same table.
 
 :func:`build_fused_raygen` and :func:`build_path_core` are the plain
-PyTorch versions of the kernels: the tracers use them only for a scene on
-the CPU; for a scene on the card they launch the kernels or raise.
+PyTorch versions of the kernels (with :func:`plain_mesh_intersect` for
+kernel 13): the tracers use them only for a scene on the CPU; for a scene
+on the card they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch
 from fspt_tpu_torch import materials as M
 from fspt_tpu_torch.ops import _build, rng
 from fspt_tpu_torch.ops.cuda_trace import (
+    KIND_TRIANGLE,
     HostScene,
     MAX_SPECIALIZED_PRIMS,
     _atan2,
@@ -81,6 +88,9 @@ RAY_PATH = _build.KernelCounter(
 DEFERRED_PATH = _build.KernelCounter(
     "deferred_path", "fspt_deferred", "fspt_deferred_camera_path",
     "fspt_tpu/ops/pallas_path.py:1046 _make_deferred_camera_tracer (body :996)")
+MESH_CAMERA_PATH = _build.KernelCounter(
+    "mesh_camera_path", "fspt_kernels", "fspt_mesh_camera_path",
+    "none: fspt_tpu renders BVH scenes through its ray queue (render/queue.py)")
 
 
 def _one_minus(x):
@@ -488,8 +498,10 @@ def build_path_core(scene: HostScene, mats: HostMaterials, cfg, sky_idx: int,
     snapshot ``mats`` as Python floats.  Branch structure (families, the
     regime flags, texture rows) always comes from ``mats``, as in the
     reference (pallas_path.py:215-218).  ``intersect(sx, sy, sz, dx, dy,
-    dz) → (t, nx, ny, nz, mat, kind, u, v)`` overrides the closest hit
-    (default: :func:`ops.cuda_trace.intersect_lanes` on ``scene``).
+    dz, alive) → (t, nx, ny, nz, mat, kind, u, v)`` overrides the closest
+    hit (default: :func:`ops.cuda_trace.intersect_lanes` on ``scene``);
+    ``alive`` is the lanes' liveness, for an intersector that skips a dead
+    lane's closest hit as a kernel does.
 
     ``return_stepper=True`` returns the same body as ``(init, step,
     finalize)`` (pallas_path.py:276-299, :710-768): ``init(h0, sx..dz, pix,
@@ -503,7 +515,7 @@ def build_path_core(scene: HostScene, mats: HostMaterials, cfg, sky_idx: int,
     if tmats is not None and deferred_tex:
         raise ValueError("tmats feeds the direct mode only")
     if intersect is None:
-        def intersect(sx, sy, sz, dx, dy, dz):
+        def intersect(sx, sy, sz, dx, dy, dz, alive):
             return intersect_lanes(scene, sx, sy, sz, dx, dy, dz,
                                    want_texcoords=deferred_tex)
     depth_count = cfg.effective_depth
@@ -561,7 +573,7 @@ def build_path_core(scene: HostScene, mats: HostMaterials, cfg, sky_idx: int,
         sl_ke = [zero, zero, zero]
         sl_mat = sl_mat_e = minus1
 
-        t, hnx, hny, hnz, hmat, _, huu, hvv = intersect(sx, sy, sz, dx, dy, dz)
+        t, hnx, hny, hnz, hmat, _, huu, hvv = intersect(sx, sy, sz, dx, dy, dz, alive)
         hit = t < INVALID_PARAM
         px, py, pz = sx + dx * t, sy + dy * t, sz + dz * t
 
@@ -1058,9 +1070,10 @@ class DeferredPlanes(NamedTuple):
 
 
 def _specializable(scene_pack):
-    """(HostScene, HostMaterials) of a scene the megakernels take, or None
-    for a BVH scene or one over MAX_SPECIALIZED_PRIMS primitives (the
-    reference's general path)."""
+    """(HostScene, HostMaterials) of an analytic scene the megakernels take,
+    or None for a BVH scene (kernel 13's, :func:`make_camera_path_tracer`)
+    or one over MAX_SPECIALIZED_PRIMS primitives (the reference's general
+    path)."""
     if scene_pack.bvh is not None:
         return None
     scene = HostScene(scene_pack.geometry)
@@ -1077,14 +1090,17 @@ def _device_of(scene_pack):
 
 
 def make_camera_path_tracer(scene_pack, camera, cfg):
-    """The camera-fused path tracer for a fixed camera: kernel 2, or kernel
-    4 for a textured scene (pallas_path.py:1362-1365).
+    """The camera-fused path tracer for a fixed camera: kernel 2, kernel 4
+    for a textured scene (pallas_path.py:1362-1365), or kernel 13 for an
+    untextured BVH scene (:func:`_make_mesh_camera_tracer`).
 
     Returns ``trace(seed, sample0, lane0=0, n_lanes=None) → TraceOutput``
     over lanes ``lane0 .. lane0+n_lanes-1`` of the H×W×spp frame, or None
-    for a BVH scene or one over 512 primitives.  A scene on the CPU runs the
-    plain version; a scene on the card launches the kernel.
+    for a textured BVH scene or one over 512 primitive rows.  A scene on the
+    CPU runs the plain version; a scene on the card launches the kernel.
     """
+    if scene_pack.bvh is not None:
+        return _make_mesh_camera_tracer(scene_pack, camera, cfg)
     found = _specializable(scene_pack)
     if found is None:
         return None
@@ -1187,6 +1203,122 @@ def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
 
     trace.plain_planes = plain_planes
     trace.fold = fold
+    return trace
+
+
+def mesh_shade(tri_shade) -> torch.Tensor:
+    """Kernel 13's ``[T, 12]`` float32 shade records of a TriShade, by
+    original triangle id: ``(n0, bits(mat))``, ``(n1 − n0, 0)``, ``(n2 − n0,
+    0)``, the differences rounded as :func:`render.integrator.
+    merge_triangle_hit` rounds them."""
+    zero = torch.zeros_like(tri_shade.n0[:, :1])
+    mat = tri_shade.mat.to(torch.int32).view(torch.float32)[:, None]
+    return torch.cat([tri_shade.n0, mat, tri_shade.n1 - tri_shade.n0, zero,
+                      tri_shade.n2 - tri_shade.n0, zero], dim=1).contiguous()
+
+
+def plain_mesh_intersect(scene: HostScene, bvh, shade, totals):
+    """The plain version of kernel 13's closest hit, for
+    :func:`build_path_core`'s ``intersect``: the rows
+    (:func:`ops.cuda_trace.intersect_lanes`), then :func:`ops.bvh.walk_bvh`
+    over ``bvh`` seeded with their t (0 on a dead lane, which walks
+    nothing), the triangle winner's normal and material from ``shade``
+    (:func:`mesh_shade`).  Adds the live lanes' node steps and triangle
+    tests to ``totals`` (``[2]`` int64), as the kernel counts them."""
+    from fspt_tpu_torch.ops.bvh import walk_bvh
+
+    n0, d1, d2 = shade[:, 0:3], shade[:, 4:7], shade[:, 8:11]
+    tri_mat = shade[:, 3].contiguous().view(torch.int32)
+
+    def intersect(sx, sy, sz, dx, dy, dz, alive):
+        t, nx, ny, nz, mat, kind, u, v = intersect_lanes(scene, sx, sy, sz, dx, dy, dz,
+                                                         want_texcoords=False)
+        start = torch.stack([sx, sy, sz], dim=-1)
+        seg = torch.stack([dx, dy, dz], dim=-1)
+        tt, tid, bu, bv, visits, tested = walk_bvh(bvh, start, seg, torch.where(alive, t, 0.0))
+        totals[0] += visits.sum()
+        totals[1] += tested.sum()
+        win = tid >= 0
+        idx = torch.clamp(tid, min=0).long()
+        n = [n0[idx, c] + d1[idx, c] * bu + d2[idx, c] * bv for c in range(3)]
+        return (torch.where(win, tt, t), torch.where(win, n[0], nx),
+                torch.where(win, n[1], ny), torch.where(win, n[2], nz),
+                torch.where(win, tri_mat[idx], mat), torch.where(win, KIND_TRIANGLE, kind),
+                u, v)
+
+    return intersect
+
+
+def _make_mesh_camera_tracer(scene_pack, camera, cfg):
+    """Kernel 13: the camera-fused tracer of an untextured BVH scene, or
+    None for a textured one (kernel 4 is the textured form, and walks no
+    tree), one over 512 primitive rows, or ``edge_eps`` (the edge
+    reparameterization rides the queue).
+
+    The tree is the scene's own BVH (``scene_pack.bvh``) in kernel 11's
+    packed records (:func:`ops.cuda_bvh.bvh_walk_tables`), built once here;
+    the shade records come from its TriShade.  On the card ``trace`` is one
+    launch of the build that counts nothing, and its output's ``walk`` is
+    None.  ``trace.counted`` (same arguments) launches the build that counts
+    the walk: its output's ``walk`` holds the BVH node steps and triangle
+    tests of the segments (``[2]`` int64 on the card, read with the
+    segments), and its frame is 3-4 % longer on an H100 (PERF.md §6).
+    ``trace.plain(seed, sample0, lane0, n)`` is the plain version on any
+    device, :func:`build_path_core` over :func:`plain_mesh_intersect`,
+    always with the totals; on the CPU ``trace`` and ``trace.counted`` run
+    it, and ``trace`` drops the totals.
+    """
+    from fspt_tpu_torch.ops import cuda_bvh
+
+    scene = HostScene(scene_pack.geometry)
+    mats = HostMaterials(scene_pack.materials)
+    if scene.prim_count > MAX_SPECIALIZED_PRIMS or mats.any_textured or cfg.edge_eps != 0.0:
+        return None
+    sky_idx = int(scene_pack.sky_mat)
+    cam = HostCamera(camera, cfg.width, cfg.height)
+    dev = _device_of(scene_pack)
+    tables = cuda_bvh.bvh_walk_tables(scene_pack.bvh)
+    shade = mesh_shade(scene_pack.tri_shade)
+    raygen = build_fused_raygen(cam, cfg)
+
+    def plain(seed, sample0, lane0, n) -> TraceOutput:
+        h0 = rng.seed_hash(seed)
+        totals = torch.zeros((2,), dtype=torch.int64, device=dev)
+        core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far,
+                               intersect=plain_mesh_intersect(scene, scene_pack.bvh, shade,
+                                                              totals))
+        out = planes_to_output(core(h0, *raygen(h0, sample0, lane0, n, dev)))
+        return out._replace(walk=totals)
+
+    def run(seed, sample0, lane0, n_lanes, count):
+        with profiling.span("fspt.trace"):
+            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
+            if dev.type == "cpu":
+                out = plain(seed, sample0, lane0, n)
+                return out if count else out._replace(walk=None)
+            prims, meta = scene.tables(dev)
+            mtab, mmeta = mats.tables(dev)
+            outs = _path_outputs(n, dev)
+            walk = torch.empty((2,), dtype=torch.int64, device=dev) if count else None
+            _build.launch(MESH_CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
+                          mtab.data_ptr(), mmeta.data_ptr(),
+                          _path_params(scene, mats, cfg, sky_idx, cam.z_far),
+                          _cam_params(cam, cfg), tables.nodes.data_ptr(), tables.n_nodes,
+                          tables.tris.data_ptr(), shade.data_ptr(), rng.seed_hash(seed),
+                          int(sample0), int(lane0), n, *(o.data_ptr() for o in outs),
+                          None if walk is None else walk.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
+            return _trace_output(*outs)._replace(walk=walk)
+
+    def trace(seed, sample0, lane0=0, n_lanes=None):
+        return run(seed, sample0, lane0, n_lanes, False)
+
+    def counted(seed, sample0, lane0=0, n_lanes=None):
+        return run(seed, sample0, lane0, n_lanes, True)
+
+    trace.counted = counted
+    trace.plain = plain
+    trace.tables = tables
     return trace
 
 

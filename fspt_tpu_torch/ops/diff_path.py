@@ -75,7 +75,7 @@ def make_diff_path(scene_pack, cfg, z_far: float = 10000.0, sg_hits: bool = Fals
 
     intersect = None
     if sg_hits:
-        def intersect(sx, sy, sz, dx, dy, dz):
+        def intersect(sx, sy, sz, dx, dy, dz, alive):
             with torch.no_grad():
                 return intersect_lanes(scene, sx, sy, sz, dx, dy, dz, want_texcoords=False)
 

@@ -19,7 +19,10 @@ The camera-fused kernels 2 and 4 meet the path bar on 100 % of values
 (radiance, normal and depth AOVs close, material AOVs and segment counts
 equal; kernel 4 against the fold of its plain slot planes), and the reports
 give the bit-equal shares; their band split and a second launch reproduce
-the full frame bit for bit.
+the full frame bit for bit.  Kernel 13 (kernel 2's body walking a BVH)
+meets the same bar against its plain version over :func:`ops.bvh.walk_bvh`,
+with the walk's node steps and triangle tests equal and its build that
+counts nothing equal to the counting one bit for bit.
 
 Kernel 7: every float slot plane at the radiance bar, the material rows
 equal, on ≥ 99.9 % of values, segments within 0.1 %.  Its image through
@@ -164,14 +167,20 @@ def compare_paths(k, p, every: bool = False) -> dict:
 
 
 def _same_output(a, b) -> bool:
-    """Two TraceOutputs equal bit for bit."""
+    """Two TraceOutputs equal bit for bit (and their walk counts, where
+    kernel 13 gives them)."""
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
                ("radiance", "aov_normal", "aov_depth", "aov_mat")) and (
-        int(a.segments) == int(b.segments))
+        int(a.segments) == int(b.segments)) and (
+        (a.walk is None) == (b.walk is None) and (a.walk is None or torch.equal(a.walk, b.walk)))
 
 
 def _cat_outputs(a, b):
-    return type(a)(*(torch.cat([x, y]) if x.dim() else x + y for x, y in zip(a, b)))
+    """Two bands' outputs as one frame's: lane planes joined, totals added."""
+    planes = {f: torch.cat([getattr(a, f), getattr(b, f)])
+              for f in ("radiance", "aov_normal", "aov_depth", "aov_mat")}
+    return a._replace(**planes, segments=a.segments + b.segments,
+                      walk=None if a.walk is None else a.walk + b.walk)
 
 
 def check_lane_independence(tracer, seed: int, sample0: int, n: int, full) -> dict:
@@ -226,6 +235,30 @@ def check_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) ->
     torch.cuda.synchronize()
     rep = compare_paths(k, p, every=True)
     rep.update(check_lane_independence(tracer, seed, sample0, n, k))
+    return rep
+
+
+def check_mesh_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) -> dict:
+    """Kernel 13 against its plain version (``trace.plain``: the path body
+    over :func:`ops.bvh.walk_bvh`) on the card: its counting build
+    (``trace.counted``) on 100 % of values (:func:`compare_paths` with
+    ``every``) and the walk's node steps and triangle tests equal; its
+    ``lane0`` band split and a second launch against the full frame, bit
+    for bit; the build that counts nothing (``trace``) equal to the
+    counting one, bit for bit."""
+    tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
+    assert scene_pack.bvh is not None and hasattr(tracer, "counted"), "not a mesh scene"
+    n = cfg.height * cfg.width * cfg.spp
+    k = tracer.counted(seed, sample0)
+    p = tracer.plain(seed, sample0, 0, n)
+    torch.cuda.synchronize()
+    rep = compare_paths(k, p, every=True)
+    rep.update(walk=k.walk.tolist(), plain_walk=p.walk.tolist())
+    assert torch.equal(k.walk, p.walk), rep
+    rep.update(check_lane_independence(tracer.counted, seed, sample0, n, k))
+    uncounted = tracer(seed, sample0)
+    rep["uncounted_bit_equal"] = _same_output(uncounted._replace(walk=k.walk), k)
+    assert rep["uncounted_bit_equal"] and uncounted.walk is None, rep
     return rep
 
 

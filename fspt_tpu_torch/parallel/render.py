@@ -77,8 +77,9 @@ def make_sharded_render_step(mesh, cfg: RenderConfig, intersector=None,
 
 
 def make_sharded_megakernel_step(mesh, scene_pack, camera, cfg: RenderConfig):
-    """Band-sharded step on the camera-fused kernel (kernel 2, or kernel 4
-    on a textured scene; ops/cuda_path.make_camera_path_tracer): each rank
+    """Band-sharded step on the camera-fused kernel (kernel 2, kernel 4 on
+    a textured scene, or kernel 13 on an untextured BVH scene;
+    ops/cuda_path.make_camera_path_tracer): each rank
     traces its own contiguous lane band in one launch, with no forward
     collective but the segment count's ``all_reduce``.
 

@@ -10,8 +10,12 @@ that takes the camera as a live argument (no per-pose setup):
    (ops/cuda_trace.py, kernel 1) inside the torch integrator's shading loop;
 3. otherwise → the torch flattened-BVH walk or brute force.
 
-The camera-fused megakernel is chosen by callers with a fixed camera
-(cli.py).  ``make_cached_scene_step`` adds the first-hit cache to branch 1.
+The camera-fused megakernels are chosen by callers with a fixed camera
+(cli.py): kernel 2, or kernel 13 for an untextured BVH scene
+(ops/cuda_path.make_camera_path_tracer), so a fixed-camera mesh frame does
+not take branch 1.  ``make_cached_scene_step`` adds the first-hit cache to
+branch 1; the CLI keeps it on the queue, whose estimator a checkpoint
+records.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ depth-0 light tone clamp; AOVs captured at depth 0.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -104,6 +104,9 @@ class TraceOutput(NamedTuple):
     aov_depth: torch.Tensor  # [N]
     aov_mat: torch.Tensor  # [N] int32
     segments: torch.Tensor  # scalar: path segments traced (rays/s metric)
+    #: [2] int64: the BVH node steps and triangle tests of the segments
+    #: (kernel 13's tracer), or None.
+    walk: Optional[torch.Tensor] = None
 
 
 def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,

@@ -6,6 +6,7 @@
 // block's shared staging is complete on the second pass: there are no
 // real barriers); warp intrinsics are single-thread stand-ins.
 #pragma once
+#define FSPT_HOST_SHIM 1
 #include <cmath>
 #include <cstdint>
 #include <cstddef>
@@ -67,6 +68,7 @@ using std::isfinite;
 inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t = 0) { return 0; }
 inline cudaError_t cudaDeviceSynchronize() { return 0; }
 void shim_reset();  // clears the emulated shared memory (host_build.py)
+extern int shim_pass;  // the pass of the launch running now: 0, then 1
 // Host emulation of a launch: every block and thread of the grid in turn
 // (no __syncthreads semantics: only for kernels without block barriers).
 template <class K>
@@ -75,7 +77,7 @@ auto host_launch(K k, int grid, int block, size_t = 0, void* = nullptr) {
     gridDim.x = grid; blockDim.x = block;
     shim_reset();
     // Twice: a block's shared staging is complete on the second pass.
-    for (int pass = 0; pass < 2; ++pass)
+    for (shim_pass = 0; shim_pass < 2; ++shim_pass)
     for (int b = 0; b < grid; ++b)
       for (int t = 0; t < block; ++t) { blockIdx.x = b; threadIdx.x = t; k(args...); }
   };

@@ -1,5 +1,5 @@
-"""The CUDA sources of kernels 1-4 compiled as host code, against their
-plain versions on the CPU.
+"""The CUDA sources of kernels 1-4 and 13 compiled as host code, against
+their plain versions on the CPU.
 
 g++ builds fspt_tpu_torch/csrc/fspt_kernels.cu and fspt_deferred.cu against
 tests/host_shim/cuda_runtime.h, where a launch runs every thread of the grid
@@ -11,7 +11,8 @@ tests/test_torch_kernels_gpu.py and chip_smoke.py.  Bars: radiance at rtol
 1e-4 / atol 1e-5, material AOVs and segment counts equal, on every value
 (the host's sinf / cosf round some lanes' last bit otherwise than torch's);
 kernel 1's t, normal and texcoords at rtol 1e-5 / atol 1e-6, material and
-kind equal.  Building both libraries takes a few seconds.
+kind equal; kernel 13's walk counts equal.  Building both libraries takes
+a few seconds.
 """
 
 import ctypes
@@ -34,6 +35,7 @@ SHIM = Path(__file__).resolve().parent / "host_shim"
 PROLOGUE = """#include "cuda_runtime.h"
 uint3 threadIdx, blockIdx;
 dim3 blockDim, gridDim;
+int shim_pass;
 namespace fspt { float4 smem[16384]; }
 void shim_reset() { __builtin_memset(fspt::smem, 0, sizeof(fspt::smem)); }
 """
@@ -219,3 +221,42 @@ def test_affine_planes_kernel_on_host(libs, name, fast):
         assert torch.equal(rows[0], p.mat) and torch.equal(rows[1], p.mat_e)
         assert torch.equal(p_light, p.p_light)
         assert int(segcnt.sum()) == int(p.segments)
+
+
+@pytest.mark.parametrize("band", [(0, None), (301, 555)])
+def test_mesh_camera_path_kernel_on_host(libs, band):
+    """Kernel 13 (kernel 2's body walking the BVH after the staged rows)
+    against its plain version on the heightfield at grid 12 (242
+    triangles) through its thin-lens camera, over the whole frame and over
+    a band from a later lane, with its walk counted and without: the totals
+    equal the plain walk's node steps and triangle tests (the host launch
+    counts on its second pass)."""
+    b = samples.build("heightfield", device=CPU, grid=12)
+    sp = b.compile(device=CPU)
+    cfg = RenderConfig(width=32, height=24, spp=2, max_depth=4)
+    tracer = cuda_path.make_camera_path_tracer(sp, b.cameras[0], cfg)
+    scene, mats = cuda_trace.HostScene(sp.geometry), cuda_path.HostMaterials(sp.materials)
+    cam = cuda_path.HostCamera(b.cameras[0], cfg.width, cfg.height)
+    assert cam.aperture == 1.5
+    lane0, n = band
+    n = n or cfg.width * cfg.height * cfg.spp
+    prims, meta = scene.tables(CPU)
+    mtab, mmeta = mats.tables(CPU)
+    shade = cuda_path.mesh_shade(sp.tri_shade)
+    plain = tracer.counted(9, 4, lane0=lane0, n_lanes=n)
+    for counted in (True, False):
+        outs = cuda_path._path_outputs(n, CPU)
+        walk = torch.zeros((2,), dtype=torch.int64)
+        assert libs["fspt_kernels"].fspt_mesh_camera_path(
+            prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
+            cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
+            cuda_path._cam_params(cam, cfg), tracer.tables.nodes.data_ptr(),
+            tracer.tables.n_nodes, tracer.tables.tris.data_ptr(), shade.data_ptr(),
+            rng.seed_hash(9), 4, lane0, n, *(o.data_ptr() for o in outs),
+            walk.data_ptr() if counted else None, None) == 0
+        k = cuda_path._trace_output(*outs)
+        _held(k, plain)
+        assert _close(k.aov_normal, plain.aov_normal, 1e-5, 1e-6)
+        assert _close(k.aov_depth, plain.aov_depth, 1e-5, 1e-6)
+        assert torch.equal(walk, plain.walk if counted else torch.zeros_like(walk))
+    assert int(plain.walk[1]) > 0

@@ -546,6 +546,52 @@ def test_mesh_frame_matches_plain(cuda, heightfield):
     kernel_check.check_mesh_frame(scene, cam, cfg, seed=5, queue=1024)
 
 
+#: Kernel 13's cases: (grid, width, height, spp, aperture); 61×37×3 is a
+#: ragged lane count, grid 224 at 1024²×4 the heightfield-render cell.
+MESH_CAMERA_CASES = ((60, 64, 48, 2, 1.5), (60, 61, 37, 3, 0.0), (224, 1024, 1024, 4, 1.5))
+
+
+@pytest.mark.parametrize("case", MESH_CAMERA_CASES)
+def test_mesh_camera_path_kernel_matches_plain(cuda, case):
+    """Kernel 13 (kernel 2's body walking the BVH) against its plain
+    version on 100 % of values, walk counts equal, with the band split, a
+    second launch and the build that counts nothing bit for bit; depth 4,
+    through the scene's thin-lens camera or a pinhole."""
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    grid, w, h, spp, aperture = case
+    b = samples.build("heightfield", device=cuda, grid=grid)
+    cam = b.cameras[0]._replace(aperture_size=torch.tensor(aperture, device=cuda))
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=4)
+    kernel_check.check_mesh_camera_tracer(b.compile(device=cuda), cam, cfg, seed=3_000_000_123,
+                                          sample0=8)
+
+
+def test_mesh_camera_path_kernel_against_the_queue(cuda):
+    """Kernel 13 against the queued mesh path (kernels 1, 5 and 6 under
+    render/queue.py) on the heightfield-render cell's frame: the two pick
+    another triangle only at near ties (kernel 6 orders hits by t rounded
+    to 128 ulps, then by column; kernel 13 by exact t, then by tree order),
+    so the bars are fractions: radiance within rtol 1e-4 / atol 1e-5 on
+    ≥ 99.99 % of values, material AOVs equal on ≥ 99.999 % of lanes,
+    segments within 1e-6 (a 1024²×4 frame at seed 1,234,567 on an H100:
+    8,311,632 against 8,311,630, 99.9962 % and 99.9997 %)."""
+    from fspt_tpu_torch.ops import cuda_path, kernel_check
+    from fspt_tpu_torch.ops.cuda_bvh import make_mesh_intersector
+    from fspt_tpu_torch.render.queue import render_queued
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("heightfield", device=cuda)
+    scene, cam = b.compile(device=cuda), b.cameras[0]
+    cfg = RenderConfig(width=1024, height=1024, spp=4, max_depth=4)
+    k = cuda_path.make_camera_path_tracer(scene, cam, cfg)(1_234_567, 8)
+    q = render_queued(scene, cam, cfg, 1_234_567, 8, intersector=make_mesh_intersector(scene))
+    assert kernel_check._frac_close(k.radiance, q.radiance, 1e-4, 1e-5) >= 0.9999
+    assert kernel_check._frac_equal(k.aov_mat, q.aov_mat) >= 0.99999
+    assert abs(int(k.segments) - int(q.segments)) <= 1e-6 * int(q.segments)
+
+
 @pytest.mark.parametrize("case", ["sorted", "unsorted", "ragged", "dead", "kernel1_seed",
                                   "python_tree"])
 def test_walk_kernels_match_plain(cuda, heightfield, case):

@@ -118,8 +118,9 @@ def test_render_wavefront_matches_reference(fast):
 def test_textured_scene_raises_and_bvh_scene_refused():
     """A textured scene takes the texture-deferred tracer (kernel 4); the
     rays-in tracer declines it, as the reference's does; a BVH-sized mesh
-    compiles with a BVH, and both megakernel tracers refuse it (it takes
-    the queued mesh path), as the reference's do."""
+    on that textured material compiles with a BVH, and both megakernel
+    tracers refuse it (it takes the queued mesh path; kernel 13 walks
+    untextured meshes only, tests/test_torch_mesh_path.py)."""
     b = SceneBuilder()
     tex = b.add_texture(np.ones((4, 4, 3), np.float32))
     b.add_sphere((0, 0, 0), 1.0, b.add_material(

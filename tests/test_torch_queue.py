@@ -15,7 +15,8 @@
   intersector), and the winners it records (``record_hits``), replayed
   through the wavefront, reproduce its render (tests/test_queue.py:120-160).
 * The CLI renders a ``write_heightfield_scene`` output on the CPU with and
-  without ``--first-hit-cache``, the two close to the reference's queued
+  without ``--first-hit-cache`` (without it on kernel 13's plain version,
+  with it on the cached queue), the two close to the reference's queued
   mesh render of the same frames; it refuses to resume a checkpoint made
   under the other estimator.
 """
@@ -267,9 +268,10 @@ def test_cli_renders_heightfield_scene(tmp_path, capsys, cached):
             "--output", str(tmp_path / "hf.png"), "--checkpoint", ck, "--device", "cpu"]
     assert cli.main(args + (["--first-hit-cache"] if cached else [])) == 0
     printed = capsys.readouterr().out
-    path = MESH_PATH + (" + first-hit cache" if cached else "")
+    path = MESH_PATH + " + first-hit cache" if cached else "mesh camera-fused plain torch"
     assert f"render path: {path}\n" in printed
     assert printed.count("Mrays/sec:") == frames
+    assert printed.count("BVH nodes/segment:") == (0 if cached else 1)
     fb, frame, extra = ckpt.load(ck, device="cpu", with_extra=True)
     assert frame == frames and bool(extra["first_hit_cache"]) == cached
     ref = _reference_queued(scene_file, w, h, spp, depth, frames, 3, cached)
