@@ -507,8 +507,10 @@ def mesh_phase(hf_scene, hf_cam, cfg, report, regs):
     (``kernel_check.check_mesh_camera_tracer``), its device time a launch
     (the build that counts nothing, which the main path runs, and the
     counting build, from the profiler), the counting build's cost by CUDA
-    events in five rounds of the two in turns, the plain version's time,
-    and the bound of the frozen mesh work count
+    events in five rounds of the two in turns, its counts a segment (node
+    steps, triangle tests) and of its warp-wide walk (leaves a leaf phase,
+    lanes a warp walk), the plain version's time, and the bound of the
+    frozen mesh work count
     (``benchmark/harness/meshwork.py``: the rows, 2·⌈log2(T/4)⌉ box tests
     and 4 triangle tests a segment).  Fills ``report`` and returns the
     kernels line's ``timings`` entry."""
@@ -532,6 +534,7 @@ def mesh_phase(hf_scene, hf_cam, cfg, report, regs):
     n = cfg.width * cfg.height * cfg.spp
     segments = rep["segments"]
     nodes, tris = rep["walk"]
+    leaf_phases, leaves, warp_walks = rep["phases"]
     symbol = KERNELS["mesh_camera_path"][0]
     ms = kernel_device_ms(lambda: tracer(seed, sample0), symbol, iters=10)
     ms_counted = kernel_device_ms(lambda: tracer.counted(seed, sample0), symbol, iters=10)
@@ -552,12 +555,15 @@ def mesh_phase(hf_scene, hf_cam, cfg, report, regs):
           f"{segments / (ms * 1e-3):.4g} segments/s), counting build {ms_counted:.3f} ms; "
           f"the counts cost {100 * cost:.2f} % by CUDA events (rounds {rounds}); "
           f"{nodes / segments:.2f} node steps and {tris / segments:.2f} triangle tests a "
-          f"segment; plain {plain:.1f} ms; bound {b:.4f} ms ({by}: {seg_ops} ops/segment, "
+          f"segment; {leaves / leaf_phases:.2f} leaves a leaf phase ({leaf_phases} phases), "
+          f"{segments / warp_walks:.2f} lanes a warp walk ({warp_walks} walks); "
+          f"plain {plain:.1f} ms; bound {b:.4f} ms ({by}: {seg_ops} ops/segment, "
           f"frozen); counting build ptxas {counting}", flush=True)
     return {"mesh_camera_path": dict(
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=rep["max_abs_err"],
         ms_counted=ms_counted, counter_cost=cost, segments=segments,
         nodes_per_segment=nodes / segments, triangles_per_segment=tris / segments,
+        leaves_per_phase=leaves / leaf_phases, lanes_per_walk=segments / warp_walks,
         registers_counting=counting.get("registers"), spill_bytes_counting=counting.get("spill"),
         stack_bytes_counting=counting.get("stack"))}
 

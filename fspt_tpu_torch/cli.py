@@ -98,7 +98,7 @@ def main(argv=None):
 
         # Kernel 13's first frame (which also loads the kernel) takes its
         # counting build, so that line gives the walk's work a segment; the
-        # others the build that counts nothing (the counts cost 3-4 %).
+        # others the build that counts nothing (the counts cost 6-7 %).
         count_next = scene.bvh is not None
 
         def step(fb, frame_idx):

@@ -14,12 +14,14 @@
 //                                                  (render/queue.py)
 //
 // Kernel 13 (mesh_camera_path_kernel) is kernel 2's body on MeshRows
-// (fspt_mesh.cuh): after the staged rows, each thread walks the scene's
-// BVH for its segment.  Its launch can count the walk's node steps and
-// triangle tests: each thread sums its own over its path, each warp adds
-// its lanes' sums (__reduce_add_sync) and one lane adds them to the
-// launch's two 64-bit totals.  The counting build spills more at 64
-// registers (170 + 120 bytes against 162 + 112) and takes 3-4 % more time
+// (fspt_mesh.cuh): after the staged rows, the live lanes of a warp walk
+// the scene's BVH for their segments, node steps and leaf tests in
+// warp-wide phases.  Its launch can count the walk: the node steps and
+// triangle tests, and the warp walks, the leaf phases and the leaves tested
+// in them.  Each thread sums its own over its path, each warp adds its
+// lanes' sums (__reduce_add_sync) and one lane adds them to the launch's
+// five 64-bit totals.  The counting build spills more at 64
+// registers (206 + 152 bytes against 162 + 112) and takes 6-7 % more time
 // a frame on an H100, so ops/cuda_path launches it only where its caller
 // reads the counts (PERF.md §6).
 //
@@ -184,7 +186,7 @@ mesh_camera_path_kernel(const float* __restrict__ prims, const int* __restrict__
                         int* __restrict__ segcnt, unsigned long long* __restrict__ walk) {
   extern __shared__ float4 smem[];
   const MeshRows<kCount> rows{stage_rows(smem, prims, meta, pp.n_prims), nodes, tris, shade,
-                              n_nodes, 0u, 0u};
+                              n_nodes, 0u, 0u, 0u, 0u, 0u};
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     const CameraRay r = camera_ray(cp, h0, sample0, lane0 + i);
@@ -194,20 +196,19 @@ mesh_camera_path_kernel(const float* __restrict__ prims, const int* __restrict__
     write_path(o, i, radiance, normal, depth, aov_mat, segcnt);
   }
   if (kCount) {
+    const unsigned counts[kMeshTotals] = {rows.visits, rows.tests, rows.phases, rows.leaves,
+                                          rows.walks};
 #ifdef __CUDA_ARCH__
-    const unsigned visits = __reduce_add_sync(0xffffffffu, rows.visits);
-    const unsigned tests = __reduce_add_sync(0xffffffffu, rows.tests);
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(walk, (unsigned long long)visits);
-      atomicAdd(walk + 1, (unsigned long long)tests);
+#pragma unroll
+    for (int k = 0; k < kMeshTotals; ++k) {
+      const unsigned c = __reduce_add_sync(0xffffffffu, counts[k]);
+      if ((threadIdx.x & 31) == 0) atomicAdd(walk + k, (unsigned long long)c);
     }
 #elif defined(FSPT_HOST_SHIM)
     // The host build (tests/host_shim) runs each thread alone, twice; the
     // second pass, on complete staged rows, counts.
-    if (shim_pass == 1) {
-      atomicAdd(walk, (unsigned long long)rows.visits);
-      atomicAdd(walk + 1, (unsigned long long)rows.tests);
-    }
+    if (shim_pass == 1)
+      for (int k = 0; k < kMeshTotals; ++k) atomicAdd(walk + k, (unsigned long long)counts[k]);
 #endif
   }
 }
@@ -270,8 +271,9 @@ int fspt_ray_path(const float* prims, const int* meta, const float* mats,
   return (int)cudaGetLastError();
 }
 
-// Kernel 13.  walk: two 64-bit totals (node steps, triangle tests), zeroed
-// here and counted into; null launches the build that counts nothing.
+// Kernel 13.  walk: kMeshTotals 64-bit totals (node steps, triangle tests,
+// leaf phases, leaves tested in them, warp walks), zeroed here and counted
+// into; null launches the build that counts nothing.
 int fspt_mesh_camera_path(const float* prims, const int* meta, const float* mats,
                           const int* mat_meta, fspt::PathParams pp, fspt::CamParams cp,
                           const float* nodes, int n_nodes, const float* tris,
@@ -281,7 +283,7 @@ int fspt_mesh_camera_path(const float* prims, const int* meta, const float* mats
   using namespace fspt;
   if (walk != nullptr) {
     const cudaError_t err =
-        cudaMemsetAsync(walk, 0, 2 * sizeof(unsigned long long), (cudaStream_t)stream);
+        cudaMemsetAsync(walk, 0, kMeshTotals * sizeof(unsigned long long), (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (n <= 0) return 0;

@@ -1,6 +1,6 @@
 // The closest hit of kernel 13 (mesh_camera_path_kernel): the staged
 // primitive rows of kernels 2-4, then a walk of the scene's BVH in kernel
-// 11's packed records, one thread a segment.
+// 11's packed records, its node steps and leaf tests in warp-wide phases.
 //
 // MeshRows is the path body's Rows policy for a BVH scene (csrc/
 // fspt_kernels.cuh: TableRows, SmemRows).  Its intersect_lanes first walks
@@ -18,6 +18,24 @@
 // Möller–Trumbore), term for term, so with -fmad=false the winner, t and the
 // counts equal the plain walk's.
 //
+// The walk is kernel 11's plan (leaves postponed: Aila and Laine,
+// "Understanding the efficiency of ray traversal on GPUs", HPG 2009).  A
+// lane takes node steps until it reaches a leaf whose box it hits, and holds
+// the leaf; the warp takes its node steps in runs of kMeshWalkRun, votes
+// after each run, and leaves them once no more of its lanes walk than hold a
+// leaf.  Then every lane that holds a leaf tests it in one pass (mesh_leaf),
+// and the lanes walk on.  A lane tests its leaf before its next node step,
+// as the plain walk does, so each segment visits the plain walk's nodes in
+// its order, with its prune.  Testing each leaf the moment a lane took it
+// left the warp's other lanes waiting in most of its triangle tests (one or
+// two lanes a pass); the runs keep the votes off most node steps.  Unlike
+// kernel 11's, the warp here is the lanes whose paths are live: a lane whose
+// path has ended leaves the path body before its closest hit, and threads
+// past n never enter it.  So the votes run over the lanes that entered
+// (__activemask()), and the rule counts only the lanes that walk or hold a
+// leaf; a lane alone tests each leaf as it takes it.  The rule, the run and
+// the occupancy were measured against others on an H100 (PERF.md §6).
+//
 // Records (ops/cuda_bvh.walk_nodes / walk_tris, ops/cuda_path.mesh_shade):
 //   node     (bmin, bits(miss)), (bmax, bits(first << kMeshCountBits | count))
 //   triangle (v0, area2), (e1, bits(original id)), (e2, 0)
@@ -26,8 +44,9 @@
 // L2; each record is read with 16-byte loads through the read-only path.
 //
 // kCount keeps the thread's node steps and triangle tests over its whole
-// path (the counters of kernel 11's visits and tested), for the kernel's
-// per-warp totals.
+// path (the counters of kernel 11's visits and tested), and on the lowest
+// lane of each walking warp the warp's walks, its leaf phases and the
+// leaves tested in them, for the kernel's per-warp totals.
 #pragma once
 
 #include "fspt_kernels.cuh"
@@ -40,6 +59,13 @@ constexpr int kMeshCountBits = 8;
 constexpr unsigned kMeshCountMask = (1u << kMeshCountBits) - 1u;
 // Kernel 13's launch bounds: blocks of kPathBlock, kMeshMinBlocks an SM.
 constexpr int kMeshMinBlocks = 8;
+// The warp takes its node steps in runs of kMeshWalkRun (a lane that takes a
+// leaf in a run takes no further step), and after each run leaves them for a
+// leaf phase once no more of its lanes walk than hold a leaf.
+constexpr int kMeshWalkRun = 4;
+// The counting build's totals a launch (ops/cuda_path.MESH_TOTALS): node
+// steps, triangle tests, leaf phases, leaves tested in them, warp walks.
+constexpr int kMeshTotals = 5;
 
 template <bool kCount>
 struct MeshRows : SmemRows {
@@ -49,6 +75,9 @@ struct MeshRows : SmemRows {
   int n_nodes;
   mutable unsigned visits;  // node steps (kCount)
   mutable unsigned tests;   // triangle tests (kCount)
+  mutable unsigned walks;   // warp walks, on the warp's lowest lane (kCount)
+  mutable unsigned phases;  // leaf phases that tested a leaf, on the lowest lane (kCount)
+  mutable unsigned leaves;  // leaves tested in them, on the lowest lane (kCount)
 };
 
 // 1 / d with |d| below 1e-30 taken as ±1e-30 (ops/bvh._slab_entry; kernel
@@ -73,6 +102,40 @@ __device__ __forceinline__ bool mesh_slab(const float4& lo, const float4& hi, fl
   return tnear <= tfar && tfar >= 0.0f && tnear <= 1.0f;
 }
 
+// The leaf `leaf` (first << kMeshCountBits | count; 0: none) against the
+// segment: the cross-form Möller–Trumbore of kernel 11, term for term, each
+// triangle replacing the best where it is strictly closer.
+__device__ __forceinline__ void mesh_leaf(const float4* __restrict__ tris, unsigned leaf,
+                                          float sx, float sy, float sz, float dx, float dy,
+                                          float dz, float& tb, int& best, float& bu,
+                                          float& bv) {
+  const int first = (int)(leaf >> kMeshCountBits), cnt = (int)(leaf & kMeshCountMask);
+  for (int k = 0; k < cnt; ++k) {
+    const float4* q = tris + 3 * (first + k);
+    const float4 a = __ldg(q), e1 = __ldg(q + 1), e2 = __ldg(q + 2);
+    const float pvx = dy * e2.z - dz * e2.y;
+    const float pvy = dz * e2.x - dx * e2.z;
+    const float pvz = dx * e2.y - dy * e2.x;
+    const float det = e1.x * pvx + e1.y * pvy + e1.z * pvz;
+    const bool np = fabsf(det) >= kEps * a.w;
+    const float inv = 1.0f / (np ? det : 1.0f);
+    const float tx = sx - a.x, ty = sy - a.y, tz = sz - a.z;
+    const float u = (tx * pvx + ty * pvy + tz * pvz) * inv;
+    const float qvx = ty * e1.z - tz * e1.y;
+    const float qvy = tz * e1.x - tx * e1.z;
+    const float qvz = tx * e1.y - ty * e1.x;
+    const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
+    const float tt = (e2.x * qvx + e2.y * qvy + e2.z * qvz) * inv;
+    if (np && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tt >= 0.0f && tt <= 1.0f &&
+        tt < tb) {
+      tb = tt;
+      best = __float_as_int(e1.w);
+      bu = u;
+      bv = v;
+    }
+  }
+}
+
 // The closest hit of the segment over the staged rows and the tree.  Only
 // the direct mode (kernel 13) walks a tree: a textured mesh is refused on
 // the host.
@@ -82,46 +145,46 @@ __device__ __forceinline__ Hit intersect_lanes(const MeshRows<kCount>& rows, int
                                                float dy, float dz) {
   static_assert(!kTex, "the mesh walk gives no texcoords");
   Hit h = intersect_lanes<kTex, SmemRows>(rows, n_prims, sx, sy, sz, dx, dy, dz);
+  // The lanes that entered; the lowest of them counts the warp's walk.
+  const unsigned warp = __activemask();
+  const bool lead = kCount && (warp & (0u - warp)) == 1u << (threadIdx.x & 31);
+  if (lead) ++rows.walks;
   const float rx = mesh_rcp(dx), ry = mesh_rcp(dy), rz = mesh_rcp(dz);
   float tb = h.t;
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
-  for (int node = tb > 0.0f ? 0 : rows.n_nodes; node < rows.n_nodes;) {
-    const float4 lo = __ldg(rows.nodes + 2 * node), hi = __ldg(rows.nodes + 2 * node + 1);
-    if (kCount) ++rows.visits;
-    float entry;
-    const bool box = mesh_slab(lo, hi, sx, sy, sz, rx, ry, rz, entry) && entry <= tb;
-    const unsigned meta = (unsigned)__float_as_int(hi.w);
-    const int cnt = (int)(meta & kMeshCountMask);
-    if (box && cnt > 0) {
-      if (kCount) rows.tests += (unsigned)cnt;
-      const int first = (int)(meta >> kMeshCountBits);
-      for (int k = 0; k < cnt; ++k) {
-        const float4* q = rows.tris + 3 * (first + k);
-        const float4 a = __ldg(q), e1 = __ldg(q + 1), e2 = __ldg(q + 2);
-        const float pvx = dy * e2.z - dz * e2.y;
-        const float pvy = dz * e2.x - dx * e2.z;
-        const float pvz = dx * e2.y - dy * e2.x;
-        const float det = e1.x * pvx + e1.y * pvy + e1.z * pvz;
-        const bool np = fabsf(det) >= kEps * a.w;
-        const float inv = 1.0f / (np ? det : 1.0f);
-        const float tx = sx - a.x, ty = sy - a.y, tz = sz - a.z;
-        const float u = (tx * pvx + ty * pvy + tz * pvz) * inv;
-        const float qvx = ty * e1.z - tz * e1.y;
-        const float qvy = tz * e1.x - tx * e1.z;
-        const float qvz = tx * e1.y - ty * e1.x;
-        const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
-        const float tt = (e2.x * qvx + e2.y * qvy + e2.z * qvz) * inv;
-        if (np && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tt >= 0.0f && tt <= 1.0f &&
-            tt < tb) {
-          tb = tt;
-          best = __float_as_int(e1.w);
-          bu = u;
-          bv = v;
+  int node = tb > 0.0f ? 0 : rows.n_nodes;
+  unsigned leaf = 0;  // the leaf held, 0: none
+  for (;;) {
+    unsigned walking, holding;
+    do {
+#pragma unroll
+      for (int k = 0; k < kMeshWalkRun; ++k) {
+        if (node < rows.n_nodes && leaf == 0) {
+          const float4 lo = __ldg(rows.nodes + 2 * node);
+          const float4 hi = __ldg(rows.nodes + 2 * node + 1);
+          if (kCount) ++rows.visits;
+          float entry;
+          const bool box = mesh_slab(lo, hi, sx, sy, sz, rx, ry, rz, entry) && entry <= tb;
+          const unsigned meta = (unsigned)__float_as_int(hi.w);
+          const unsigned cnt = meta & kMeshCountMask;
+          if (box && cnt > 0) {
+            leaf = meta;
+            if (kCount) rows.tests += cnt;
+          }
+          node = (box && cnt == 0) ? node + 1 : __float_as_int(lo.w);
         }
       }
+      walking = __ballot_sync(warp, node < rows.n_nodes && leaf == 0);
+      holding = __ballot_sync(warp, leaf != 0);
+    } while (__popc(walking) > __popc(holding));
+    if (holding == 0) break;  // and none walks: the walk is over
+    if (lead) {
+      ++rows.phases;
+      rows.leaves += (unsigned)__popc(holding);
     }
-    node = (box && cnt == 0) ? node + 1 : __float_as_int(lo.w);
+    mesh_leaf(rows.tris, leaf, sx, sy, sz, dx, dy, dz, tb, best, bu, bv);
+    leaf = 0;
   }
   if (best >= 0) {
     // merge_triangle_hit: n0 + (n1 - n0)·u + (n2 - n0)·v.

@@ -143,7 +143,7 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P],
         # prims, meta, mats, mat_meta, PathParams, CamParams, nodes, n_nodes,
         # tris, shade, h0, sample0, lane0, n, radiance, normal, depth,
-        # aov_mat, segcnt, walk (2 int64, or null), stream
+        # aov_mat, segcnt, walk (cuda_path.MESH_TOTALS int64, or null), stream
         "fspt_mesh_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _P, _I, _P, _P,
                                   _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },

@@ -91,6 +91,10 @@ DEFERRED_PATH = _build.KernelCounter(
 MESH_CAMERA_PATH = _build.KernelCounter(
     "mesh_camera_path", "fspt_kernels", "fspt_mesh_camera_path",
     "none: fspt_tpu renders BVH scenes through its ray queue (render/queue.py)")
+#: Kernel 13's counting build's totals a launch (csrc/fspt_mesh.cuh
+#: kMeshTotals): node steps and triangle tests (``walk``), then leaf phases,
+#: leaves tested in them and warp walks (``phases``).
+MESH_TOTALS = 5
 
 
 def _one_minus(x):
@@ -1262,11 +1266,13 @@ def _make_mesh_camera_tracer(scene_pack, camera, cfg):
     None.  ``trace.counted`` (same arguments) launches the build that counts
     the walk: its output's ``walk`` holds the BVH node steps and triangle
     tests of the segments (``[2]`` int64 on the card, read with the
-    segments), and its frame is 3-4 % longer on an H100 (PERF.md §6).
-    ``trace.plain(seed, sample0, lane0, n)`` is the plain version on any
-    device, :func:`build_path_core` over :func:`plain_mesh_intersect`,
-    always with the totals; on the CPU ``trace`` and ``trace.counted`` run
-    it, and ``trace`` drops the totals.
+    segments), its ``phases`` the walk's warp-wide leaf phases, the leaves
+    tested in them and the warp walks (``[3]`` int64), and its frame is
+    6-7 % longer on an H100 (PERF.md §6).  ``trace.plain(seed, sample0,
+    lane0, n)`` is the plain version on any device, :func:`build_path_core` over
+    :func:`plain_mesh_intersect`, always with the walk's totals and never
+    with ``phases`` (a plain walk has no warps); on the CPU ``trace`` and
+    ``trace.counted`` run it, and ``trace`` drops the totals.
     """
     from fspt_tpu_torch.ops import cuda_bvh
 
@@ -1299,16 +1305,17 @@ def _make_mesh_camera_tracer(scene_pack, camera, cfg):
             prims, meta = scene.tables(dev)
             mtab, mmeta = mats.tables(dev)
             outs = _path_outputs(n, dev)
-            walk = torch.empty((2,), dtype=torch.int64, device=dev) if count else None
+            totals = torch.empty((MESH_TOTALS,), dtype=torch.int64, device=dev) if count else None
             _build.launch(MESH_CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
                           mtab.data_ptr(), mmeta.data_ptr(),
                           _path_params(scene, mats, cfg, sky_idx, cam.z_far),
                           _cam_params(cam, cfg), tables.nodes.data_ptr(), tables.n_nodes,
                           tables.tris.data_ptr(), shade.data_ptr(), rng.seed_hash(seed),
                           int(sample0), int(lane0), n, *(o.data_ptr() for o in outs),
-                          None if walk is None else walk.data_ptr(),
+                          None if totals is None else totals.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
-            return _trace_output(*outs)._replace(walk=walk)
+            out = _trace_output(*outs)
+            return out if totals is None else out._replace(walk=totals[:2], phases=totals[2:])
 
     def trace(seed, sample0, lane0=0, n_lanes=None):
         return run(seed, sample0, lane0, n_lanes, False)

@@ -168,7 +168,8 @@ def compare_paths(k, p, every: bool = False) -> dict:
 
 def _same_output(a, b) -> bool:
     """Two TraceOutputs equal bit for bit (and their walk counts, where
-    kernel 13 gives them)."""
+    kernel 13 gives them; not its phase totals, which follow how the lanes
+    fall into warps)."""
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
                ("radiance", "aov_normal", "aov_depth", "aov_mat")) and (
         int(a.segments) == int(b.segments)) and (
@@ -180,7 +181,8 @@ def _cat_outputs(a, b):
     planes = {f: torch.cat([getattr(a, f), getattr(b, f)])
               for f in ("radiance", "aov_normal", "aov_depth", "aov_mat")}
     return a._replace(**planes, segments=a.segments + b.segments,
-                      walk=None if a.walk is None else a.walk + b.walk)
+                      walk=None if a.walk is None else a.walk + b.walk,
+                      phases=None if a.phases is None else a.phases + b.phases)
 
 
 def check_lane_independence(tracer, seed: int, sample0: int, n: int, full) -> dict:
@@ -242,10 +244,11 @@ def check_mesh_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 
     """Kernel 13 against its plain version (``trace.plain``: the path body
     over :func:`ops.bvh.walk_bvh`) on the card: its counting build
     (``trace.counted``) on 100 % of values (:func:`compare_paths` with
-    ``every``) and the walk's node steps and triangle tests equal; its
-    ``lane0`` band split and a second launch against the full frame, bit
-    for bit; the build that counts nothing (``trace``) equal to the
-    counting one, bit for bit."""
+    ``every``) and the walk's node steps and triangle tests equal, with its
+    phase totals (``phases``: leaf phases, leaves tested in them, warp
+    walks) in the report; its ``lane0`` band split and a second launch
+    against the full frame, bit for bit; the build that counts nothing
+    (``trace``) equal to the counting one, bit for bit."""
     tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
     assert scene_pack.bvh is not None and hasattr(tracer, "counted"), "not a mesh scene"
     n = cfg.height * cfg.width * cfg.spp
@@ -253,12 +256,14 @@ def check_mesh_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 
     p = tracer.plain(seed, sample0, 0, n)
     torch.cuda.synchronize()
     rep = compare_paths(k, p, every=True)
-    rep.update(walk=k.walk.tolist(), plain_walk=p.walk.tolist())
+    rep.update(walk=k.walk.tolist(), plain_walk=p.walk.tolist(), phases=k.phases.tolist())
     assert torch.equal(k.walk, p.walk), rep
+    phases, leaves, walks = rep["phases"]
+    assert phases <= leaves and 0 < walks <= rep["segments"], rep
     rep.update(check_lane_independence(tracer.counted, seed, sample0, n, k))
     uncounted = tracer(seed, sample0)
     rep["uncounted_bit_equal"] = _same_output(uncounted._replace(walk=k.walk), k)
-    assert rep["uncounted_bit_equal"] and uncounted.walk is None, rep
+    assert rep["uncounted_bit_equal"] and uncounted.walk is None and uncounted.phases is None, rep
     return rep
 
 

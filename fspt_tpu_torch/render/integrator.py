@@ -107,6 +107,9 @@ class TraceOutput(NamedTuple):
     #: [2] int64: the BVH node steps and triangle tests of the segments
     #: (kernel 13's tracer), or None.
     walk: Optional[torch.Tensor] = None
+    #: [3] int64: kernel 13's warp-wide leaf phases, the leaves tested in
+    #: them and its warp walks (its counting build on the card), or None.
+    phases: Optional[torch.Tensor] = None
 
 
 def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,

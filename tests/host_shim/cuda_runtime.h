@@ -39,8 +39,10 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class T> T __ldg(const T* p) { return *p; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float __fdividef(float a, float b) { return a / b; }
-inline unsigned __ballot_sync(unsigned, bool b) { return b; }
-inline unsigned __activemask() { return 1; }
+// The running thread is its warp's one active lane.
+inline unsigned __activemask() { return 1u << (threadIdx.x & 31); }
+inline unsigned __ballot_sync(unsigned, bool b) { return b ? __activemask() : 0u; }
+inline int __any_sync(unsigned, int p) { return p != 0; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline unsigned __match_any_sync(unsigned, int) { return 1; }

@@ -230,7 +230,8 @@ def test_mesh_camera_path_kernel_on_host(libs, band):
     triangles) through its thin-lens camera, over the whole frame and over
     a band from a later lane, with its walk counted and without: the totals
     equal the plain walk's node steps and triangle tests (the host launch
-    counts on its second pass)."""
+    counts on its second pass).  A host thread walks alone, so each leaf
+    is a leaf phase of its own and each segment a warp walk."""
     b = samples.build("heightfield", device=CPU, grid=12)
     sp = b.compile(device=CPU)
     cfg = RenderConfig(width=32, height=24, spp=2, max_depth=4)
@@ -246,17 +247,23 @@ def test_mesh_camera_path_kernel_on_host(libs, band):
     plain = tracer.counted(9, 4, lane0=lane0, n_lanes=n)
     for counted in (True, False):
         outs = cuda_path._path_outputs(n, CPU)
-        walk = torch.zeros((2,), dtype=torch.int64)
+        totals = torch.zeros((cuda_path.MESH_TOTALS,), dtype=torch.int64)
+        walk, phases = totals[:2], totals[2:]
         assert libs["fspt_kernels"].fspt_mesh_camera_path(
             prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
             cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
             cuda_path._cam_params(cam, cfg), tracer.tables.nodes.data_ptr(),
             tracer.tables.n_nodes, tracer.tables.tris.data_ptr(), shade.data_ptr(),
             rng.seed_hash(9), 4, lane0, n, *(o.data_ptr() for o in outs),
-            walk.data_ptr() if counted else None, None) == 0
+            totals.data_ptr() if counted else None, None) == 0
         k = cuda_path._trace_output(*outs)
         _held(k, plain)
         assert _close(k.aov_normal, plain.aov_normal, 1e-5, 1e-6)
         assert _close(k.aov_depth, plain.aov_depth, 1e-5, 1e-6)
         assert torch.equal(walk, plain.walk if counted else torch.zeros_like(walk))
+        leaf_phases, leaves, warp_walks = phases.tolist()
+        if counted:
+            assert leaf_phases == leaves > 0 and warp_walks == int(k.segments)
+        else:
+            assert leaf_phases == leaves == warp_walks == 0
     assert int(plain.walk[1]) > 0

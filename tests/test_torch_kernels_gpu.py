@@ -548,22 +548,26 @@ def test_mesh_frame_matches_plain(cuda, heightfield):
 
 #: Kernel 13's cases: (grid, width, height, spp, aperture); 61×37×3 is a
 #: ragged lane count, grid 224 at 1024²×4 the heightfield-render cell.
-MESH_CAMERA_CASES = ((60, 64, 48, 2, 1.5), (60, 61, 37, 3, 0.0), (224, 1024, 1024, 4, 1.5))
+#: (grid, width, height, spp, aperture, depth); at depth 8 most warps reach
+#: the walk with few live lanes, which its votes take over the lanes that
+#: entered.
+MESH_CAMERA_CASES = ((60, 64, 48, 2, 1.5, 4), (60, 61, 37, 3, 0.0, 4),
+                     (224, 1024, 1024, 4, 1.5, 4), (60, 256, 192, 4, 1.5, 8))
 
 
 @pytest.mark.parametrize("case", MESH_CAMERA_CASES)
 def test_mesh_camera_path_kernel_matches_plain(cuda, case):
-    """Kernel 13 (kernel 2's body walking the BVH) against its plain
-    version on 100 % of values, walk counts equal, with the band split, a
-    second launch and the build that counts nothing bit for bit; depth 4,
-    through the scene's thin-lens camera or a pinhole."""
+    """Kernel 13 (kernel 2's body walking the BVH in warp-wide phases)
+    against its plain version on 100 % of values, walk counts equal, with
+    the band split, a second launch and the build that counts nothing bit
+    for bit; through the scene's thin-lens camera or a pinhole."""
     from fspt_tpu_torch.ops import kernel_check
     from fspt_tpu_torch.scene import samples
 
-    grid, w, h, spp, aperture = case
+    grid, w, h, spp, aperture, depth = case
     b = samples.build("heightfield", device=cuda, grid=grid)
     cam = b.cameras[0]._replace(aperture_size=torch.tensor(aperture, device=cuda))
-    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=4)
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
     kernel_check.check_mesh_camera_tracer(b.compile(device=cuda), cam, cfg, seed=3_000_000_123,
                                           sample0=8)
 
