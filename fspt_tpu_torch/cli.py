@@ -63,7 +63,7 @@ def main(argv=None):
 
     from fspt_tpu_torch.camera import Camera
     from fspt_tpu_torch.config import RenderConfig, resolve_device
-    from fspt_tpu_torch.ops.cuda_path import make_camera_path_tracer
+    from fspt_tpu_torch.ops import cuda_path
     from fspt_tpu_torch.render import framebuffer as fb_mod
     from fspt_tpu_torch.render.dispatch import make_cached_scene_step, make_scene_step
     from fspt_tpu_torch.scene.parser import load_scene
@@ -85,21 +85,22 @@ def main(argv=None):
     # The first-hit cache is the queue's estimator: a checkpoint made with
     # it keeps meaning what it meant.
     cached_bvh = args.first_hit_cache and scene.bvh is not None
-    tracer = None if cached_bvh else make_camera_path_tracer(scene, camera, cfg)
+    tracer = None if cached_bvh else cuda_path.make_camera_path_tracer(scene, camera, cfg)
     cstep = None
     walk = None
     if tracer is not None:
         # A textured scene takes the texture-deferred kernel, which fetches
         # and folds the texels itself; a BVH scene the mesh kernel.
-        kind = ("texture-deferred camera-fused" if hasattr(tracer, "fold")
-                else "mesh camera-fused" if scene.bvh is not None else "camera-fused")
+        kind = {cuda_path.CAMERA_PATH: "camera-fused",
+                cuda_path.DEFERRED_PATH: "texture-deferred camera-fused",
+                cuda_path.MESH_CAMERA_PATH: "mesh camera-fused"}[tracer.kernel]
         print(f"render path: {kind} cuda megakernel" if device.type == "cuda"
               else f"render path: {kind} plain torch")
 
         # Kernel 13's first frame (which also loads the kernel) takes its
         # counting build, so that line gives the walk's work a segment; the
         # others the build that counts nothing (the counts cost 6-7 %).
-        count_next = scene.bvh is not None
+        count_next = tracer.kernel is cuda_path.MESH_CAMERA_PATH
 
         def step(fb, frame_idx):
             nonlocal walk, count_next

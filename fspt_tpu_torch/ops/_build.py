@@ -126,6 +126,12 @@ class TexPack(ctypes.Structure):
     ]
 
 
+#: The head every path-body launcher takes first (ops/cuda_path.PathBody):
+#: prims, meta, mats, mat_meta, PathParams, CamParams.  Kernel 3, whose rays
+#: come in, takes it without CamParams.
+_BODY_HEAD = [_P, _P, _P, _P, PathParams, CamParams]
+_RAY_HEAD = _BODY_HEAD[:5]
+
 # library → exported symbol → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "fspt_kernels": {
@@ -133,39 +139,33 @@ _SIGNATURES = {
         "fspt_intersect_plan": [_I, _I, _P, _P],
         # prims, meta, n_prims, start, seg, n, t, normal, mat, kind, uv, stream
         "fspt_intersect": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-        # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
-        # lane0, n, radiance, normal, depth, aov_mat, segcnt, stream
-        "fspt_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _U, _I, _I,
-                             _I, _P, _P, _P, _P, _P, _P],
-        # prims, meta, mats, mat_meta, PathParams, start, seg, pixel, sample,
-        # h0, n, radiance, normal, depth, aov_mat, segcnt, stream
-        "fspt_ray_path": [_P, _P, _P, _P, PathParams, _P, _P, _P, _P, _U, _I,
-                          _P, _P, _P, _P, _P, _P],
-        # prims, meta, mats, mat_meta, PathParams, CamParams, nodes, n_nodes,
-        # tris, shade, h0, sample0, lane0, n, radiance, normal, depth,
-        # aov_mat, segcnt, walk (cuda_path.MESH_TOTALS int64, or null), stream
-        "fspt_mesh_camera_path": [_P, _P, _P, _P, PathParams, CamParams, _P, _I, _P, _P,
-                                  _U, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        # head, h0, sample0, lane0, n, radiance, normal, depth, aov_mat,
+        # segcnt, stream
+        "fspt_camera_path": [*_BODY_HEAD, _U, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        # ray head, start, seg, pixel, sample, h0, n, radiance, normal, depth,
+        # aov_mat, segcnt, stream
+        "fspt_ray_path": [*_RAY_HEAD, _P, _P, _P, _P, _U, _I, _P, _P, _P, _P, _P, _P],
+        # head, nodes, n_nodes, tris, shade, h0, sample0, lane0, n, radiance,
+        # normal, depth, aov_mat, segcnt, walk (cuda_path.MESH_TOTALS int64, or
+        # null), stream
+        "fspt_mesh_camera_path": [*_BODY_HEAD, _P, _I, _P, _P, _U, _I, _I, _I, _P, _P, _P,
+                                  _P, _P, _P, _P],
     },
     "fspt_deferred": {
-        # prims, meta, mats, mat_meta, PathParams, CamParams, TexPack, h0,
-        # sample0, lane0, n, radiance, normal, depth, aov_mat, segcnt, stream
-        "fspt_deferred_camera_path": [_P, _P, _P, _P, PathParams, CamParams,
-                                      TexPack, _U, _I, _I, _I, _P, _P, _P, _P,
+        # head, TexPack, h0, sample0, lane0, n, radiance, normal, depth,
+        # aov_mat, segcnt, stream
+        "fspt_deferred_camera_path": [*_BODY_HEAD, TexPack, _U, _I, _I, _I, _P, _P, _P, _P,
                                       _P, _P],
-        # prims, meta, mats, mat_meta, PathParams, CamParams, h0, sample0,
-        # lane0, n, fields, n_fields, mat, mat_e, p_light, segcnt, stream
-        "fspt_affine_planes": [_P, _P, _P, _P, PathParams, CamParams, _U, _I,
-                               _I, _I, _P, _I, _P, _P, _P, _P, _P],
+        # head, h0, sample0, lane0, n, fields, n_fields, mat, mat_e, p_light,
+        # segcnt, stream
+        "fspt_affine_planes": [*_BODY_HEAD, _U, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     },
     "fspt_grad": {
         # n_mats, n_slot, n, *block, *grid
         "fspt_fused_loss_plan": [_I, _I, _I, _P, _P],
-        # prims, meta, mats, mat_meta, PathParams, CamParams, tc_tab, te_tab,
-        # h0, sample0_a, sample0_b, lane0, n, target, partial, int_partial,
-        # out, int_out, stream
-        "fspt_fused_loss": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _U,
-                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        # head, tc_tab, te_tab, h0, sample0_a, sample0_b, lane0, n, target,
+        # partial, int_partial, out, int_out, stream
+        "fspt_fused_loss": [*_BODY_HEAD, _P, _P, _U, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
     "fspt_bvh": {
         # F, lbmin, lbmax, n_leaves, n_blocks, key, stream
@@ -184,27 +184,25 @@ _SIGNATURES = {
         "fspt_treelet_walk": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     },
     "fspt_adjoint": {
-        # prims, meta, mats, mat_meta, PathParams, CamParams, pvec, cells,
-        # n_cells, h0, sample0, lane0, n, radiance, segcnt, record, stream
-        "fspt_grad_forward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
-                              _I, _I, _P, _P, _P, _P],
+        # head, pvec, cells, n_cells, h0, sample0, lane0, n, radiance, segcnt,
+        # record, stream
+        "fspt_grad_forward": [*_BODY_HEAD, _P, _P, _I, _U, _I, _I, _I, _P, _P, _P, _P],
         # n_mats, n, *grid, *refill
         "fspt_grad_forward_plan": [_I, _I, _P, _P],
         # n_mats, rows, depth, *block, *scratch_words
         "fspt_adjoint_plan": [_I, _I, _I, _P, _P],
         # ... as fspt_grad_forward up to n, then cot, scratch, partial,
         # int_partial, out, int_out, stream
-        "fspt_grad_backward": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
-                               _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "fspt_grad_backward": [*_BODY_HEAD, _P, _P, _I, _U, _I, _I, _I, _P, _P, _P, _P, _P,
+                               _P, _P],
         # ... as fspt_grad_backward, with kernel 9's record in place of scratch
-        "fspt_grad_sweep": [_P, _P, _P, _P, PathParams, CamParams, _P, _P, _I, _U, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P, _P],
-        # prims, meta, mats, mat_meta, PathParams, CamParams, TracedCamParams,
-        # pvec, cells, n_cells, use_camera, h0, sample0_a, sample0_b, lane0,
-        # n, target, scratch, partial, int_partial, out, int_out, stream
-        "fspt_fused_loss_chain": [_P, _P, _P, _P, PathParams, CamParams, TracedCamParams,
-                                  _P, _P, _I, _I, _U, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                  _P, _P],
+        "fspt_grad_sweep": [*_BODY_HEAD, _P, _P, _I, _U, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _P],
+        # head, TracedCamParams, pvec, cells, n_cells, use_camera, h0,
+        # sample0_a, sample0_b, lane0, n, target, scratch, partial,
+        # int_partial, out, int_out, stream
+        "fspt_fused_loss_chain": [*_BODY_HEAD, TracedCamParams, _P, _P, _I, _I, _U, _I, _I,
+                                  _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -51,14 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from fspt_tpu_torch.ops import _build, rng
 from fspt_tpu_torch.ops.cuda_path import (
     CAMERA_PARAM_COUNT,
-    HostCamera,
-    _cam_params,
-    _device_of,
-    _path_params,
-    _specializable,
+    PathBody,
     bias_table,
-    build_fused_raygen,
-    build_path_core,
     build_traced_raygen,
     fold_deferred_params,
     n_slots,
@@ -259,15 +253,6 @@ def _traced_params(cfg) -> _build.TracedCamParams:
                                   half_deg=0.5 * (float(vm.PI) / 180.0))
 
 
-def _adjoint_envelope(scene_pack):
-    """(HostScene, HostMaterials) of a scene the adjoint kernels take: an
-    untextured one the megakernels take (pallas_grad.py:157-164), or None."""
-    found = _specializable(scene_pack)
-    if found is None or found[1].any_textured:
-        return None
-    return found
-
-
 class _GradTrace(torch.autograd.Function):
     """Kernel 9 forward, kernel 10 backward (the reference's custom VJP,
     pallas_grad.py:239-255).  ``forward_fn(pvec, wants_grad)`` returns the
@@ -330,23 +315,18 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
     if CAMERA_FIELD in fields:
         raise ValueError("camera gradients take make_fused_loss_grad_fn; the "
                          "in-kernel-adjoint pair uses the fixed camera")
-    found = _adjoint_envelope(scene_pack)
-    if found is None:
+    body = PathBody(scene_pack, camera, cfg)
+    if body.bvh or not body.fits or body.textured:  # as pallas_grad.py:157-164
         return None
-    scene, mats = found
+    mats, dev, depth = body.mats, body.dev, cfg.effective_depth
     fields = _ordered(fields)
     P = param_count(mats, fields)
-    sky_idx = int(scene_pack.sky_mat)
-    cam = HostCamera(camera, cfg.width, cfg.height)
-    dev = _device_of(scene_pack)
     table = scene_pack.materials
-    raygen = build_fused_raygen(cam, cfg)
 
     def plain_planes(pvec, seed, sample0, lane0, n):
         h0 = rng.seed_hash(seed)
-        core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, want_aovs=False,
-                               tmats=_param_table(table, mats, fields, pvec))
-        outs = core(h0, *raygen(h0, sample0, lane0, n, dev))
+        core = body.core(want_aovs=False, tmats=_param_table(table, mats, fields, pvec))
+        outs = core(h0, *body.raygen(h0, sample0, lane0, n, dev))
         return torch.stack(outs[:3]), outs[8]
 
     def plain_grad(pvec, cot, seed, sample0, lane0, n):
@@ -356,40 +336,33 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
 
     if dev.type == "cuda":
         cells = torch.from_numpy(cell_map(mats, fields)).to(dev)
-        pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
-        cp = _cam_params(cam, cfg)
-        block, words = adjoint_plan(mats.count, P, pp.depth)
+        block, words = adjoint_plan(mats.count, P, depth)
         total_memory = torch.cuda.get_device_properties(dev).total_memory
 
     def new_record(n):
         """An empty record of ``n`` lanes for kernel 9 to write."""
-        return torch.empty(record_shape(n, pp.depth), dtype=torch.float32, device=dev)
+        return torch.empty(record_shape(n, depth), dtype=torch.float32, device=dev)
 
     def check_record(record, n):
-        _build.check_cuda_tensor("record", record, torch.float32, record_shape(n, pp.depth),
-                                 dev)
+        _build.check_cuda_tensor("record", record, torch.float32, record_shape(n, depth), dev)
 
-    def tables(pvec):
-        """The launch's table pointers and its float32 parameter vector."""
+    def launch_pvec(pvec):
+        """The launch's float32 parameter vector."""
         pvec = pvec.detach().to(torch.float32).contiguous()
         _build.check_cuda_tensor("pvec", pvec, torch.float32, (P,), dev)
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
-        return (prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
-                pp, cp), pvec
+        return pvec
 
     def kernel_forward(pvec, seed, sample0, lane0, n, record=None):
         """Kernel 9: radiance ``[3, n]`` and segments ``[n]``; each lane's
         record into ``record`` where given."""
-        head, pv = tables(pvec)
+        pv = launch_pvec(pvec)
         if record is not None:
             check_record(record, n)
         radiance = torch.empty((3, n), dtype=torch.float32, device=dev)
         segcnt = torch.empty((n,), dtype=torch.int32, device=dev)
-        _build.launch(GRAD_FORWARD, *head, pv.data_ptr(), cells.data_ptr(), P,
-                      rng.seed_hash(seed), int(sample0), int(lane0), n, radiance.data_ptr(),
-                      segcnt.data_ptr(), _ptr(record),
-                      torch.cuda.current_stream(dev).cuda_stream)
+        body.launch(GRAD_FORWARD, pv.data_ptr(), cells.data_ptr(), P, rng.seed_hash(seed),
+                    int(sample0), int(lane0), n, radiance.data_ptr(), segcnt.data_ptr(),
+                    _ptr(record))
         trace.record_bytes = 0 if record is None else record.nbytes
         return radiance, segcnt
 
@@ -397,7 +370,7 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
         """Kernel 10 (reverse mode): ``Σ_lanes cotᵀ·∂radiance/∂pvec`` for
         ``cot [3, n]``: the sweep of ``record`` (kernel 9's of the same
         lanes) where given, else the lanes traced again and swept."""
-        head, pv = tables(pvec)
+        pv = launch_pvec(pvec)
         cot = cot.to(torch.float32).contiguous()
         _build.check_cuda_tensor("cotangent", cot, torch.float32, (3, n), dev)
         blocks = -(-n // block)
@@ -410,18 +383,17 @@ def make_grad_path_tracer(scene_pack, camera, cfg, fields=("diffuse", "emissive"
         else:
             check_record(record, n)
             counter, store = GRAD_SWEEP, record
-        _build.launch(counter, *head, pv.data_ptr(), cells.data_ptr(), P,
-                      rng.seed_hash(seed), int(sample0), int(lane0), n, cot.data_ptr(),
-                      _ptr(store), partial.data_ptr(), int_partial.data_ptr(),
-                      out.data_ptr(), int_out.data_ptr(),
-                      torch.cuda.current_stream(dev).cuda_stream)
+        body.launch(counter, pv.data_ptr(), cells.data_ptr(), P, rng.seed_hash(seed),
+                    int(sample0), int(lane0), n, cot.data_ptr(), _ptr(store),
+                    partial.data_ptr(), int_partial.data_ptr(), out.data_ptr(),
+                    int_out.data_ptr())
         trace.nonfinite = int_out[1]
         return out.to(torch.float32)
 
     def recorded_forward(pvec, seed, sample0, lane0, n, wants_grad):
         """Kernel 9 for the autograd glue, with a record where the route
         rule keeps one."""
-        keep = keeps_record(n, pp.depth, total_memory, wants_grad)
+        keep = keeps_record(n, depth, total_memory, wants_grad)
         record = new_record(n) if keep else None
         radiance, segcnt = kernel_forward(pvec, seed, sample0, lane0, n, record=record)
         return radiance, segcnt, record
@@ -493,33 +465,25 @@ def make_affine_planes(scene_pack, camera, cfg):
     do not take.  A scene on the CPU runs the plain version
     (``build_path_core(defer_all=True, want_aovs=False)``), which
     ``planes.plain`` runs on any device."""
-    found = _specializable(scene_pack)
-    if found is None:
+    body = PathBody(scene_pack, camera, cfg)
+    if body.bvh or not body.fits:
         return None
-    scene, mats = found
-    sky_idx = int(scene_pack.sky_mat)
-    cam = HostCamera(camera, cfg.width, cfg.height)
-    dev = _device_of(scene_pack)
-    raygen = build_fused_raygen(cam, cfg)
-    core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, defer_all=True,
-                           want_aovs=False)
+    return _affine_planes(body)
+
+
+def _affine_planes(body: PathBody):
+    """Kernel 7 on ``body``'s scene: :func:`make_affine_planes`'s ``planes``."""
+    cfg, dev, mats = body.cfg, body.dev, body.mats
+    core = body.core(defer_all=True, want_aovs=False)
     S = n_slots(cfg)
-    fkeys = ("s", "k", "se") + (("u", "v") if mats.any_textured else ())
+    fkeys = ("s", "k", "se") + (("u", "v") if body.textured else ())
 
     def plain(seed, sample0, lane0, n) -> AffinePlanes:
         h0 = rng.seed_hash(seed)
-        slots, p_light, *_, segcnt = core(h0, *raygen(h0, sample0, lane0, n, dev))
+        slots, p_light, *_, segcnt = core(h0, *body.raygen(h0, sample0, lane0, n, dev))
         stack = lambda key: torch.stack([sl[key] for sl in slots])
         return AffinePlanes({k: stack(k) for k in fkeys}, stack("mat"),
                             stack("mat_e"), p_light, segcnt.sum())
-
-    if dev.type == "cuda":
-        # Fixed for the renderer's life: only the seed and the lanes change
-        # from call to call.
-        tables = (*scene.tables(dev), *mats.tables(dev))
-        table_ptrs = tuple(t.data_ptr() for t in tables)
-        pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
-        cp = _cam_params(cam, cfg)
 
     def planes(seed, sample0, lane0, n) -> AffinePlanes:
         if dev.type == "cpu":
@@ -528,14 +492,13 @@ def make_affine_planes(scene_pack, camera, cfg):
         rows = torch.empty((2 * S + 1, n), dtype=torch.int32, device=dev)  # mat, mat_e, segcnt
         p_light = torch.empty((n,), dtype=torch.bool, device=dev)
         at = rows.data_ptr()
-        _build.launch(AFFINE_PLANES, *table_ptrs, pp, cp, rng.seed_hash(seed), int(sample0),
-                      int(lane0), n, fields.data_ptr(), len(fkeys), at, at + 4 * S * n,
-                      p_light.data_ptr(), at + 8 * S * n,
-                      torch.cuda.current_stream(dev).cuda_stream)
+        body.launch(AFFINE_PLANES, rng.seed_hash(seed), int(sample0), int(lane0), n,
+                    fields.data_ptr(), len(fkeys), at, at + 4 * S * n, p_light.data_ptr(),
+                    at + 8 * S * n)
         return AffinePlanes(dict(zip(fkeys, fields)), rows[:S], rows[S:2 * S], p_light,
                             rows[2 * S].sum())
 
-    planes.scene, planes.mats = scene, mats
+    planes.scene, planes.mats = body.scene, mats
     planes.plain = plain
     return planes
 
@@ -637,16 +600,11 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
     unknown = set(fields) - set(VEC3_FIELDS + SCALAR_FIELDS) - {CAMERA_FIELD}
     if unknown:
         raise ValueError(f"unknown fields {sorted(unknown)}")
-    found = _adjoint_envelope(scene_pack)
-    if found is None:
+    body = PathBody(scene_pack, camera, cfg)
+    if body.bvh or not body.fits or body.textured:
         return None
-    scene, mats = found
-    sky_idx = int(scene_pack.sky_mat)
-    cam = HostCamera(camera, cfg.width, cfg.height)
-    dev = _device_of(scene_pack)
     build = _affine_loss if (radiometric_only if affine is None else affine) else _chain_loss
-    plain, launch = build(scene_pack, camera, cfg, fields, remat, scene, mats, cam, sky_idx,
-                          dev)
+    plain, launch = build(scene_pack, fields, remat, body)
 
     def entry(run, cast):
         def fn(params, target, seed, frame_idx, y0, rows):
@@ -662,16 +620,17 @@ def make_fused_loss_grad_fn(scene_pack, camera, cfg, fields=("diffuse", "emissiv
         fn.fields = fields
         return fn
 
-    fn = entry(plain, True) if dev.type == "cpu" else entry(launch, False)
+    fn = entry(plain, True) if body.dev.type == "cpu" else entry(launch, False)
     fn.plain = entry(plain, False)
     fn.nonfinite = None
     launch.owner = fn
     return fn
 
 
-def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_idx, dev):
+def _affine_loss(scene_pack, fields, _remat, body: PathBody):
     """Kernel 8's affine construction: ``(plain, launch)``."""
-    planes = make_affine_planes(scene_pack, camera, cfg)
+    cfg, dev, mats = body.cfg, body.dev, body.mats
+    planes = _affine_planes(body)
     table = scene_pack.materials
     if dev.type == "cuda":
         loss_plan(mats.count, n_slots(cfg), 0)  # raises past the kernel's limits
@@ -712,15 +671,10 @@ def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_
         int_partial = torch.empty((2, grid), dtype=torch.int32, device=dev)
         out = torch.zeros((width,), dtype=torch.float64, device=dev)
         int_out = torch.zeros((2,), dtype=torch.int64, device=dev)
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
-        _build.launch(FUSED_LOSS, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
-                      mmeta.data_ptr(), _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                      _cam_params(cam, cfg), tc_tab.data_ptr(), te_tab.data_ptr(),
-                      rng.seed_hash(seed), int(sample_a), int(sample_b), int(lane0), n,
-                      tgt.data_ptr(), partial.data_ptr(), int_partial.data_ptr(),
-                      out.data_ptr(), int_out.data_ptr(),
-                      torch.cuda.current_stream(dev).cuda_stream)
+        body.launch(FUSED_LOSS, tc_tab.data_ptr(), te_tab.data_ptr(), rng.seed_hash(seed),
+                    int(sample_a), int(sample_b), int(lane0), n, tgt.data_ptr(),
+                    partial.data_ptr(), int_partial.data_ptr(), out.data_ptr(),
+                    int_out.data_ptr())
         out = out.to(torch.float32)
         g = out[1:].reshape(2, mats.count, 3)
         return out[0], table_grads(mats, g[0], g[1], fields), int_out[0]
@@ -728,31 +682,27 @@ def _affine_loss(scene_pack, camera, cfg, fields, _remat, scene, mats, cam, sky_
     return plain, launch
 
 
-def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_idx, dev):
+def _chain_loss(scene_pack, fields, remat, body: PathBody):
     """Kernel 8's whole chain (and remat): ``(plain, launch)``."""
+    cfg, dev, mats = body.cfg, body.dev, body.mats
     table = scene_pack.materials
     use_camera = CAMERA_FIELD in fields
     P = param_count(mats, fields)
     P_mat = P - (CAMERA_PARAM_COUNT if use_camera else 0)
-    raygen = build_fused_raygen(cam, cfg)
-    traygen = build_traced_raygen(cam, cfg)
+    traygen = build_traced_raygen(body.cam, cfg)
 
     def rays(leaves, h0, sample0, lane0, n):
         if use_camera:
             return traygen(list(leaves[P_mat:]), h0, sample0, lane0, n, dev)
-        return raygen(h0, sample0, lane0, n, dev)
+        return body.raygen(h0, sample0, lane0, n, dev)
 
     def radiance(leaves, h0, sample0, lane0, n):
         tm = _param_table(table, mats, fields, leaves)
         r = rays(leaves, h0, sample0, lane0, n)
         if not remat:
-            core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, want_aovs=False,
-                                   tmats=tm)
-            outs = core(h0, *r)
+            outs = body.core(want_aovs=False, tmats=tm)(h0, *r)
         else:
-            init, step, finalize = build_path_core(scene, mats, cfg, sky_idx, cam.z_far,
-                                                   want_aovs=False, tmats=tm,
-                                                   return_stepper=True)
+            init, step, finalize = body.core(want_aovs=False, tmats=tm, return_stepper=True)
             st = init(h0, *r)
             for depth in range(cfg.effective_depth):
                 st = checkpoint(lambda s, d=depth: step(d, s)[0], st, use_reentrant=False)
@@ -774,10 +724,8 @@ def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_i
 
     if dev.type == "cuda":
         cells = torch.from_numpy(cell_map(mats, fields)).to(dev)
-        pp = _path_params(scene, mats, cfg, sky_idx, cam.z_far)
-        cp = _cam_params(cam, cfg)
         tp = _traced_params(cfg)
-        block, words = adjoint_plan(mats.count, 1 + P, pp.depth)
+        block, words = adjoint_plan(mats.count, 1 + P, cfg.effective_depth)
 
     def launch(params, target, seed, sample_a, sample_b, lane0, n):
         scratch = _record_scratch(words, 2, n, dev)
@@ -789,14 +737,10 @@ def _chain_loss(scene_pack, _camera, cfg, fields, remat, scene, mats, cam, sky_i
         int_partial = torch.empty((2, blocks), dtype=torch.int32, device=dev)
         out = torch.empty((1 + P,), dtype=torch.float64, device=dev)
         int_out = torch.empty((2,), dtype=torch.int64, device=dev)
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
-        _build.launch(FUSED_LOSS_CHAIN, prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(),
-                      mmeta.data_ptr(), pp, cp, tp, pvec.data_ptr(), cells.data_ptr(), P_mat,
-                      int(use_camera), rng.seed_hash(seed), int(sample_a), int(sample_b),
-                      int(lane0), n, tgt.data_ptr(), _ptr(scratch), partial.data_ptr(),
-                      int_partial.data_ptr(), out.data_ptr(), int_out.data_ptr(),
-                      torch.cuda.current_stream(dev).cuda_stream)
+        body.launch(FUSED_LOSS_CHAIN, tp, pvec.data_ptr(), cells.data_ptr(), P_mat,
+                    int(use_camera), rng.seed_hash(seed), int(sample_a), int(sample_b),
+                    int(lane0), n, tgt.data_ptr(), _ptr(scratch), partial.data_ptr(),
+                    int_partial.data_ptr(), out.data_ptr(), int_out.data_ptr())
         launch.owner.nonfinite = int_out[1]
         out = out.to(torch.float32)
         return out[0], unpack_params(out[1:], mats, fields), int_out[0]

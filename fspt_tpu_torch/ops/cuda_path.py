@@ -1000,38 +1000,8 @@ def fold_deferred_params(mats: HostMaterials, cfg, diffuse, emissive, glow, tex,
 # --- kernel wrappers -------------------------------------------------------
 
 
-def _path_params(scene: HostScene, mats: HostMaterials, cfg, sky_idx: int,
-                 z_far: float) -> _build.PathParams:
-    sky = mats.emissive[sky_idx] * np.float32(3.0)
-    return _build.PathParams(
-        ray_offset=cfg.ray_offset,
-        seg_scale=float(np.float32(z_far - cfg.ray_offset)),
-        z_far=z_far,
-        light_clamp=cfg.light_clamp,
-        sky_e=_floats(sky),
-        depth=cfg.effective_depth,
-        bounce_slots=cfg.bounce_slots,
-        sky_idx=sky_idx,
-        fast_render=int(cfg.fast_render),
-        n_prims=scene.prim_count,
-        n_mats=mats.count,
-    )
-
-
 def _floats(values):
     return (ctypes.c_float * len(values))(*map(float, values))
-
-
-def _cam_params(cam: HostCamera, cfg) -> _build.CamParams:
-    return _build.CamParams(
-        origin=_floats(cam.origin), proj_origin=_floats(cam.proj_origin),
-        right=_floats(cam.right), up=_floats(cam.up),
-        focal_plane=_floats(cam.focal_plane),
-        half_w=cam.half_w, half_h=cam.half_h,
-        inv_wm1=1.0 / (cfg.width - 1), inv_hm1=1.0 / (cfg.height - 1),
-        aperture=cam.aperture, z_far=cam.z_far,
-        width=cfg.width, spp=cfg.spp, dof=int(cam.aperture > 0.0),
-    )
 
 
 def _path_outputs(n, dev):
@@ -1073,24 +1043,115 @@ class DeferredPlanes(NamedTuple):
     segcnt: torch.Tensor  # [N] int32
 
 
-def _specializable(scene_pack):
-    """(HostScene, HostMaterials) of an analytic scene the megakernels take,
-    or None for a BVH scene (kernel 13's, :func:`make_camera_path_tracer`)
-    or one over MAX_SPECIALIZED_PRIMS primitives (the reference's general
-    path)."""
-    if scene_pack.bvh is not None:
-        return None
-    scene = HostScene(scene_pack.geometry)
-    if scene.prim_count > MAX_SPECIALIZED_PRIMS:
-        return None
-    return scene, HostMaterials(scene_pack.materials)
+class PathBody:
+    """The host side of the path body that kernels 2-4, 7-10 and 13 share,
+    made once per tracer or gradient function.
+
+    The scene, checked once: ``scene`` (HostScene), ``mats``
+    (HostMaterials), ``sky_idx``, ``cam`` (HostCamera; None for kernel 3,
+    whose rays come in, which gives ``z_far`` instead) and ``dev`` (the
+    scene's device, cpu or cuda).  The facts a factory picks its kernel by:
+    ``bvh`` (the scene has a BVH: kernel 13's), ``textured`` (a material row
+    has a texture) and ``fits`` (at most MAX_SPECIALIZED_PRIMS primitive
+    rows; past it the reference takes its general path).
+
+    The card side: the launch head every path-body launcher takes first —
+    the four table pointers, PathParams and, with a camera, CamParams —
+    made once a device (:meth:`head`), and :meth:`launch`.  The plain side,
+    which the tests hold the kernels against: ``raygen``
+    (:func:`build_fused_raygen`, with a camera) and :meth:`core`
+    (:func:`build_path_core` over the scene).
+    """
+
+    def __init__(self, scene_pack, camera, cfg, z_far: float | None = None):
+        dev = scene_pack.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        self.dev, self.cfg = dev, cfg
+        self.scene = HostScene(scene_pack.geometry)
+        self.mats = mats = HostMaterials(scene_pack.materials)
+        self.sky_idx = int(scene_pack.sky_mat)
+        self.bvh = scene_pack.bvh is not None
+        self.textured = mats.any_textured
+        self.fits = self.scene.prim_count <= MAX_SPECIALIZED_PRIMS
+        self.cam = cam = None if camera is None else HostCamera(camera, cfg.width, cfg.height)
+        self.z_far = float(z_far) if cam is None else cam.z_far
+        self.raygen = None if cam is None else build_fused_raygen(cam, cfg)
+        self.params = (_build.PathParams(
+            ray_offset=cfg.ray_offset,
+            seg_scale=float(np.float32(self.z_far - cfg.ray_offset)),
+            z_far=self.z_far,
+            light_clamp=cfg.light_clamp,
+            sky_e=_floats(mats.emissive[self.sky_idx] * np.float32(3.0)),
+            depth=cfg.effective_depth,
+            bounce_slots=cfg.bounce_slots,
+            sky_idx=self.sky_idx,
+            fast_render=int(cfg.fast_render),
+            n_prims=self.scene.prim_count,
+            n_mats=mats.count,
+        ),)
+        if cam is not None:
+            self.params += (_build.CamParams(
+                origin=_floats(cam.origin), proj_origin=_floats(cam.proj_origin),
+                right=_floats(cam.right), up=_floats(cam.up),
+                focal_plane=_floats(cam.focal_plane),
+                half_w=cam.half_w, half_h=cam.half_h,
+                inv_wm1=1.0 / (cfg.width - 1), inv_hm1=1.0 / (cfg.height - 1),
+                aperture=cam.aperture, z_far=cam.z_far,
+                width=cfg.width, spp=cfg.spp, dof=int(cam.aperture > 0.0),
+            ),)
+        self._heads = {}
+
+    def head(self, dev=None) -> tuple:
+        """The launch head on ``dev`` (the scene's device by default), made
+        on first use: the pointers of the tables, whose tensors ``scene``
+        and ``mats`` keep for the body's life (hold the body while a launch
+        reads them), then ``params``."""
+        dev = self.dev if dev is None else dev
+        if dev not in self._heads:
+            tables = (*self.scene.tables(dev), *self.mats.tables(dev))
+            self._heads[dev] = (*(t.data_ptr() for t in tables), *self.params)
+        return self._heads[dev]
+
+    def launch(self, counter: _build.KernelCounter, *tail, dev=None) -> None:
+        """Launch ``counter``'s kernel with the head, ``tail`` and the current
+        stream of ``dev`` (the scene's device by default)."""
+        dev = self.dev if dev is None else dev
+        _build.launch(counter, *self.head(dev), *tail,
+                      torch.cuda.current_stream(dev).cuda_stream)
+
+    def frame(self, counter, seed, sample0, lane0, n, pre=(), post=()) -> TraceOutput:
+        """One launch of a camera-fused kernel (2, 4 or 13) over the frame
+        lanes ``lane0 .. lane0+n-1``, into new output planes: ``pre`` are
+        the launcher's arguments between the head and the seed's hash,
+        ``post`` those after the outputs."""
+        outs = _path_outputs(n, self.dev)
+        self.launch(counter, *pre, rng.seed_hash(seed), int(sample0), int(lane0), n,
+                    *(o.data_ptr() for o in outs), *post)
+        return _trace_output(*outs)
+
+    def core(self, **modes):
+        """:func:`build_path_core` over the scene in ``modes``."""
+        return build_path_core(self.scene, self.mats, self.cfg, self.sky_idx, self.z_far,
+                               **modes)
 
 
-def _device_of(scene_pack):
-    dev = scene_pack.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+def _frame_tracer(body: PathBody, kernel, plain, card):
+    """``trace(seed, sample0, lane0=0, n_lanes=None) → TraceOutput`` over
+    the frame lanes ``lane0 .. lane0+n_lanes-1`` (the whole H×W×spp frame by
+    default), inside the ``fspt.trace`` span: ``plain(seed, sample0, lane0,
+    n)`` for a scene on the CPU, else ``card(...)``.  ``trace.kernel`` is
+    the KernelCounter of the kernel it stands for."""
+    cfg = body.cfg
+    run = plain if body.dev.type == "cpu" else card
+
+    def trace(seed, sample0, lane0=0, n_lanes=None):
+        with profiling.span("fspt.trace"):
+            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
+            return run(seed, sample0, lane0, n)
+
+    trace.kernel = kernel
+    return trace
 
 
 def make_camera_path_tracer(scene_pack, camera, cfg):
@@ -1102,43 +1163,28 @@ def make_camera_path_tracer(scene_pack, camera, cfg):
     over lanes ``lane0 .. lane0+n_lanes-1`` of the H×W×spp frame, or None
     for a textured BVH scene or one over 512 primitive rows.  A scene on the
     CPU runs the plain version; a scene on the card launches the kernel.
+    ``trace.kernel`` is the kernel's KernelCounter.
     """
-    if scene_pack.bvh is not None:
-        return _make_mesh_camera_tracer(scene_pack, camera, cfg)
-    found = _specializable(scene_pack)
-    if found is None:
+    body = PathBody(scene_pack, camera, cfg)
+    if not body.fits:
         return None
-    scene, mats = found
-    if mats.any_textured:
-        return _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats)
-    sky_idx = int(scene_pack.sky_mat)
-    cam = HostCamera(camera, cfg.width, cfg.height)
-    dev = _device_of(scene_pack)
-    raygen = build_fused_raygen(cam, cfg)
-    core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far)
+    if body.bvh:
+        return _make_mesh_camera_tracer(scene_pack, body)
+    if body.textured:
+        return _make_deferred_camera_tracer(scene_pack, body)
+    core = body.core()
 
-    def trace(seed, sample0, lane0=0, n_lanes=None):
-        with profiling.span("fspt.trace"):
-            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
-            h0 = rng.seed_hash(seed)
-            if dev.type == "cpu":
-                sx, sy, sz, dx, dy, dz, pix, smp = raygen(h0, sample0, lane0, n, dev)
-                return planes_to_output(core(h0, sx, sy, sz, dx, dy, dz, pix, smp))
-            prims, meta = scene.tables(dev)
-            mtab, mmeta = mats.tables(dev)
-            outs = _path_outputs(n, dev)
-            _build.launch(CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
-                          mtab.data_ptr(), mmeta.data_ptr(),
-                          _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                          _cam_params(cam, cfg), h0, int(sample0), int(lane0), n,
-                          *(o.data_ptr() for o in outs),
-                          torch.cuda.current_stream(dev).cuda_stream)
-            return _trace_output(*outs)
+    def plain(seed, sample0, lane0, n):
+        h0 = rng.seed_hash(seed)
+        return planes_to_output(core(h0, *body.raygen(h0, sample0, lane0, n, body.dev)))
 
-    return trace
+    def card(seed, sample0, lane0, n):
+        return body.frame(CAMERA_PATH, seed, sample0, lane0, n)
+
+    return _frame_tracer(body, CAMERA_PATH, plain, card)
 
 
-def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
+def _make_deferred_camera_tracer(scene_pack, body: PathBody):
     """Texture-deferred camera-fused tracer (kernel 4).
 
     On the card ``trace`` is one launch: the kernel traces the exact path,
@@ -1151,17 +1197,14 @@ def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
     → ``TraceOutput``) are the plain version, run on any device; on the CPU
     ``trace`` is ``fold(plain_planes(...))``.
     """
-    sky_idx = int(scene_pack.sky_mat)
-    cam = HostCamera(camera, cfg.width, cfg.height)
-    dev = _device_of(scene_pack)
-    raygen = build_fused_raygen(cam, cfg)
-    core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far, deferred_tex=True)
-    tex_scale = torch.from_numpy(mats.tex_scale.astype(np.float32)).to(dev)
+    cfg, dev = body.cfg, body.dev
+    core = body.core(deferred_tex=True)
+    tex_scale = torch.from_numpy(body.mats.tex_scale.astype(np.float32)).to(dev)
 
     def plain_planes(seed, sample0, lane0, n) -> DeferredPlanes:
         h0 = rng.seed_hash(seed)
         slots, p_light, anx, any_, anz, ad, am, segc = core(
-            h0, *raygen(h0, sample0, lane0, n, dev))
+            h0, *body.raygen(h0, sample0, lane0, n, dev))
         return DeferredPlanes(
             fields=stack_slots(slots, DEFERRED_TEX_FIELDS),
             mat=torch.stack([sl["mat"] for sl in slots]), p_light=p_light,
@@ -1188,23 +1231,10 @@ def _make_deferred_camera_tracer(scene_pack, camera, cfg, scene, mats):
                               width=tex.width.data_ptr(), height=tex.height.data_ptr(),
                               scale=tex_scale.data_ptr(), n_texels=k)
 
-    def trace(seed, sample0, lane0=0, n_lanes=None):
-        with profiling.span("fspt.trace"):
-            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
-            if dev.type == "cpu":
-                return fold(plain_planes(seed, sample0, lane0, n))
-            pack = tex_pack()
-            prims, meta = scene.tables(dev)
-            mtab, mmeta = mats.tables(dev)
-            outs = _path_outputs(n, dev)
-            _build.launch(DEFERRED_PATH, prims.data_ptr(), meta.data_ptr(),
-                          mtab.data_ptr(), mmeta.data_ptr(),
-                          _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                          _cam_params(cam, cfg), pack, rng.seed_hash(seed), int(sample0),
-                          int(lane0), n, *(o.data_ptr() for o in outs),
-                          torch.cuda.current_stream(dev).cuda_stream)
-            return _trace_output(*outs)
+    def card(seed, sample0, lane0, n):
+        return body.frame(DEFERRED_PATH, seed, sample0, lane0, n, pre=(tex_pack(),))
 
+    trace = _frame_tracer(body, DEFERRED_PATH, lambda *a: fold(plain_planes(*a)), card)
     trace.plain_planes = plain_planes
     trace.fold = fold
     return trace
@@ -1253,11 +1283,10 @@ def plain_mesh_intersect(scene: HostScene, bvh, shade, totals):
     return intersect
 
 
-def _make_mesh_camera_tracer(scene_pack, camera, cfg):
+def _make_mesh_camera_tracer(scene_pack, body: PathBody):
     """Kernel 13: the camera-fused tracer of an untextured BVH scene, or
     None for a textured one (kernel 4 is the textured form, and walks no
-    tree), one over 512 primitive rows, or ``edge_eps`` (the edge
-    reparameterization rides the queue).
+    tree) or ``edge_eps`` (the edge reparameterization rides the queue).
 
     The tree is the scene's own BVH (``scene_pack.bvh``) in kernel 11's
     packed records (:func:`ops.cuda_bvh.bvh_walk_tables`), built once here;
@@ -1276,54 +1305,34 @@ def _make_mesh_camera_tracer(scene_pack, camera, cfg):
     """
     from fspt_tpu_torch.ops import cuda_bvh
 
-    scene = HostScene(scene_pack.geometry)
-    mats = HostMaterials(scene_pack.materials)
-    if scene.prim_count > MAX_SPECIALIZED_PRIMS or mats.any_textured or cfg.edge_eps != 0.0:
+    if body.textured or body.cfg.edge_eps != 0.0:
         return None
-    sky_idx = int(scene_pack.sky_mat)
-    cam = HostCamera(camera, cfg.width, cfg.height)
-    dev = _device_of(scene_pack)
+    dev = body.dev
     tables = cuda_bvh.bvh_walk_tables(scene_pack.bvh)
     shade = mesh_shade(scene_pack.tri_shade)
-    raygen = build_fused_raygen(cam, cfg)
 
     def plain(seed, sample0, lane0, n) -> TraceOutput:
         h0 = rng.seed_hash(seed)
         totals = torch.zeros((2,), dtype=torch.int64, device=dev)
-        core = build_path_core(scene, mats, cfg, sky_idx, cam.z_far,
-                               intersect=plain_mesh_intersect(scene, scene_pack.bvh, shade,
-                                                              totals))
-        out = planes_to_output(core(h0, *raygen(h0, sample0, lane0, n, dev)))
+        core = body.core(intersect=plain_mesh_intersect(body.scene, scene_pack.bvh, shade,
+                                                        totals))
+        out = planes_to_output(core(h0, *body.raygen(h0, sample0, lane0, n, dev)))
         return out._replace(walk=totals)
 
-    def run(seed, sample0, lane0, n_lanes, count):
-        with profiling.span("fspt.trace"):
-            n = n_lanes if n_lanes is not None else cfg.height * cfg.width * cfg.spp
-            if dev.type == "cpu":
-                out = plain(seed, sample0, lane0, n)
-                return out if count else out._replace(walk=None)
-            prims, meta = scene.tables(dev)
-            mtab, mmeta = mats.tables(dev)
-            outs = _path_outputs(n, dev)
+    def card(count):
+        def run(seed, sample0, lane0, n):
             totals = torch.empty((MESH_TOTALS,), dtype=torch.int64, device=dev) if count else None
-            _build.launch(MESH_CAMERA_PATH, prims.data_ptr(), meta.data_ptr(),
-                          mtab.data_ptr(), mmeta.data_ptr(),
-                          _path_params(scene, mats, cfg, sky_idx, cam.z_far),
-                          _cam_params(cam, cfg), tables.nodes.data_ptr(), tables.n_nodes,
-                          tables.tris.data_ptr(), shade.data_ptr(), rng.seed_hash(seed),
-                          int(sample0), int(lane0), n, *(o.data_ptr() for o in outs),
-                          None if totals is None else totals.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
-            out = _trace_output(*outs)
+            out = body.frame(MESH_CAMERA_PATH, seed, sample0, lane0, n,
+                             pre=(tables.nodes.data_ptr(), tables.n_nodes,
+                                  tables.tris.data_ptr(), shade.data_ptr()),
+                             post=(None if totals is None else totals.data_ptr(),))
             return out if totals is None else out._replace(walk=totals[:2], phases=totals[2:])
 
-    def trace(seed, sample0, lane0=0, n_lanes=None):
-        return run(seed, sample0, lane0, n_lanes, False)
+        return run
 
-    def counted(seed, sample0, lane0=0, n_lanes=None):
-        return run(seed, sample0, lane0, n_lanes, True)
-
-    trace.counted = counted
+    trace = _frame_tracer(body, MESH_CAMERA_PATH, lambda *a: plain(*a)._replace(walk=None),
+                          card(False))
+    trace.counted = _frame_tracer(body, MESH_CAMERA_PATH, plain, card(True))
     trace.plain = plain
     trace.tables = tables
     return trace
@@ -1337,13 +1346,10 @@ def make_path_tracer(scene_pack, cfg, z_far: float = 10000.0):
     primitives (as the reference).  CPU rays run the plain version; CUDA
     rays launch the kernel.
     """
-    found = _specializable(scene_pack)
-    if found is None or found[1].any_textured:
+    body = PathBody(scene_pack, None, cfg, z_far=z_far)
+    if body.bvh or not body.fits or body.textured:
         return None
-    scene, mats = found
-    sky_idx = int(scene_pack.sky_mat)
-    z_far = float(z_far)
-    core = build_path_core(scene, mats, cfg, sky_idx, z_far)
+    core = body.core()
 
     def trace(start, seg, pixel_idx, sample_idx, seed):
         dev = start.device
@@ -1359,16 +1365,9 @@ def make_path_tracer(scene_pack, cfg, z_far: float = 10000.0):
         _build.check_cuda_tensor("seg", seg, torch.float32, (n, 3), dev)
         _build.check_cuda_tensor("pixel_idx", pixel_idx, torch.int32, (n,), dev)
         _build.check_cuda_tensor("sample_idx", sample_idx, torch.int32, (n,), dev)
-        prims, meta = scene.tables(dev)
-        mtab, mmeta = mats.tables(dev)
         outs = _path_outputs(n, dev)
-        _build.launch(RAY_PATH, prims.data_ptr(), meta.data_ptr(),
-                      mtab.data_ptr(), mmeta.data_ptr(),
-                      _path_params(scene, mats, cfg, sky_idx, z_far),
-                      start.data_ptr(), seg.data_ptr(), pixel_idx.data_ptr(),
-                      sample_idx.data_ptr(), h0, n,
-                      *(o.data_ptr() for o in outs),
-                      torch.cuda.current_stream(dev).cuda_stream)
+        body.launch(RAY_PATH, start.data_ptr(), seg.data_ptr(), pixel_idx.data_ptr(),
+                    sample_idx.data_ptr(), h0, n, *(o.data_ptr() for o in outs), dev=dev)
         return _trace_output(*outs)
 
     return trace

@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from fspt_tpu_torch.camera import generate_rays
 from fspt_tpu_torch.ops import rng
-from fspt_tpu_torch.ops.cuda_path import _specializable, build_path_core, planes_to_output
+from fspt_tpu_torch.ops.cuda_path import PathBody, planes_to_output
 from fspt_tpu_torch.ops.cuda_trace import intersect_lanes
 
 #: Bound of a sanitized cotangent (fspt_tpu/ops/diff_path.py:66-67).
@@ -67,21 +67,18 @@ def make_diff_path(scene_pack, cfg, z_far: float = 10000.0, sg_hits: bool = Fals
     camera gradients.  ``z_far`` must be ``camera.z_far``.  ``cfg.edge_eps``
     is ignored: silhouette terms need the general integrator.
     """
-    found = _specializable(scene_pack)
-    if found is None or found[1].any_textured:
+    body = PathBody(scene_pack, None, cfg, z_far=z_far)
+    if body.bvh or not body.fits or body.textured:
         return None
-    scene, mats = found
-    sky_idx = int(scene_pack.sky_mat)
 
     intersect = None
     if sg_hits:
         def intersect(sx, sy, sz, dx, dy, dz, alive):
             with torch.no_grad():
-                return intersect_lanes(scene, sx, sy, sz, dx, dy, dz, want_texcoords=False)
+                return intersect_lanes(body.scene, sx, sy, sz, dx, dy, dz, want_texcoords=False)
 
     def trace(table, camera, seed, sample0, y0=0, rows=None):
-        core = build_path_core(scene, mats, cfg, sky_idx, float(z_far), tmats=table,
-                               intersect=intersect)
+        core = body.core(tmats=table, intersect=intersect)
         start, seg, pix, smp = generate_rays(camera, cfg.width, cfg.height, cfg.spp,
                                              seed, sample0, y0=y0, rows=rows)
         start = _SanitizeGrad.apply(start)

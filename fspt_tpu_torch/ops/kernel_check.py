@@ -207,10 +207,7 @@ def check_path_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) -> d
     start, seg, pix, smp = generate_rays(camera, cfg.width, cfg.height, cfg.spp,
                                          seed, sample0)
     k = tracer(start, seg, pix, smp, seed)
-    scene = cuda_trace.HostScene(scene_pack.geometry)
-    mats = cuda_path.HostMaterials(scene_pack.materials)
-    core = cuda_path.build_path_core(scene, mats, cfg, int(scene_pack.sky_mat),
-                                     float(camera.z_far))
+    core = cuda_path.PathBody(scene_pack, None, cfg, z_far=float(camera.z_far)).core()
     p = cuda_path.planes_to_output(core(
         rng.seed_hash(seed), start[:, 0], start[:, 1], start[:, 2],
         seg[:, 0], seg[:, 1], seg[:, 2], pix, smp))
@@ -224,16 +221,12 @@ def check_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) ->
     (:func:`compare_paths` with ``every``), and the ``lane0`` band split and
     a second launch against the full frame, bit for bit."""
     tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
-    assert not hasattr(tracer, "plain_planes"), "a textured scene takes kernel 4"
+    assert tracer.kernel is cuda_path.CAMERA_PATH, tracer.kernel.name
     k = tracer(seed, sample0)
     n = cfg.height * cfg.width * cfg.spp
-    scene = cuda_trace.HostScene(scene_pack.geometry)
-    mats = cuda_path.HostMaterials(scene_pack.materials)
-    cam = cuda_path.HostCamera(camera, cfg.width, cfg.height)
-    raygen = cuda_path.build_fused_raygen(cam, cfg)
-    core = cuda_path.build_path_core(scene, mats, cfg, int(scene_pack.sky_mat), cam.z_far)
+    body = cuda_path.PathBody(scene_pack, camera, cfg)
     h0 = rng.seed_hash(seed)
-    p = cuda_path.planes_to_output(core(h0, *raygen(h0, sample0, 0, n, scene_pack.device)))
+    p = cuda_path.planes_to_output(body.core()(h0, *body.raygen(h0, sample0, 0, n, body.dev)))
     torch.cuda.synchronize()
     rep = compare_paths(k, p, every=True)
     rep.update(check_lane_independence(tracer, seed, sample0, n, k))
@@ -250,7 +243,7 @@ def check_mesh_camera_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 
     against the full frame, bit for bit; the build that counts nothing
     (``trace``) equal to the counting one, bit for bit."""
     tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
-    assert scene_pack.bvh is not None and hasattr(tracer, "counted"), "not a mesh scene"
+    assert tracer.kernel is cuda_path.MESH_CAMERA_PATH, tracer.kernel.name
     n = cfg.height * cfg.width * cfg.spp
     k = tracer.counted(seed, sample0)
     p = tracer.plain(seed, sample0, 0, n)
@@ -274,7 +267,7 @@ def check_deferred_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) 
     with ``every``), and the ``lane0`` band split and a second launch
     against the full frame, bit for bit."""
     tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
-    assert hasattr(tracer, "plain_planes"), "not a textured scene"
+    assert tracer.kernel is cuda_path.DEFERRED_PATH, tracer.kernel.name
     n = cfg.height * cfg.width * cfg.spp
     k = tracer(seed, sample0)
     p = tracer.fold(tracer.plain_planes(seed, sample0, 0, n))

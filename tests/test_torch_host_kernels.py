@@ -3,10 +3,12 @@ their plain versions on the CPU.
 
 g++ builds fspt_tpu_torch/csrc/fspt_kernels.cu and fspt_deferred.cu against
 tests/host_shim/cuda_runtime.h, where a launch runs every thread of the grid
-in turn, and the tests call the kernels' C launchers on CPU tensors.  So the
-kernels' arithmetic and control flow (the primitive walk over the rows a
-block stages one kind at a time, the material switch, kernel 4's texel fold)
-run here, where there is no card; the card runs the same comparisons in
+in turn, and the tests call the kernels' C launchers on CPU tensors, each
+with the launch head its card wrapper passes (``cuda_path.PathBody.head``:
+the table pointers, PathParams and CamParams).  So the kernels' arithmetic
+and control flow (the primitive walk over the rows a block stages one kind
+at a time, the material switch, kernel 4's texel fold) run here, where
+there is no card; the card runs the same comparisons in
 tests/test_torch_kernels_gpu.py and chip_smoke.py.  Bars: radiance at rtol
 1e-4 / atol 1e-5, material AOVs and segment counts equal, on every value
 (the host's sinf / cosf round some lanes' last bit otherwise than torch's);
@@ -91,8 +93,7 @@ def _setup(name, w, h, spp, fast, aperture):
     b = samples.build(name, device=CPU, aperture=aperture, focal_depth=120.0)
     sp = b.compile(device=CPU)
     cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=8, fast_render=fast)
-    scene, mats = cuda_trace.HostScene(sp.geometry), cuda_path.HostMaterials(sp.materials)
-    return b, sp, cfg, scene, mats
+    return b, sp, cfg
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -100,19 +101,15 @@ def test_camera_kernels_on_host(libs, case):
     """Kernel 2, or kernel 4 for a textured scene, against the tracer's plain
     version (for kernel 4, the fold of its plain slot planes)."""
     name, w, h, spp, fast, seed, aperture = case
-    b, sp, cfg, scene, mats = _setup(name, w, h, spp, fast, aperture)
-    cam = cuda_path.HostCamera(b.cameras[0], w, h)
+    b, sp, cfg = _setup(name, w, h, spp, fast, aperture)
+    body = cuda_path.PathBody(sp, b.cameras[0], cfg)
+    head = body.head(CPU)
     n = w * h * spp
-    prims, meta = scene.tables(CPU)
-    mtab, mmeta = mats.tables(CPU)
-    head = (prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
-            cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
-            cuda_path._cam_params(cam, cfg))
     outs = cuda_path._path_outputs(n, CPU)
     tail = (rng.seed_hash(seed), 2, 0, n, *(o.data_ptr() for o in outs), None)
-    if mats.any_textured:
+    if body.textured:
         tex = sp.textures
-        scale = torch.from_numpy(mats.tex_scale.astype(np.float32))
+        scale = torch.from_numpy(body.mats.tex_scale.astype(np.float32))
         pack = _build.TexPack(texels=tex.texels.data_ptr(), offset=tex.offset.data_ptr(),
                               width=tex.width.data_ptr(), height=tex.height.data_ptr(),
                               scale=scale.data_ptr(), n_texels=tex.texels.shape[0])
@@ -126,18 +123,17 @@ def test_camera_kernels_on_host(libs, case):
 @pytest.mark.parametrize("name", ["all_families", "all_primitives"])
 def test_ray_path_kernel_on_host(libs, name):
     """Kernel 3 against its plain version on rays from generate_rays."""
-    b, sp, cfg, scene, mats = _setup(name, 31, 23, 2, False, 0.0)
+    b, sp, cfg = _setup(name, 31, 23, 2, False, 0.0)
     cam = b.cameras[0]
     start, seg, pix, smp = generate_rays(cam, cfg.width, cfg.height, cfg.spp, 4, 0)
     n = start.shape[0]
-    prims, meta = scene.tables(CPU)
-    mtab, mmeta = mats.tables(CPU)
+    body = cuda_path.PathBody(sp, None, cfg, z_far=float(cam.z_far))
+    head = body.head(CPU)
+    assert len(head) == 5  # no CamParams: the rays come in
     outs = cuda_path._path_outputs(n, CPU)
     assert libs["fspt_kernels"].fspt_ray_path(
-        prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
-        cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), float(cam.z_far)),
-        start.data_ptr(), seg.data_ptr(), pix.data_ptr(), smp.data_ptr(), rng.seed_hash(4), n,
-        *(o.data_ptr() for o in outs), None) == 0
+        *head, start.data_ptr(), seg.data_ptr(), pix.data_ptr(), smp.data_ptr(),
+        rng.seed_hash(4), n, *(o.data_ptr() for o in outs), None) == 0
     tracer = cuda_path.make_path_tracer(sp, cfg, z_far=float(cam.z_far))
     _held(cuda_path._trace_output(*outs), tracer(start, seg, pix, smp, 4))
 
@@ -197,12 +193,11 @@ def test_affine_planes_kernel_on_host(libs, name, fast):
     scene, fast render off and on, over a ragged frame from lane 0 and over
     a band from a later lane.  Fields at check_affine_planes's bar on every
     value; the material rows, p_light and the segment count equal."""
-    b, sp, cfg, scene, mats = _setup(name, 31, 23, 2, fast, 1.5)
+    b, sp, cfg = _setup(name, 31, 23, 2, fast, 1.5)
     planes = cuda_grad.make_affine_planes(sp, b.cameras[0], cfg)
-    cam = cuda_path.HostCamera(b.cameras[0], cfg.width, cfg.height)
+    body = cuda_path.PathBody(sp, b.cameras[0], cfg)
+    head = body.head(CPU)
     S = cuda_path.n_slots(cfg)
-    prims, meta = scene.tables(CPU)
-    mtab, mmeta = mats.tables(CPU)
     for lane0, n in ((0, cfg.width * cfg.height * cfg.spp), (301, 555)):
         p = planes.plain(8, 2, lane0, n)
         assert len(p.fields) == (5 if name.endswith("textured") else 3)
@@ -211,11 +206,9 @@ def test_affine_planes_kernel_on_host(libs, name, fast):
         p_light = torch.empty((n,), dtype=torch.bool)
         segcnt = torch.empty((n,), dtype=torch.int32)
         assert libs["fspt_deferred"].fspt_affine_planes(
-            prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
-            cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
-            cuda_path._cam_params(cam, cfg), rng.seed_hash(8), 2, lane0, n,
-            fields.data_ptr(), len(p.fields), rows[0].data_ptr(), rows[1].data_ptr(),
-            p_light.data_ptr(), segcnt.data_ptr(), None) == 0
+            *head, rng.seed_hash(8), 2, lane0, n, fields.data_ptr(), len(p.fields),
+            rows[0].data_ptr(), rows[1].data_ptr(), p_light.data_ptr(), segcnt.data_ptr(),
+            None) == 0
         for f, key in enumerate(p.fields):
             assert _close(fields[f], p.fields[key], 1e-4, 1e-5), key
         assert torch.equal(rows[0], p.mat) and torch.equal(rows[1], p.mat_e)
@@ -236,13 +229,10 @@ def test_mesh_camera_path_kernel_on_host(libs, band):
     sp = b.compile(device=CPU)
     cfg = RenderConfig(width=32, height=24, spp=2, max_depth=4)
     tracer = cuda_path.make_camera_path_tracer(sp, b.cameras[0], cfg)
-    scene, mats = cuda_trace.HostScene(sp.geometry), cuda_path.HostMaterials(sp.materials)
-    cam = cuda_path.HostCamera(b.cameras[0], cfg.width, cfg.height)
-    assert cam.aperture == 1.5
+    body = cuda_path.PathBody(sp, b.cameras[0], cfg)
+    assert body.cam.aperture == 1.5
     lane0, n = band
     n = n or cfg.width * cfg.height * cfg.spp
-    prims, meta = scene.tables(CPU)
-    mtab, mmeta = mats.tables(CPU)
     shade = cuda_path.mesh_shade(sp.tri_shade)
     plain = tracer.counted(9, 4, lane0=lane0, n_lanes=n)
     for counted in (True, False):
@@ -250,9 +240,7 @@ def test_mesh_camera_path_kernel_on_host(libs, band):
         totals = torch.zeros((cuda_path.MESH_TOTALS,), dtype=torch.int64)
         walk, phases = totals[:2], totals[2:]
         assert libs["fspt_kernels"].fspt_mesh_camera_path(
-            prims.data_ptr(), meta.data_ptr(), mtab.data_ptr(), mmeta.data_ptr(),
-            cuda_path._path_params(scene, mats, cfg, int(sp.sky_mat), cam.z_far),
-            cuda_path._cam_params(cam, cfg), tracer.tables.nodes.data_ptr(),
+            *body.head(CPU), tracer.tables.nodes.data_ptr(),
             tracer.tables.n_nodes, tracer.tables.tris.data_ptr(), shade.data_ptr(),
             rng.seed_hash(9), 4, lane0, n, *(o.data_ptr() for o in outs),
             totals.data_ptr() if counted else None, None) == 0

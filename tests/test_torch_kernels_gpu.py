@@ -64,7 +64,7 @@ def test_camera_path_kernel_lanes_dying_at_depth_0(cuda):
     """Kernel 2 as above on the flagship seen from inside the box looking
     out, where most lanes die at depth 0."""
     from fspt_tpu_torch.camera import Camera
-    from fspt_tpu_torch.ops import cuda_path, cuda_trace, kernel_check, rng
+    from fspt_tpu_torch.ops import cuda_path, kernel_check, rng
     from fspt_tpu_torch.scene import samples
 
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=8)
@@ -72,13 +72,10 @@ def test_camera_path_kernel_lanes_dying_at_depth_0(cuda):
     out = Camera.create(origin=(0.0, 20.0, 45.0), target=(0.0, -40.0, -200.0), fov_y=60.0,
                         aperture_size=0.0, device=cuda)
     kernel_check.check_camera_tracer(flag, out, cfg, seed=3, sample0=1)
-    cam = cuda_path.HostCamera(out, cfg.width, cfg.height)
-    core = cuda_path.build_path_core(cuda_trace.HostScene(flag.geometry),
-                                     cuda_path.HostMaterials(flag.materials), cfg,
-                                     int(flag.sky_mat), cam.z_far)
+    body = cuda_path.PathBody(flag, out, cfg)
     h0 = rng.seed_hash(3)
-    segcnt = core(h0, *cuda_path.build_fused_raygen(cam, cfg)(
-        h0, 1, 0, cfg.width * cfg.height * cfg.spp, cuda))[-1]
+    segcnt = body.core()(h0, *body.raygen(h0, 1, 0, cfg.width * cfg.height * cfg.spp,
+                                          cuda))[-1]
     assert float((segcnt == 1).float().mean()) > 0.5
 
 
