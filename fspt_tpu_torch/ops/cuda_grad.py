@@ -464,7 +464,9 @@ def make_affine_planes(scene_pack, camera, cfg):
     frame lanes ``lane0 .. lane0+n-1``, or None for a scene the megakernels
     do not take.  A scene on the CPU runs the plain version
     (``build_path_core(defer_all=True, want_aovs=False)``), which
-    ``planes.plain`` runs on any device."""
+    ``planes.plain`` runs on any device.  ``planes.scene``, ``.mats`` and
+    ``.bias`` are the body's (:class:`ops.cuda_path.PathBody`), for the
+    fold."""
     body = PathBody(scene_pack, camera, cfg)
     if body.bvh or not body.fits:
         return None
@@ -498,7 +500,7 @@ def _affine_planes(body: PathBody):
         return AffinePlanes(dict(zip(fkeys, fields)), rows[:S], rows[S:2 * S], p_light,
                             rows[2 * S].sum())
 
-    planes.scene, planes.mats = body.scene, mats
+    planes.scene, planes.mats, planes.bias = body.scene, mats, body.bias
     planes.plain = plain
     return planes
 
@@ -531,7 +533,7 @@ def make_affine_grad_image_fn(scene_pack, camera, cfg):
         u = p.fields.get("u", torch.zeros_like(p.fields["s"]))
         v = p.fields.get("v", torch.zeros_like(p.fields["s"]))
         Lx, Ly, Lz = fold_deferred_params(
-            mats, cfg, params.get("diffuse", table.diffuse),
+            mats, planes.bias, cfg, params.get("diffuse", table.diffuse),
             params.get("emissive", table.emissive), params.get("glow", table.glow),
             tex, p.fields["s"], p.fields["k"], p.fields["se"], p.mat, p.mat_e, u, v,
             p.p_light)
@@ -543,14 +545,14 @@ def make_affine_grad_image_fn(scene_pack, camera, cfg):
     return img_fn
 
 
-def table_grads(mats, g_coef, g_bias, fields) -> dict:
+def table_grads(bias, g_coef, g_bias, fields) -> dict:
     """Map the gradient with respect to the coefficient values (diffuse,
     ``[M,3]``) and the bias values (:func:`ops.cuda_path.bias_table`,
-    ``[M,3]``) onto the table fields."""
-    bc = torch.from_numpy(mats.bias_column()).to(g_coef.device)[:, None]
-    per_field = {"diffuse": g_coef + torch.where(bc == 2, g_bias, 0.0),
-                 "emissive": torch.where(bc == 0, g_bias, 0.0),
-                 "glow": torch.where(bc == 1, g_bias, 0.0)}
+    ``[M,3]``) onto the table fields, by ``bias``, the ``[M,1]`` bias
+    column on the gradients' device (:attr:`ops.cuda_path.PathBody.bias`)."""
+    per_field = {"diffuse": g_coef + torch.where(bias == 2, g_bias, 0.0),
+                 "emissive": torch.where(bias == 0, g_bias, 0.0),
+                 "glow": torch.where(bias == 1, g_bias, 0.0)}
     return {f: per_field[f] for f in fields}
 
 
@@ -649,7 +651,7 @@ def _affine_loss(scene_pack, fields, _remat, body: PathBody):
             p = planes.plain(seed, sample0, lane0, n)
             zero = torch.zeros_like(p.fields["s"])
             rad = torch.stack(fold_deferred_params(
-                mats, cfg, diffuse, emissive, glow, scene_pack.textures,
+                mats, body.bias, cfg, diffuse, emissive, glow, scene_pack.textures,
                 p.fields["s"], p.fields["k"], p.fields["se"], p.mat, p.mat_e, zero,
                 zero, p.p_light), dim=-1)
             res.append(rad - tgt)
@@ -661,7 +663,7 @@ def _affine_loss(scene_pack, fields, _remat, body: PathBody):
     def launch(params, target, seed, sample_a, sample_b, lane0, n):
         diffuse, emissive, glow = values(params)
         tc_tab = diffuse.detach().to(torch.float32).contiguous()
-        te_tab = bias_table(mats, diffuse, emissive, glow).detach().contiguous()
+        te_tab = bias_table(body.bias, diffuse, emissive, glow).detach().contiguous()
         tgt = target.detach().to(torch.float32).reshape(-1, 3).contiguous()
         _build.check_cuda_tensor("target", tgt, torch.float32, (n // cfg.spp, 3), dev)
         _build.check_cuda_tensor("diffuse", tc_tab, torch.float32, (mats.count, 3), dev)
@@ -677,7 +679,7 @@ def _affine_loss(scene_pack, fields, _remat, body: PathBody):
                     int_out.data_ptr())
         out = out.to(torch.float32)
         g = out[1:].reshape(2, mats.count, 3)
-        return out[0], table_grads(mats, g[0], g[1], fields), int_out[0]
+        return out[0], table_grads(body.bias, g[0], g[1], fields), int_out[0]
 
     return plain, launch
 

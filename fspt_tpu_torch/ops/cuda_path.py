@@ -936,17 +936,19 @@ def fold_deferred_radiance(table, tex, cfg, s, k0, k1, k2, se, ke0, ke1, ke2,
     return _light_clamp(cfg, Lx, Ly, Lz, p_light)
 
 
-def bias_table(mats: HostMaterials, diffuse, emissive, glow):
+def bias_table(bias, diffuse, emissive, glow):
     """The ``[M,3]`` values a bias event reads per row: emissive (lights,
     sky), glow (Glow) or diffuse (Fog), as pallas_path.py:922-926 picks
-    them."""
-    bc = torch.from_numpy(mats.bias_column()).to(diffuse.device)[:, None]
-    return torch.where(bc == 1, glow, torch.where(bc == 2, diffuse, emissive))
+    them, by ``bias``, the ``[M,1]`` bias column on the values' device
+    (:attr:`PathBody.bias`)."""
+    return torch.where(bias == 1, glow, torch.where(bias == 2, diffuse, emissive))
 
 
-def fold_deferred_params(mats: HostMaterials, cfg, diffuse, emissive, glow, tex,
+def fold_deferred_params(mats: HostMaterials, bias, cfg, diffuse, emissive, glow, tex,
                          s, k, se, mat_c, mat_e, u, v, p_light):
-    """Fold of the ``defer_all`` slots (pallas_path.py:905).
+    """Fold of the ``defer_all`` slots (pallas_path.py:905); ``bias`` is
+    the table's ``[M,1]`` bias column on the planes' device
+    (:attr:`PathBody.bias`).
 
     Slot fields are ``[S, N]`` planes.  Per depth, the coefficient value
     ``tc = texture(mat_c) | diffuse[mat_c]`` (0 where ``mat_c < 0``) and the
@@ -961,7 +963,7 @@ def fold_deferred_params(mats: HostMaterials, cfg, diffuse, emissive, glow, tex,
     ``index_add``.  A row outside the table reads 0, as there.
     """
     count = mats.count
-    e_tab = bias_table(mats, diffuse, emissive, glow)
+    e_tab = bias_table(bias, diffuse, emissive, glow)
     dev = s.device
     any_tex = mats.any_textured
     if any_tex:
@@ -1050,10 +1052,14 @@ class PathBody:
     The scene, checked once: ``scene`` (HostScene), ``mats``
     (HostMaterials), ``sky_idx``, ``cam`` (HostCamera; None for kernel 3,
     whose rays come in, which gives ``z_far`` instead) and ``dev`` (the
-    scene's device, cpu or cuda).  The facts a factory picks its kernel by:
-    ``bvh`` (the scene has a BVH: kernel 13's), ``textured`` (a material row
-    has a texture) and ``fits`` (at most MAX_SPECIALIZED_PRIMS primitive
-    rows; past it the reference takes its general path).
+    scene's device, cpu or cuda).  ``bias`` is the ``[M,1]`` column of
+    :meth:`HostMaterials.bias_column` on ``dev``, which kernel 8 affine's
+    wrapper and kernel 7's fold read: copied to the card here, once, since
+    a copy from host memory in a call would wait for the card.  The facts
+    a factory picks its kernel by: ``bvh`` (the scene has a BVH: kernel
+    13's), ``textured`` (a material row has a texture) and ``fits`` (at
+    most MAX_SPECIALIZED_PRIMS primitive rows; past it the reference takes
+    its general path).
 
     The card side: the launch head every path-body launcher takes first —
     the four table pointers, PathParams and, with a camera, CamParams —
@@ -1070,6 +1076,7 @@ class PathBody:
         self.dev, self.cfg = dev, cfg
         self.scene = HostScene(scene_pack.geometry)
         self.mats = mats = HostMaterials(scene_pack.materials)
+        self.bias = torch.from_numpy(mats.bias_column()).to(dev)[:, None]
         self.sky_idx = int(scene_pack.sky_mat)
         self.bvh = scene_pack.bvh is not None
         self.textured = mats.any_textured

@@ -330,8 +330,8 @@ def check_affine_planes(scene_pack, camera, cfg, seed: int, sample0: int = 0, y0
         tex = scene_pack.textures._replace(texels=leaves.get("texels", base["texels"]))
         zero = torch.zeros_like(pl.fields["s"])
         rad = torch.stack(cuda_path.fold_deferred_params(
-            planes.mats, cfg, leaves["diffuse"], leaves["emissive"], table.glow, tex,
-            pl.fields["s"], pl.fields["k"], pl.fields["se"], pl.mat, pl.mat_e,
+            planes.mats, planes.bias, cfg, leaves["diffuse"], leaves["emissive"], table.glow,
+            tex, pl.fields["s"], pl.fields["k"], pl.fields["se"], pl.mat, pl.mat_e,
             pl.fields.get("u", zero), pl.fields.get("v", zero), pl.p_light), dim=-1)
         img = rad.reshape(rows, cfg.width, cfg.spp, 3).mean(dim=2)
         grads = torch.autograd.grad((img ** 2).mean(), [leaves[nm] for nm in names])

@@ -169,6 +169,7 @@ def test_folds_and_their_gradients_match_reference(name, live):
     t = {k: torch.from_numpy(v) for k, v in pl.items()}
     rmats = rpp.HostMaterials(scene.materials)
     pmats = cuda_path.HostMaterials(ps.materials)
+    bias = torch.from_numpy(pmats.bias_column())[:, None]
 
     def ref_params(diffuse, emissive, glow, texels):
         tex = scene.textures._replace(texels=texels)
@@ -184,7 +185,7 @@ def test_folds_and_their_gradients_match_reference(name, live):
     def port_params(diffuse, emissive, glow, texels):
         tex = ps.textures._replace(texels=texels)
         a = cuda_path.fold_deferred_params(
-            pmats, cfg, diffuse, emissive, glow, tex, t["s"], t["k"], t["se"],
+            pmats, bias, cfg, diffuse, emissive, glow, tex, t["s"], t["k"], t["se"],
             t["mat"], t["mat_e"], t["u"], t["v"], t["p_light"])
         b = cuda_path.fold_deferred_radiance(
             ps.materials, tex, cfg, t["s"], t["k"], t["k1"], t["k2"], t["se"],

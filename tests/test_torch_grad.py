@@ -261,6 +261,43 @@ def test_fused_loss_takes_fields_in_any_order():
         assert torch.equal(ga[k], gb[k]), k
 
 
+@pytest.mark.parametrize("fields", [("diffuse", "emissive"), ("diffuse", "emissive", "glow")])
+def test_bias_column_is_the_wrappers_and_maps_each_row(fields):
+    """The bias column that kernels 7 and 8 read is made once with the
+    path body and equals ``mats.bias_column()``; ``bias_table`` and
+    ``table_grads`` fed from it pick, row by row, the reference's column
+    (pallas_path.py:922-926): glow for Glow, diffuse for Fog, emissive for
+    every other row (the lights and the sky among them)."""
+    from fspt_tpu_torch import materials as M
+    from fspt_tpu_torch.ops import cuda_path
+    from fspt_tpu_torch.scene import samples
+
+    b = samples.build("all_families", device="cpu")
+    ps, cfg = b.compile(device="cpu"), RenderConfig(width=8, height=8, spp=1, max_depth=2)
+    planes = cuda_grad.make_affine_planes(ps, b.cameras[0], cfg)
+    mats, bias = planes.mats, planes.bias
+    assert bias.shape == (mats.count, 1)
+    assert torch.equal(bias[:, 0], torch.from_numpy(mats.bias_column()))
+    assert set(mats.bias_column().tolist()) == {0, 1, 2}
+
+    rng = np.random.default_rng(3)
+    diffuse, emissive, glow, g_coef, g_bias = (
+        torch.from_numpy(rng.random((mats.count, 3), dtype=np.float32)) for _ in range(5))
+    values = cuda_path.bias_table(bias, diffuse, emissive, glow)
+    grads = cuda_grad.table_grads(bias, g_coef, g_bias, fields)
+    assert list(grads) == list(fields)
+    zero = torch.zeros(3)
+    for r, t in enumerate(mats.mtype.tolist()):
+        fog, is_glow = t == M.FOG, t == M.GLOW
+        want = diffuse[r] if fog else glow[r] if is_glow else emissive[r]
+        assert torch.equal(values[r], want), r
+        per_row = {"diffuse": g_coef[r] + (g_bias[r] if fog else zero),
+                   "emissive": zero if fog or is_glow else g_bias[r],
+                   "glow": g_bias[r] if is_glow else zero}
+        for f in fields:
+            assert torch.equal(grads[f][r], per_row[f]), (f, r)
+
+
 def test_grad_image_matches_planar_reference(specular_reference):
     """Kernels 9-10 (their plain version: autograd of the body with the
     parameters as table tensors) against the reference's planar path

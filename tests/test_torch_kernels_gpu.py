@@ -203,6 +203,81 @@ def test_fused_loss_plan(cuda, n_mats, n_slot, n, block, grid):
         cuda_grad.loss_plan(65, n_slot, n)
 
 
+def test_pool1_step_waits_on_nothing(cuda, monkeypatch):
+    """The pool-1 recovery step (kernel 8 affine, then Adam and the clip)
+    makes no synchronizing call: after a warm-up step, two steps under
+    ``torch.cuda.set_sync_debug_mode("error")`` raise nothing, so the host
+    queues the gradient mapping and the update while kernel 8 runs.  Their
+    loss, gradients, parameters and Adam moments are bit-equal to the same
+    steps with the bias column copied from ``mats.bias_column()`` on every
+    call, before the launch and after it (the copy that waited for the
+    card), which the mode refuses."""
+    import numpy as np
+
+    from fspt_tpu_torch.ops import cuda_grad, cuda_path
+    from fspt_tpu_torch.parallel import make_fused_recovery_step
+    from fspt_tpu_torch.scene import samples
+
+    cfg = RenderConfig(width=96, height=64, spp=2, max_depth=8)
+    b = samples.build("flagship", device=cuda)
+    scene, cam = b.compile(device=cuda), b.cameras[0]
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (cfg.height, cfg.width, 3), dtype=np.float32)).to(cuda)
+    mats = cuda_path.HostMaterials(scene.materials)
+
+    def copied_column(device):
+        return torch.from_numpy(mats.bias_column()).to(device)[:, None]
+
+    def copying_bias_table(_bias, diffuse, emissive, glow):
+        bc = copied_column(diffuse.device)
+        return torch.where(bc == 1, glow, torch.where(bc == 2, diffuse, emissive))
+
+    def copying_table_grads(_bias, g_coef, g_bias, fields):
+        bc = copied_column(g_coef.device)
+        per_field = {"diffuse": g_coef + torch.where(bc == 2, g_bias, 0.0),
+                     "emissive": torch.where(bc == 0, g_bias, 0.0),
+                     "glow": torch.where(bc == 1, g_bias, 0.0)}
+        return {f: per_field[f] for f in fields}
+
+    def steps(sync_mode):
+        step = make_fused_recovery_step(None, scene, cam, cfg, pool=1,
+                                        optimizer=lambda ps: torch.optim.Adam(ps, lr=0.02))
+        params = {"diffuse": scene.materials.diffuse * 0.8,
+                  "emissive": scene.materials.emissive * 0.7}
+        state = step.init(params)
+        params, state, _ = step(params, state, scene, cam, target, 5, 0)
+        torch.cuda.synchronize()
+        out = []
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            for i in (1, 2):
+                params, state, loss = step(params, state, scene, cam, target, 5, i)
+                moments = state.optimizer.state
+                out.append((loss, {k: v.clone() for k, v in params.items()},
+                            {k: (leaf.grad.clone(), moments[leaf]["exp_avg"].clone(),
+                                 moments[leaf]["exp_avg_sq"].clone())
+                             for k, leaf in state.leaves.items()}))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    got = steps("error")
+    with monkeypatch.context() as m:
+        m.setattr(cuda_grad, "bias_table", copying_bias_table)
+        m.setattr(cuda_grad, "table_grads", copying_table_grads)
+        want = steps("default")
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            steps("error")
+    for (loss, params, per_leaf), (w_loss, w_params, w_leaf) in zip(got, want):
+        assert torch.equal(loss, w_loss)
+        for k in w_params:
+            assert torch.equal(params[k], w_params[k]), k
+        for k in w_leaf:
+            for a, w in zip(per_leaf[k], w_leaf[k]):
+                assert torch.equal(a, w), k
+
+
 ADJOINT_FIELDS = ("diffuse", "emissive", "glow", "param", "ior", "reflectivity", "frost")
 
 
