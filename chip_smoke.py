@@ -2617,7 +2617,8 @@ def main():
     record = int(cuda_grad.adjoint_plan(1, 1, cfg_t.effective_depth)[1] > 0)
     variant = {"grad_backward": f"<{record}>", "fused_loss_chain": f"<{record}>",
                "grad_forward": "<1>",  # kernel 9 as the pool-8 route runs it, recording
-               "mesh_camera_path": "<0>"}  # kernel 13 as the main path runs it, counting nothing
+               "mesh_camera_path": "<0>",  # kernel 13 as the main path runs it, counting nothing
+               "deferred_path": "<0>"}  # kernel 4 likewise
     kernels = []
     for key, c in counters.items():
         t = timings[key]

@@ -153,9 +153,10 @@ _SIGNATURES = {
     },
     "fspt_deferred": {
         # head, TexPack, h0, sample0, lane0, n, radiance, normal, depth,
-        # aov_mat, segcnt, stream
+        # aov_mat, segcnt, fetches (cuda_path.TEX_TOTALS int64, or null),
+        # stream
         "fspt_deferred_camera_path": [*_BODY_HEAD, TexPack, _U, _I, _I, _I, _P, _P, _P, _P,
-                                      _P, _P],
+                                      _P, _P, _P],
         # head, h0, sample0, lane0, n, fields, n_fields, mat, mat_e, p_light,
         # segcnt, stream
         "fspt_affine_planes": [*_BODY_HEAD, _U, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],

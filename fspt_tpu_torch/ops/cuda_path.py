@@ -95,6 +95,10 @@ MESH_CAMERA_PATH = _build.KernelCounter(
 #: kMeshTotals): node steps and triangle tests (``walk``), then leaf phases,
 #: leaves tested in them and warp walks (``phases``).
 MESH_TOTALS = 5
+#: Kernel 4's counting build's totals a launch (csrc/fspt_deferred.cu
+#: kTexTotals): the slots that fetched a texel of a surface row, then those
+#: that fetched the sky's row.
+TEX_TOTALS = 2
 
 
 def _one_minus(x):
@@ -1191,22 +1195,41 @@ def make_camera_path_tracer(scene_pack, camera, cfg):
     return _frame_tracer(body, CAMERA_PATH, plain, card)
 
 
+def fetch_counts(tex_id, sky_idx: int, p: DeferredPlanes) -> torch.Tensor:
+    """``[2]`` int64: the slots of the plain planes ``p`` that fetch a
+    texel of a surface row, then those that fetch the sky's row, as kernel
+    4's counting build counts them: a slot fetches where its row (``p.mat``
+    clamped into the table ``tex_id``, the rows' texture ids) is at least 0
+    and has a texture."""
+    m = p.mat
+    row = torch.clamp(m, 0, tex_id.shape[0] - 1).long()
+    fetched = (m >= 0) & (tex_id[row] >= 0)
+    sky = fetched & (row == sky_idx)
+    return torch.stack([(fetched & ~sky).sum(), sky.sum()]).to(torch.int64)
+
+
 def _make_deferred_camera_tracer(scene_pack, body: PathBody):
     """Texture-deferred camera-fused tracer (kernel 4).
 
-    On the card ``trace`` is one launch: the kernel traces the exact path,
-    fetches each depth's texel and folds it in (the order of
-    :func:`fold_deferred_radiance`), then applies the light clamp.  It
-    gives no texel gradient: texels that require grad are refused, since
-    texel recovery goes through ``cuda_grad.make_affine_grad_image_fn``
-    (kernel 7).  ``trace.plain_planes(seed, sample0, lane0, n) →
-    DeferredPlanes`` (the per-depth slot planes) and ``trace.fold`` (planes
-    → ``TraceOutput``) are the plain version, run on any device; on the CPU
-    ``trace`` is ``fold(plain_planes(...))``.
+    On the card ``trace`` is one launch of the build that counts nothing:
+    the kernel traces the exact path, fetches each depth's texel and folds
+    it in (the order of :func:`fold_deferred_radiance`), then applies the
+    light clamp.  It gives no texel gradient: texels that require grad are
+    refused, since texel recovery goes through
+    ``cuda_grad.make_affine_grad_image_fn`` (kernel 7).  ``trace.counted``
+    (same arguments) launches the build that also counts the texel fetches:
+    its output's ``fetches`` holds the slots that fetched a surface row's
+    texel and those that fetched the sky's (``[2]`` int64 on the card).
+    ``trace.plain_planes(seed, sample0, lane0, n) → DeferredPlanes`` (the
+    per-depth slot planes), ``trace.fold`` (planes → ``TraceOutput``) and
+    ``trace.fetch_counts`` (planes → the counts, :func:`fetch_counts`) are
+    the plain version, run on any device; on the CPU ``trace`` is
+    ``fold(plain_planes(...))`` and ``trace.counted`` adds its counts.
     """
     cfg, dev = body.cfg, body.dev
     core = body.core(deferred_tex=True)
     tex_scale = torch.from_numpy(body.mats.tex_scale.astype(np.float32)).to(dev)
+    tex_id = torch.from_numpy(body.mats.tex_id).to(dev)
 
     def plain_planes(seed, sample0, lane0, n) -> DeferredPlanes:
         h0 = rng.seed_hash(seed)
@@ -1238,12 +1261,27 @@ def _make_deferred_camera_tracer(scene_pack, body: PathBody):
                               width=tex.width.data_ptr(), height=tex.height.data_ptr(),
                               scale=tex_scale.data_ptr(), n_texels=k)
 
-    def card(seed, sample0, lane0, n):
-        return body.frame(DEFERRED_PATH, seed, sample0, lane0, n, pre=(tex_pack(),))
+    def counts(p: DeferredPlanes) -> torch.Tensor:
+        return fetch_counts(tex_id, body.sky_idx, p)
 
-    trace = _frame_tracer(body, DEFERRED_PATH, lambda *a: fold(plain_planes(*a)), card)
+    def plain_counted(seed, sample0, lane0, n) -> TraceOutput:
+        p = plain_planes(seed, sample0, lane0, n)
+        return fold(p)._replace(fetches=counts(p))
+
+    def card(count):
+        def run(seed, sample0, lane0, n):
+            totals = torch.empty((TEX_TOTALS,), dtype=torch.int64, device=dev) if count else None
+            out = body.frame(DEFERRED_PATH, seed, sample0, lane0, n, pre=(tex_pack(),),
+                             post=(None if totals is None else totals.data_ptr(),))
+            return out if totals is None else out._replace(fetches=totals)
+
+        return run
+
+    trace = _frame_tracer(body, DEFERRED_PATH, lambda *a: fold(plain_planes(*a)), card(False))
+    trace.counted = _frame_tracer(body, DEFERRED_PATH, plain_counted, card(True))
     trace.plain_planes = plain_planes
     trace.fold = fold
+    trace.fetch_counts = counts
     return trace
 
 

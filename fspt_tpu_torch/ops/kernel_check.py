@@ -22,7 +22,9 @@ give the bit-equal shares; their band split and a second launch reproduce
 the full frame bit for bit.  Kernel 13 (kernel 2's body walking a BVH)
 meets the same bar against its plain version over :func:`ops.bvh.walk_bvh`,
 with the walk's node steps and triangle tests equal and its build that
-counts nothing equal to the counting one bit for bit.
+counts nothing equal to the counting one bit for bit.  Kernel 4's counting
+build counts the texel fetches its plain version counts from its slot
+planes, and its outputs equal its build that counts nothing, bit for bit.
 
 Kernel 7: every float slot plane at the radiance bar, the material rows
 equal, on ≥ 99.9 % of values, segments within 0.1 %.  Its image through
@@ -168,21 +170,36 @@ def compare_paths(k, p, every: bool = False) -> dict:
 
 def _same_output(a, b) -> bool:
     """Two TraceOutputs equal bit for bit (and their walk counts, where
-    kernel 13 gives them; not its phase totals, which follow how the lanes
-    fall into warps)."""
+    kernel 13 gives them, and their texel fetch counts, where kernel 4
+    does; not kernel 13's phase totals, which follow how the lanes fall
+    into warps)."""
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
                ("radiance", "aov_normal", "aov_depth", "aov_mat")) and (
-        int(a.segments) == int(b.segments)) and (
-        (a.walk is None) == (b.walk is None) and (a.walk is None or torch.equal(a.walk, b.walk)))
+        int(a.segments) == int(b.segments)) and all(
+        (x is None) == (y is None) and (x is None or torch.equal(x, y))
+        for x, y in ((a.walk, b.walk), (a.fetches, b.fetches)))
 
 
 def _cat_outputs(a, b):
     """Two bands' outputs as one frame's: lane planes joined, totals added."""
     planes = {f: torch.cat([getattr(a, f), getattr(b, f)])
               for f in ("radiance", "aov_normal", "aov_depth", "aov_mat")}
-    return a._replace(**planes, segments=a.segments + b.segments,
-                      walk=None if a.walk is None else a.walk + b.walk,
-                      phases=None if a.phases is None else a.phases + b.phases)
+    add = lambda x, y: None if x is None else x + y  # noqa: E731
+    return a._replace(**planes, segments=a.segments + b.segments, walk=add(a.walk, b.walk),
+                      phases=add(a.phases, b.phases), fetches=add(a.fetches, b.fetches))
+
+
+def output_digest(out) -> str:
+    """SHA-256 of a TraceOutput's lane planes (radiance, normal, depth,
+    material, in that order, as bytes) and its segment count: two builds
+    that agree bit for bit give the same digest."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("radiance", "aov_normal", "aov_depth", "aov_mat"):
+        h.update(getattr(out, f).detach().cpu().contiguous().numpy().tobytes())
+    h.update(str(int(out.segments)).encode())
+    return h.hexdigest()
 
 
 def check_lane_independence(tracer, seed: int, sample0: int, n: int, full) -> dict:
@@ -274,6 +291,29 @@ def check_deferred_tracer(scene_pack, camera, cfg, seed: int, sample0: int = 0) 
     torch.cuda.synchronize()
     rep = compare_paths(k, p, every=True)
     rep.update(check_lane_independence(tracer, seed, sample0, n, k))
+    return rep
+
+
+def check_deferred_counting(scene_pack, camera, cfg, seed: int, sample0: int = 0) -> dict:
+    """Kernel 4's counting build (``trace.counted``) on the card: its
+    surface and sky texel fetch counts equal those its plain version counts
+    from its slot planes (``trace.fetch_counts``), its outputs equal the
+    build that counts nothing bit for bit, and its ``lane0`` band split and
+    a second launch against its full frame, bit for bit with the counts
+    added.  The report gives the default build's :func:`output_digest`."""
+    tracer = cuda_path.make_camera_path_tracer(scene_pack, camera, cfg)
+    assert tracer.kernel is cuda_path.DEFERRED_PATH, tracer.kernel.name
+    n = cfg.height * cfg.width * cfg.spp
+    k = tracer(seed, sample0)
+    c = tracer.counted(seed, sample0)
+    plain = tracer.fetch_counts(tracer.plain_planes(seed, sample0, 0, n))
+    torch.cuda.synchronize()
+    rep = dict(fetches=c.fetches.tolist(), plain_fetches=plain.tolist(),
+               segments=int(c.segments), digest=output_digest(k),
+               counted_bit_equal=_same_output(c._replace(fetches=None), k))
+    assert k.fetches is None and rep["fetches"] == rep["plain_fetches"], rep
+    assert rep["counted_bit_equal"], rep
+    rep.update(check_lane_independence(tracer.counted, seed, sample0, n, c))
     return rep
 
 

@@ -110,6 +110,9 @@ class TraceOutput(NamedTuple):
     #: [3] int64: kernel 13's warp-wide leaf phases, the leaves tested in
     #: them and its warp walks (its counting build on the card), or None.
     phases: Optional[torch.Tensor] = None
+    #: [2] int64: the slots that fetched a texel of a surface row and those
+    #: that fetched the sky's (kernel 4's ``trace.counted``), or None.
+    fetches: Optional[torch.Tensor] = None
 
 
 def trace_radiance(scene: ScenePack, cfg: RenderConfig, start, seg,

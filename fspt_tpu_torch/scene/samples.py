@@ -13,6 +13,9 @@ the same.  Cameras are added by the caller.
 * :func:`all_families` — all nine material families in one closed box.
 * :func:`textured` — the flagship with a seeded checker texture on two walls
   and a textured sky.
+* :func:`textured_flagship` — the flagship with a map of its own on each of
+  its six diffuse rows and a textured sky, the maps given by the caller
+  (the benchmark's are 4096² and 8192×4096, 1.61 GB).
 * ``all_families_textured`` — :func:`all_families` with textured walls, sky,
   lamp, mirror, ceramic and glow rows.
 * :func:`write_textured_cornell` — a textured copy of a ``.scene`` file of
@@ -25,7 +28,8 @@ the same.  Cameras are added by the caller.
   an OBJ mesh, for the CLI.
 
 Textures are checkers whose two colours come from a seeded NumPy generator,
-so both packages build the same texels.
+so both packages build the same texels; :func:`textured_flagship` takes its
+texels from the caller.
 """
 
 from __future__ import annotations
@@ -80,6 +84,50 @@ def flagship(b, M, wall_tex=None):
     b.add_sphere((-22, -35, 8), 15.0, mirror)
     b.add_sphere((22, -38, -6), 12.0, metal)
     b.add_cuboid((0, -42, 18), 16, 16, 16, white, rot_axis=(0, 1, 0), rot_angle=0.5)
+
+
+#: :func:`textured_flagship`'s maps, in the order it adds them: the floor,
+#: the ceiling, the back, left and right walls, the cuboid, then the sky.
+TEXTURED_FLAGSHIP_MAPS = ("floor", "ceiling", "back", "left", "right", "cuboid", "sky")
+#: Its rows' ``tex_scale``: one map spans a 100-unit wall once (the planar
+#: map is in world units) and a 16-unit cuboid face once (its map is ×0.1).
+TEXTURED_FLAGSHIP_SCALES = {"wall": 0.01, "cuboid": 0.625}
+
+
+def textured_flagship(b, M, textures):
+    """The flagship (its geometry, lamp, mirror and metal spheres) with a
+    map on each diffuse row and on the sky: ``textures`` maps each name of
+    :data:`TEXTURED_FLAGSHIP_MAPS` to an ``[H,W,3]`` float32 image.  The
+    diffuse rows keep the flagship's colours, which their maps replace;
+    the sky is a light row whose sphere-mapped map (×3) replaces its
+    emission."""
+    tex = {name: b.add_texture(textures[name]) for name in TEXTURED_FLAGSHIP_MAPS}
+    wall, cube = TEXTURED_FLAGSHIP_SCALES["wall"], TEXTURED_FLAGSHIP_SCALES["cuboid"]
+
+    def diffuse(name, color, scale):
+        return b.add_material(M.MaterialSpec(M.DIFFUSE, diffuse=color, tex_id=tex[name],
+                                             tex_scale=scale))
+
+    white, red, green = (0.73, 0.73, 0.73), (0.65, 0.05, 0.05), (0.12, 0.45, 0.15)
+    rows = [diffuse(name, color, wall) for name, color in
+            (("floor", white), ("ceiling", white), ("back", white), ("left", red),
+             ("right", green))]
+    lamp = b.add_material(M.MaterialSpec(M.LIGHT, emissive=(15.0, 15.0, 15.0)))
+    s = 50.0
+    b.add_quad_uv((-s, -s, -s), (2 * s, 0, 0), (0, 0, 2 * s), rows[0])  # floor
+    b.add_quad_uv((-s, s, -s), (0, 0, 2 * s), (2 * s, 0, 0), rows[1])  # ceiling
+    b.add_quad_uv((-s, -s, s), (2 * s, 0, 0), (0, 2 * s, 0), rows[2])  # back
+    b.add_quad_uv((-s, -s, -s), (0, 2 * s, 0), (0, 0, 2 * s), rows[3])  # left
+    b.add_quad_uv((s, -s, -s), (0, 0, 2 * s), (0, 2 * s, 0), rows[4])  # right
+    b.add_quad_uv((-15.0, s - 0.5, -15.0), (30.0, 0, 0), (0, 0, 30.0), lamp)
+    mirror = b.add_material(M.MaterialSpec(M.MIRROR, diffuse=(0.9, 0.9, 0.9)))
+    metal = b.add_material(M.MaterialSpec(M.METAL, diffuse=(0.8, 0.6, 0.2), param=0.3))
+    b.add_sphere((-22, -35, 8), 15.0, mirror)
+    b.add_sphere((22, -38, -6), 12.0, metal)
+    b.add_cuboid((0, -42, 18), 16, 16, 16, diffuse("cuboid", white, cube),
+                 rot_axis=(0, 1, 0), rot_angle=0.5)
+    b.set_sky(b.add_material(M.MaterialSpec(M.LIGHT, emissive=(1.0, 1.0, 1.0),
+                                            tex_id=tex["sky"])))
 
 
 def _octahedron(center, r):
@@ -325,7 +373,7 @@ SCENES = {"flagship": flagship, "all_primitives": all_primitives,
           "all_families": all_families, "textured": textured,
           "all_families_textured": lambda b, M: all_families(b, M, textured=True),
           "many_materials": many_materials, "flagship_rows": flagship_rows,
-          "heightfield": heightfield}
+          "heightfield": heightfield, "textured_flagship": textured_flagship}
 CAMERAS = {"heightfield": HEIGHTFIELD_CAMERA}
 
 
@@ -333,7 +381,8 @@ def build(name: str, device=None, aperture=0.0, focal_depth=80.0, **scene_kw):
     """The named scene in this package's builder with its camera created on
     ``device``: the standard one (origin (0, 0, -145) looking at the origin,
     ``aperture``, ``focal_depth``) unless the scene has its own
-    (:data:`CAMERAS`).  ``scene_kw`` go to the scene function (``grid``)."""
+    (:data:`CAMERAS`).  ``scene_kw`` go to the scene function (``grid``,
+    ``textures``)."""
     from fspt_tpu_torch import materials as M
     from fspt_tpu_torch.camera import Camera
     from fspt_tpu_torch.scene.builder import SceneBuilder

@@ -88,7 +88,8 @@ def span(name: str):
     tracer's call), ``fspt.accumulate`` (the framebuffer fold),
     ``fspt.recover.step`` and, inside it, ``fspt.recover.grad`` (the loss
     and gradient call) and ``fspt.recover.optimizer`` (the update and the
-    parameter hand-off).  A span neither synchronizes, allocates nor
+    parameter hand-off), and at set-up ``fspt.textures.pack`` (the scene
+    builder's texture pack).  A span neither synchronizes, allocates nor
     launches anything on the device.
     """
     if _profiler_enabled():

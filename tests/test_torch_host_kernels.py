@@ -13,7 +13,8 @@ tests/test_torch_kernels_gpu.py and chip_smoke.py.  Bars: radiance at rtol
 1e-4 / atol 1e-5, material AOVs and segment counts equal, on every value
 (the host's sinf / cosf round some lanes' last bit otherwise than torch's);
 kernel 1's t, normal and texcoords at rtol 1e-5 / atol 1e-6, material and
-kind equal; kernel 13's walk counts equal.  Building both libraries takes
+kind equal; kernel 13's walk counts and kernel 4's texel fetch counts
+equal.  Building both libraries takes
 a few seconds.
 """
 
@@ -108,16 +109,51 @@ def test_camera_kernels_on_host(libs, case):
     outs = cuda_path._path_outputs(n, CPU)
     tail = (rng.seed_hash(seed), 2, 0, n, *(o.data_ptr() for o in outs), None)
     if body.textured:
-        tex = sp.textures
-        scale = torch.from_numpy(body.mats.tex_scale.astype(np.float32))
-        pack = _build.TexPack(texels=tex.texels.data_ptr(), offset=tex.offset.data_ptr(),
-                              width=tex.width.data_ptr(), height=tex.height.data_ptr(),
-                              scale=scale.data_ptr(), n_texels=tex.texels.shape[0])
-        assert libs["fspt_deferred"].fspt_deferred_camera_path(*head, pack, *tail) == 0
+        scale, pack = _tex_pack(sp, body)
+        assert libs["fspt_deferred"].fspt_deferred_camera_path(*head, pack, *tail[:-1], None,
+                                                               None) == 0
     else:
         assert libs["fspt_kernels"].fspt_camera_path(*head, *tail) == 0
     _held(cuda_path._trace_output(*outs),
           cuda_path.make_camera_path_tracer(sp, b.cameras[0], cfg)(seed, 2))
+
+
+def _tex_pack(sp, body):
+    tex = sp.textures
+    scale = torch.from_numpy(body.mats.tex_scale.astype(np.float32))
+    return scale, _build.TexPack(texels=tex.texels.data_ptr(), offset=tex.offset.data_ptr(),
+                                 width=tex.width.data_ptr(), height=tex.height.data_ptr(),
+                                 scale=scale.data_ptr(), n_texels=tex.texels.shape[0])
+
+
+@pytest.mark.parametrize("band", [(0, None), (301, 555)])
+def test_deferred_kernel_counts_fetches_on_host(libs, band):
+    """Kernel 4's counting build (textured walls, lamp, mirror, ceramic,
+    glow and sky) over the whole frame and over a band from a later lane:
+    its surface and sky texel fetches equal those its plain version counts
+    from its slot planes, and its outputs equal the build that counts
+    nothing, bit for bit (the host launch counts on its second pass)."""
+    b, sp, cfg = _setup("all_families_textured", 32, 24, 2, False, 1.5)
+    tracer = cuda_path.make_camera_path_tracer(sp, b.cameras[0], cfg)
+    body = cuda_path.PathBody(sp, b.cameras[0], cfg)
+    scale, pack = _tex_pack(sp, body)
+    lane0, n = band
+    n = n or cfg.width * cfg.height * cfg.spp
+    plain = tracer.counted(7, 4, lane0=lane0, n_lanes=n)
+    got = []
+    for counted in (True, False):
+        outs = cuda_path._path_outputs(n, CPU)
+        totals = torch.zeros((cuda_path.TEX_TOTALS,), dtype=torch.int64)
+        assert libs["fspt_deferred"].fspt_deferred_camera_path(
+            *body.head(CPU), pack, rng.seed_hash(7), 4, lane0, n,
+            *(o.data_ptr() for o in outs), totals.data_ptr() if counted else None, None) == 0
+        got.append(cuda_path._trace_output(*outs))
+        _held(got[-1], plain)
+        assert torch.equal(totals, plain.fetches if counted else torch.zeros_like(totals))
+    for field in ("radiance", "aov_normal", "aov_depth", "aov_mat"):
+        assert torch.equal(getattr(got[0], field), getattr(got[1], field)), field
+    surface, sky = plain.fetches.tolist()
+    assert surface > 0 and sky > 0
 
 
 @pytest.mark.parametrize("name", ["all_families", "all_primitives"])

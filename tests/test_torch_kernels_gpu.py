@@ -124,6 +124,37 @@ def test_deferred_camera_kernel_matches_plain(cuda, case):
     kernel_check.check_deferred_tracer(scene, b.cameras[0], cfg, seed=6, sample0=2)
 
 
+#: Kernel 4's outputs (``kernel_check.output_digest``) in each of
+#: CAMERA_CASES, as the build before the counting build was added gave them
+#: on an NVIDIA H100 80GB HBM3: the default build must still give them.
+DEFERRED_DIGESTS = {
+    (64, 48, 2, False): "6f2a9760ff318de0ca1ab4acf310d88a207b347d318058b25217137364d82bc8",
+    (64, 48, 2, True): "e0411f9802ced78c19224e6a720c532e8f7231a6205b2b3ff7118e3e89de93b4",
+    (61, 37, 3, False): "e94bb58737dd2afd8cb28090dd63a7c3e99917506fceab9409354f0a6a002ad8",
+}
+
+
+@pytest.mark.parametrize("case", CAMERA_CASES)
+def test_deferred_counting_build_matches_plain(cuda, case):
+    """Kernel 4's counting build counts the texel fetches of the surface
+    rows and of the sky that its plain version counts from its slot planes,
+    its outputs equal the default build's bit for bit (band split and
+    second launch too), and the default build's outputs are those it gave
+    before the counting build was added."""
+    from fspt_tpu_torch.ops import kernel_check
+    from fspt_tpu_torch.scene import samples
+
+    w, h, spp, fast = case
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=8, fast_render=fast)
+    b = samples.build("all_families_textured", device=cuda, aperture=1.5,
+                      focal_depth=120.0)
+    rep = kernel_check.check_deferred_counting(b.compile(device=cuda), b.cameras[0], cfg,
+                                               seed=6, sample0=2)
+    surface, sky = rep["fetches"]
+    assert surface > 0 and sky > 0, rep
+    assert rep["digest"] == DEFERRED_DIGESTS[case], rep
+
+
 def test_deferred_camera_kernel_refuses_texel_grad(cuda):
     """Kernel 4 gives the texels no gradient, so on the card it refuses
     texels that require grad and names kernel 7's route."""
